@@ -6,18 +6,36 @@
 Phases (each prints its seconds; any failure exits non-zero with no
 result line):
 
-  1. build   — compile every CUDA kernel of the main path from
-               ``src/repro_torch/kernels/csrc`` with nvcc;
+  1. build   — compile every CUDA kernel of the main paths from
+               ``src/repro_torch/kernels/csrc`` with nvcc, one process per
+               source, all started together;
   2. check   — each kernel against its plain PyTorch version on CUDA
-               tensors, for seeded random swarms: resnet101 on the paper
-               fleet (both fidelity modes), the paper's Fig. 8 problem
-               (30 resnet101 copies, 10,140 layers), and one fleet bucket
-               of 8 zoo DNNs; ``feasible`` exact, costs rtol 1e-5;
-  3. time    — the kernel and its plain version at the Fig. 8 shape;
+               tensors, for seeded random swarms. B1 (zero-load replay):
+               resnet101 on the paper fleet (both fidelity modes), the
+               paper's Fig. 8 problem (30 resnet101 copies, 10,140
+               layers), one fleet bucket of 8 zoo DNNs; ``feasible``
+               exact, costs rtol 1e-5. B2 (traffic replay), both modes:
+               the qwen3-0.6b traffic bucket, an alexnet + googlenet fleet
+               bucket under each of the four arrival families (one app
+               with no request at all), resnet101; ``static_ok`` and miss
+               rates exact, costs, latency sums and latencies rtol 1e-5;
+  3. time    — each kernel and its plain version: B1 at the Fig. 8 shape,
+               B2 at the qwen3-0.6b traffic bucket and at resnet101;
   4. plan    — the main path: ``plan_offload_batch`` for qwen3-0.6b's
                serving shapes, as ``python -m repro_torch.launch.plan``;
-  5. fig8    — ``run_pso_ga`` on the Fig. 8 problem at the paper's
-               settings, no worse than ``greedy_offload``'s plan.
+  5. traffic — the same plan under bursty traffic (``--traffic bursty``):
+               every key replays through the plain traffic replay, B2 is
+               held against its plain version at the solve's own buckets
+               and draws and at each held-out replay, and each plan's
+               held-out miss tails are printed;
+  6. fig8    — ``run_pso_ga`` on the Fig. 8 problem at the paper's
+               settings, no worse than ``greedy_offload``'s plan;
+  7. traffic-fleet — alexnet + googlenet at the paper's settings, solved
+               zero-load and traffic-aware under bursty and flash-crowd
+               traffic: B2 is held against its plain version at the
+               solves' own buckets and draws and at every held-out replay,
+               and the traffic-aware plan's held-out p95 miss rate is no
+               worse than the zero-load plan's.
 
 Kernel launch counters are zeroed just before each solve path and read
 just after; every solve's plans are replayed by the numpy oracle
@@ -31,6 +49,7 @@ import subprocess
 import sys
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -103,6 +122,42 @@ def bound_ms(pp, P, faithful):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def traffic_bound_ms(ppb, tin, P, faithful):
+    """Least time for one traffic replay of P particles per draw on the
+    stacked ``ppb`` under the merged orders ``tin``: bytes (inputs once,
+    outputs once, no latency grid) over HBM bandwidth against f32
+    operations over the non-tensor f32 peak. The walk's work is counted
+    from this run's real steps: 9 operations per step, per parent edge 4
+    (faithful) or 6 (corrected), per child edge 2, plus the epilogue."""
+    N, max_p = ppb.order.shape
+    M = tin.slot_m.shape[1]
+    A, R = tin.arr2.shape[-2:]
+    S = ppb.max_servers
+    max_in, max_out = ppb.parent_idx.shape[-1], ppb.child_idx.shape[-1]
+    nv = tin.n_valid.cpu().numpy()
+    slots = tin.slot_m.cpu().numpy()
+    indeg = (ppb.parent_idx >= 0).sum(-1).cpu().numpy()      # (N, max_p)
+    outdeg = (ppb.child_idx >= 0).sum(-1).cpu().numpy()
+    per_edge = 4 if faithful else 6
+    ops = 0
+    for n in range(N):
+        for m in range(M):
+            j = slots[n, m, :nv[n, m]] % max_p
+            ops += P * (9 * j.size + per_edge * int(indeg[n, j].sum())
+                        + 2 * int(outdeg[n, j].sum()))
+    ops += N * M * P * (3 * S + 4 * A * R + 2)
+    nbytes = (N * P * max_p * 4                      # genes
+              + N * max_p * 16                       # order/compute/app/pin
+              + N * max_p * (max_in + max_out) * 8   # relatives, MBs
+              + N * (A * 4 + S * 8 + S * S * 9)      # deadline, servers
+              + 8 * int(nv.sum()) + 4 * N * M        # walked steps, n_valid
+              + 5 * N * M * A * R                    # arr2, req_valid
+              + N * M * P * 12 + N * P)              # outputs
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -111,7 +166,7 @@ def main() -> int:
     import repro_torch.core as port
     from repro_torch.core.batch import SYNC_EVERY
     from repro_torch.core.simulator import kernel_args
-    from repro_torch.kernels import _build, schedule_sim
+    from repro_torch.kernels import _build, schedule_sim, traffic_sim
     from repro_torch.core.paper import PAPER_PSO, fig8_problem
 
     dev = torch.device("cuda")
@@ -121,17 +176,25 @@ def main() -> int:
           f"python {sys.version.split()[0]} device "
           f"{torch.cuda.get_device_name(0)}", flush=True)
     failures = []
-    replay = schedule_sim.schedule_replay
-    rec = {"max_abs_err": 0.0}
+    # the kernels' dispatches, each with its launch counter (not
+    # ``port.traffic_replay``, which replays one plan through B2)
+    b1 = schedule_sim.schedule_replay
+    b2 = traffic_sim.traffic_replay
+    rec = {"max_abs_err": 0.0, "traffic_max_abs_err": 0.0}
 
     # 1. build ------------------------------------------------------------
     def build():
         t0 = time.perf_counter()
-        path = _build.build("schedule_sim")
-        print(f"[build] {path.relative_to(ROOT)} in "
+        names = ("schedule_sim", "traffic_sim")
+        with ThreadPoolExecutor(len(names)) as pool:
+            paths = list(pool.map(_build.build, names))
+        for name, path in zip(names, paths):
+            print(f"[build] {path.relative_to(ROOT)}")
+            print(_build.build_log(name) or "(cached)")
+        print(f"[build] {len(names)} kernels in "
               f"{time.perf_counter() - t0:.2f} s")
-        print(_build.build_log("schedule_sim") or "(cached)")
         schedule_sim._lib()
+        traffic_sim._lib()
     _phase("build", build, failures)
 
     # 2. check ------------------------------------------------------------
@@ -166,7 +229,7 @@ def main() -> int:
         return ppb, X
 
     def compare(tag, ppb, X, faithful):
-        got = replay(*kernel_args(ppb), X, faithful=faithful)
+        got = b1(*kernel_args(ppb), X, faithful=faithful)
         torch.cuda.synchronize()
         want = schedule_sim.schedule_replay_plain(*kernel_args(ppb), X,
                                                   faithful=faithful)
@@ -184,6 +247,133 @@ def main() -> int:
         assert same_feas, f"{tag}: feasible differs"
         assert max(rels) <= RTOL, f"{tag}: costs differ beyond rtol {RTOL}"
         assert all(torch.isfinite(t).all() for t in got[::2]), tag
+
+    traffic_cfg = port.TrafficConfig(kind="bursty", rate=0.5)
+
+    def traffic_bucket():
+        """The bucket the traffic phase solves: the plan bucket under the
+        bursty 0.5/s solver draws of ``plan_offload_batch`` (request i
+        from seed SEED + 31 i): 3 problems x 48 particles x 32 layers,
+        M = 3 draws, R = 8 requests."""
+        ppb, X = plan_bucket()
+        arr = port.pack_arrivals([traffic_cfg.solver_arrivals(
+            1, seed=SEED + 31 * i) for i in range(len(shapes))], 1)
+        return ppb, X, port.traffic_inputs(ppb, arr)
+
+    def resnet_traffic():
+        """resnet101 (338 layers) x 100 particles under 3 bursty draws of
+        R = 8 requests."""
+        d = port.zoo.build("resnet101", pin_server=0)
+        h, _ = port.heft_makespan(d, env)
+        prob = port.SimProblem.build(d.with_deadline(np.array([2.0 * h])),
+                                     env)
+        ppb = port.stack_problems([port.pad_problem(prob, device=dev)])
+        X = torch.as_tensor(random_swarm(rng, prob, 100, prob.num_layers),
+                            device=dev)[None]
+        arr = port.sample_arrivals("bursty", 1, rate=0.5, n_seeds=3,
+                                   seed=SEED).t
+        return ppb, X, port.traffic_inputs(ppb, arr[None])
+
+    def tcompare(tag, ppb, X, tin, faithful, grid=True):
+        """B2 against its plain version on the same CUDA tensors; with
+        ``grid`` both also fill a latency grid (as a held-out replay
+        does), without it neither does (as the solver's fitness).
+        Returns the plain version's outputs."""
+        (N, P), (M, A, R) = X.shape[:2], tin.arr2.shape[1:]
+        lat_k, lat_p = (torch.empty((N, M, P, A, R), device=dev)
+                        if grid else None for _ in range(2))
+        got = b2(*kernel_args(ppb), X, *tin, faithful=faithful,
+                      latency=lat_k)
+        torch.cuda.synchronize()
+        want = traffic_sim.traffic_replay_plain(
+            *kernel_args(ppb), X, *tin, faithful=faithful, latency=lat_p)
+        same_ok = bool(torch.equal(got[3], want[3]))
+        same_miss = bool(torch.equal(got[1], want[1]))
+        pairs = [(got[k], want[k]) for k in ((0, 2, 4) if grid else (0, 2))]
+        errs = [float((g - w).abs().max()) for g, w in pairs]
+        rels = [float(((g - w).abs() / w.abs().clamp_min(1e-30)).max())
+                for g, w in pairs]
+        rec["traffic_max_abs_err"] = max(rec["traffic_max_abs_err"], *errs)
+        lat_err = f"{errs[2]:.3g}" if grid else "(no grid)"
+        print(f"[check] B2 {tag}: X {tuple(X.shape)} M {M} R {R} steps "
+              f"{tin.n_valid.min().item()}..{tin.n_valid.max().item()} "
+              f"static_ok {int(want[3].sum())}/{want[3].numel()} "
+              f"equal={same_ok} miss>0 {int((want[1] > 0).sum())}/"
+              f"{want[1].numel()} equal={same_miss} max_abs_err total "
+              f"{errs[0]:.3g} lat_sum {errs[1]:.3g} latency {lat_err} "
+              f"max_rel_err {max(rels):.3g}", flush=True)
+        assert same_ok, f"{tag}: static_ok differs"
+        assert same_miss, f"{tag}: miss_rate differs"
+        assert max(rels) <= RTOL, f"{tag}: beyond rtol {RTOL}"
+        assert all(torch.isfinite(g).all() for g, _ in pairs), tag
+        return want
+
+    def check_solve_buckets(tag, probs, arrivals, P, winners, faithful):
+        """B2 against its plain version at a traffic solve's own launches:
+        ``pack_fleet``'s buckets of ``probs`` under the solver draws
+        ``arrivals``, P particles, no latency grid. The swarm holds each
+        problem's plans from ``winners`` (lists of ``PSOGAResult``) after
+        two anchors, then seeded random particles."""
+        fleet = port.pack_fleet(probs, device=dev)
+        for b in fleet.buckets:
+            tin = port.traffic_inputs(b.ppb, port.pack_arrivals(
+                [arrivals[i] for i in b.idx], fleet.max_apps))
+            X = np.stack([random_swarm(rng, probs[i], P, b.max_p)
+                          for i in b.idx])
+            for j, i in enumerate(b.idx):
+                for k, res in enumerate(winners):
+                    X[j, 2 + k, :probs[i].num_layers] = res[i].best_x
+            tcompare(f"{tag} solve bucket max_p {b.max_p} "
+                     f"problems {b.idx.tolist()}", b.ppb,
+                     torch.as_tensor(X, device=dev), tin, faithful,
+                     grid=False)
+
+    def check_heldout(tag, prob, x, ev, faithful, reported):
+        """B2 against its plain version at a held-out replay's launch (one
+        plan, every evaluation draw, latency grid), built as
+        ``traffic_replay`` builds it; the reported miss tails must be the
+        plain replay's."""
+        ppb = port.stack_problems([port.pad_problem(prob, device=dev)])
+        A = int(ppb.deadline.shape[-1])
+        arr = np.full((ev.shape[0], A, ev.shape[2]), np.inf)
+        arr[:, :ev.shape[1]] = ev
+        X = torch.zeros((1, 1, ppb.max_layers), dtype=torch.int32,
+                        device=dev)
+        X[0, 0, :len(x)] = torch.as_tensor(x, device=dev)
+        want = tcompare(f"{tag} held-out", ppb, X,
+                        port.traffic_inputs(ppb, arr[None]), faithful)
+        mr = want[1][0, :, 0].cpu().numpy().astype(float)
+        for q in (50, 95, 99):
+            assert reported[f"miss_p{q}"] == float(np.percentile(mr, q)), \
+                (tag, q, reported)
+
+    def check_traffic():
+        ppb, X, tin = traffic_bucket()
+        for faithful in (True, False):
+            tcompare(f"qwen3-0.6b traffic bucket faithful={faithful}", ppb,
+                     X, tin, faithful)
+        probs = []
+        for i, net in enumerate(("alexnet", "googlenet")):
+            d = port.merge_dags([port.zoo.build(net, pin_server=2 * i + k)
+                                 for k in range(2)])
+            hd, _ = port.heft_makespan(d, env)
+            probs.append(port.SimProblem.build(
+                d.with_deadline(np.full(2, 1.5 * hd)), env))
+        ppb = port.pack_problems(probs, device=dev)
+        Xb = torch.as_tensor(np.stack([
+            random_swarm(rng, pr, 100, ppb.max_layers) for pr in probs]),
+            device=dev)
+        for kind in port.TRAFFIC_KINDS:
+            arrs = [port.sample_arrivals(kind, 2, rate=0.5, n_seeds=3,
+                                         seed=SEED + i).t for i in range(2)]
+            arrs[0][0, 1] = np.inf          # an app with no request at all
+            tin = port.traffic_inputs(ppb, port.pack_arrivals(arrs, 2))
+            for faithful in (True, False):
+                tcompare(f"alexnet+googlenet bucket {kind} "
+                         f"faithful={faithful}", ppb, Xb, tin, faithful)
+        ppb, X, tin = resnet_traffic()
+        for faithful in (True, False):
+            tcompare(f"resnet101 faithful={faithful}", ppb, X, tin, faithful)
 
     def check():
         ppb, X = plan_bucket()
@@ -218,6 +408,7 @@ def main() -> int:
         for faithful in (True, False):
             compare(f"fleet bucket of 8 faithful={faithful}", ppb, Xb,
                     faithful)
+        check_traffic()
     _phase("check", check, failures)
 
     # 3. time -------------------------------------------------------------
@@ -239,7 +430,7 @@ def main() -> int:
     def time_kernel():
         ppb, X = plan_bucket()
         args = kernel_args(ppb)
-        kernel = cuda_ms(lambda: replay(*args, X, faithful=False), 50)
+        kernel = cuda_ms(lambda: b1(*args, X, faithful=False), 50)
         plain = cuda_ms(lambda: schedule_sim.schedule_replay_plain(
             *args, X, faithful=False), 5)
         print(f"[time] qwen3-0.6b plan bucket X {tuple(X.shape)} corrected: "
@@ -249,7 +440,7 @@ def main() -> int:
                                          fig8_prob.num_layers),
                             device=dev)[None]
         args = kernel_args(ppb)
-        kernel = cuda_ms(lambda: replay(*args, X, faithful=False), 20)
+        kernel = cuda_ms(lambda: b1(*args, X, faithful=False), 20)
         plain = cuda_ms(lambda: schedule_sim.schedule_replay_plain(
             *args, X, faithful=False), 2)
         bms, by = bound_ms(ppb, 100, faithful=False)
@@ -257,6 +448,21 @@ def main() -> int:
         print(f"[time] fig8 corrected P=100 x {fig8_prob.num_layers} "
               f"layers: kernel {kernel:.4f} ms  plain {plain:.2f} ms  "
               f"bound {bms:.6f} ms ({by})", flush=True)
+        for tag, (ppb, X, tin), reps in (
+                ("resnet101", resnet_traffic(), (20, 2)),
+                ("qwen3-0.6b traffic bucket", traffic_bucket(), (50, 3))):
+            args = kernel_args(ppb)
+            kernel = cuda_ms(lambda: b2(*args, X, *tin, faithful=False),
+                             reps[0])
+            plain = cuda_ms(lambda: traffic_sim.traffic_replay_plain(
+                *args, X, *tin, faithful=False), reps[1])
+            bms, by = traffic_bound_ms(ppb, tin, X.shape[1], faithful=False)
+            timing[f"traffic {tag}"] = dict(ms=kernel, plain_ms=plain,
+                                            bound_ms=bms, bound_by=by)
+            print(f"[time] B2 {tag} corrected X {tuple(X.shape)} M "
+                  f"{tin.n_valid.shape[1]} steps {int(tin.n_valid.sum())}: "
+                  f"kernel {kernel:.4f} ms  plain {plain:.2f} ms  bound "
+                  f"{bms:.6f} ms ({by})", flush=True)
     _phase("time", time_kernel, failures)
 
     def replay_ok(tag, dag, env_, res, faithful):
@@ -273,14 +479,14 @@ def main() -> int:
     launches = {}
 
     def plan():
-        replay.launches = 0
+        b1.launches = 0
         t0 = time.perf_counter()
         plans = port.plan_offload_batch(
             [(get("qwen3-0.6b"), s, DEADLINE_RATIO) for s in shapes],
             env=tpu_env, pso=DEFAULT_PSO, seed=SEED)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches["plan"] = replay.launches
+        launches["plan"] = b1.launches
         for shape, p in zip(shapes, plans):
             print(f"[plan] {shape.name}: iterations "
                   f"{p.result.iterations}\n{p.summary()}")
@@ -292,15 +498,68 @@ def main() -> int:
         assert launches["plan"] > 0, "main path never launched the kernel"
     _phase("plan", plan, failures)
 
-    # 5. fig8 at the paper's settings -------------------------------------
+    # 5. traffic: the plan under a bursty request stream -------------------
+    def traffic():
+        b1.launches = 0
+        b2.launches = 0
+        t0 = time.perf_counter()
+        plans = port.plan_offload_batch(
+            [(get("qwen3-0.6b"), s, DEADLINE_RATIO) for s in shapes],
+            env=tpu_env, pso=DEFAULT_PSO, seed=SEED, traffic=traffic_cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches["traffic"] = b2.launches
+        launches["traffic_zero_load"] = b1.launches
+        for i, (shape, p) in enumerate(zip(shapes, plans)):
+            assert p.backend == "cuda"
+            # the returned key, replayed through the plain traffic replay
+            pp = port.pad_problem(port.SimProblem.build(p.dag, p.env),
+                                  device="cpu")
+            key = float(port.make_swarm_fitness(
+                pp, DEFAULT_PSO.faithful_sim,
+                arrivals=traffic_cfg.solver_arrivals(1, seed=SEED + 31 * i),
+                miss_budget=traffic_cfg.miss_budget)(
+                torch.as_tensor(p.result.best_x[None]))[0])
+            tr = p.traffic
+            print(f"[traffic] {shape.name}: iterations "
+                  f"{p.result.iterations} key {p.result.best_fitness:.8g} "
+                  f"(plain replay {key:.8g}); held-out miss p50/p95/p99 "
+                  f"{tr['miss_p50']:.4f}/{tr['miss_p95']:.4f}/"
+                  f"{tr['miss_p99']:.4f} over {tr['requests']} requests\n"
+                  f"{p.summary()}")
+            np.testing.assert_allclose(p.result.best_fitness, key,
+                                       rtol=RTOL, err_msg=shape.name)
+            replay_ok(shape.name, p.dag, p.env, p.result,
+                      DEFAULT_PSO.faithful_sim)
+        print(f"[traffic] qwen3-0.6b under bursty 0.5/s: {len(plans)} shapes "
+              f"in {wall:.3f} s, traffic_replay launches "
+              f"{launches['traffic']}, schedule_replay launches "
+              f"{launches['traffic_zero_load']}", flush=True)
+        assert launches["traffic"] > 0, "traffic path never launched B2"
+        # B2 at this phase's own launches, after its counts were read
+        probs = [port.SimProblem.build(p.dag, p.env) for p in plans]
+        check_solve_buckets(
+            "traffic", probs,
+            [traffic_cfg.solver_arrivals(p.dag.num_apps, seed=SEED + 31 * i)
+             for i, p in enumerate(plans)],
+            DEFAULT_PSO.pop_size, [[p.result for p in plans]],
+            DEFAULT_PSO.faithful_sim)
+        for i, (shape, p, pr) in enumerate(zip(shapes, plans, probs)):
+            check_heldout(f"traffic {shape.name}", pr, p.result.best_x,
+                          traffic_cfg.eval_arrivals(p.dag.num_apps,
+                                                    seed=SEED + 31 * i),
+                          DEFAULT_PSO.faithful_sim, p.traffic)
+    _phase("traffic", traffic, failures)
+
+    # 6. fig8 at the paper's settings -------------------------------------
     def fig8():
         cfg = PAPER_PSO
-        replay.launches = 0
+        b1.launches = 0
         t0 = time.perf_counter()
         res = port.run_pso_ga(fig8_dag, fig8_env, cfg, seed=SEED)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches["fig8"] = replay.launches
+        launches["fig8"] = b1.launches
         t1 = time.perf_counter()
         greedy = port.greedy_offload(fig8_dag, fig8_env)
         g_wall = time.perf_counter() - t1
@@ -320,6 +579,67 @@ def main() -> int:
             <= res.iterations + 2 + SYNC_EVERY, launches["fig8"]
     _phase("fig8", fig8, failures)
 
+    # 7. traffic-fleet: traffic-aware against zero-load plans ---------------
+    def traffic_fleet():
+        cfg = PAPER_PSO
+        fleet = []
+        for i, net in enumerate(("alexnet", "googlenet")):
+            d = port.zoo.build(net, pin_server=i)
+            h, _ = port.heft_makespan(d, env)
+            fleet.append((d.with_deadline(np.array([1.5 * h])), env))
+        probs = [port.SimProblem.build(dag, env) for dag, _ in fleet]
+        for kind in ("bursty", "flash-crowd"):
+            tc = port.TrafficConfig(kind=kind, rate=0.5,
+                                    miss_budget=cfg.miss_budget)
+            b1.launches = 0
+            b2.launches = 0
+            t0 = time.perf_counter()
+            zero = port.run_pso_ga_batch(fleet, cfg, seed=SEED)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            solver_arr = [tc.solver_arrivals(1, seed=SEED + 31 * i)
+                          for i in range(len(fleet))]
+            aware = port.run_pso_ga_batch(fleet, cfg, seed=SEED,
+                                          arrivals=solver_arr)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            n_b2, n_b1 = b2.launches, b1.launches
+            print(f"[traffic-fleet] {kind}: zero-load solve {t1 - t0:.2f} s, "
+                  f"traffic-aware solve {t2 - t1:.2f} s, traffic_replay "
+                  f"launches {n_b2}, schedule_replay launches {n_b1}",
+                  flush=True)
+            assert n_b2 > 0
+            # B2 at the traffic-aware solve's own launches
+            check_solve_buckets(f"traffic-fleet {kind}", probs, solver_arr,
+                                cfg.pop_size, [zero, aware], cfg.faithful_sim)
+            for i, prob in enumerate(probs):
+                ev = tc.eval_arrivals(1, seed=SEED + 31 * i)
+                st = {name: port.traffic_stats(port.traffic_replay(
+                    prob, res[i].best_x, ev, faithful=cfg.faithful_sim))
+                    for name, res in (("zero", zero), ("aware", aware))}
+                for name, res in (("zero", zero), ("aware", aware)):
+                    check_heldout(f"traffic-fleet {kind} {name} {i}", prob,
+                                  res[i].best_x, ev, cfg.faithful_sim,
+                                  st[name])
+                print(f"[traffic-fleet] {kind} {('alexnet', 'googlenet')[i]}"
+                      f": held-out miss p50/p95/p99 zero-load "
+                      f"{st['zero']['miss_p50']:.4f}/"
+                      f"{st['zero']['miss_p95']:.4f}/"
+                      f"{st['zero']['miss_p99']:.4f} (load cost "
+                      f"${st['zero']['cost_mean']:.6f}, {zero[i].iterations}"
+                      f" iterations) traffic-aware "
+                      f"{st['aware']['miss_p50']:.4f}/"
+                      f"{st['aware']['miss_p95']:.4f}/"
+                      f"{st['aware']['miss_p99']:.4f} (load cost "
+                      f"${st['aware']['cost_mean']:.6f}, "
+                      f"{aware[i].iterations} iterations, key "
+                      f"{aware[i].best_fitness:.6g})", flush=True)
+                replay_ok(f"{kind} aware {i}", fleet[i][0], env, aware[i],
+                          cfg.faithful_sim)
+                assert st["aware"]["miss_p95"] <= st["zero"]["miss_p95"], \
+                    (kind, i, st)
+    _phase("traffic-fleet", traffic_fleet, failures)
+
     jax_loaded = "jax" in sys.modules
     print(f"[imports] jax loaded: {jax_loaded}")
     if jax_loaded:
@@ -328,6 +648,7 @@ def main() -> int:
         print(f"chip_smoke: FAILED phases: {', '.join(failures)}",
               file=sys.stderr)
         return 1
+    t_main = timing["traffic qwen3-0.6b traffic bucket"]
     print(json.dumps({"kernels": [{
         "name": "schedule_replay", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/schedule_sim.cu",
@@ -336,6 +657,14 @@ def main() -> int:
         "max_abs_err": rec["max_abs_err"],
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
+        "library_ms": None}, {
+        "name": "traffic_replay", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/traffic_sim.cu",
+        "replaces": "src/repro/kernels/traffic_sim.py:66",
+        "launches": launches["traffic"],
+        "max_abs_err": rec["traffic_max_abs_err"],
+        "ms": t_main["ms"], "plain_ms": t_main["plain_ms"],
+        "bound_ms": t_main["bound_ms"], "bound_by": t_main["bound_by"],
         "library_ms": None}]}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

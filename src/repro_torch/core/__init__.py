@@ -5,7 +5,9 @@ Public surface of this slice:
   * LayerDAG / preprocess / merge_dags      — paper §III-A, Alg. 1
   * Environment / paper_environment / ...   — paper §III-A, Tables II-IV
   * SimProblem / simulate_np / pad_problem / simulate_swarm — paper Alg. 2
-  * make_swarm_fitness / fitness_key        — paper Eq. 14-16
+  * make_swarm_fitness / fitness_key        — paper Eq. 14-16 (+ traffic key)
+  * sample_arrivals / TrafficConfig / simulate_traffic_swarm /
+    traffic_replay / traffic_stats          — queue-aware planning
   * run_pso_ga / PSOGAConfig / swarm_step   — paper §IV (Eq. 17-23)
   * greedy_offload / heft_makespan          — paper §V-B competitors
   * run_pso_ga_batch / pack_fleet           — fleet-scale batched solver
@@ -21,12 +23,17 @@ from .simulator import (PaddedProblem, SimProblem, SimResult,
                         build_simulator, pad_problem, padded_from_arrays,
                         simulate_np, simulate_padded, simulate_swarm,
                         stack_problems)
-from .fitness import (INFEASIBLE_OFFSET, fitness_key, make_swarm_fitness,
-                      migration_cost)
+from .traffic import (TRAFFIC_KINDS, ArrivalTrace, MergedOrder,
+                      TrafficConfig, TrafficInputs, TrafficResult, TrafficSim,
+                      merged_order, percentile_linear, sample_arrivals,
+                      simulate_traffic_swarm, traffic_inputs, traffic_replay,
+                      traffic_stats, zero_contention_arrivals)
+from .fitness import (INFEASIBLE_OFFSET, MISS_PENALTY, fitness_key,
+                      make_swarm_fitness, migration_cost)
 from .pso_ga import (PSOGAConfig, PSOGAResult, SwarmDraws, draw_swarm,
                      init_swarm, run_pso_ga, state_from_arrays, swarm_step)
-from .batch import (FleetBucket, PackedFleet, bucket_size, pack_fleet,
-                    pack_problems, run_pso_ga_batch)
+from .batch import (FleetBucket, PackedFleet, bucket_size, pack_arrivals,
+                    pack_fleet, pack_problems, run_pso_ga_batch)
 from .seeding import coerce_seed, rng_entropy
 from .baselines import greedy_offload, heft_makespan
 from .partition import Stage, contiguous_stages, stage_cut_cost, \
@@ -43,12 +50,17 @@ __all__ = [
     "SimProblem", "SimResult", "build_simulator", "simulate_np",
     "PaddedProblem", "pad_problem", "padded_from_arrays", "simulate_padded",
     "simulate_swarm", "stack_problems",
-    "INFEASIBLE_OFFSET", "fitness_key", "make_swarm_fitness",
+    "TRAFFIC_KINDS", "ArrivalTrace", "MergedOrder", "TrafficConfig",
+    "TrafficInputs", "TrafficResult", "TrafficSim", "merged_order",
+    "percentile_linear", "sample_arrivals", "simulate_traffic_swarm",
+    "traffic_inputs", "traffic_replay", "traffic_stats",
+    "zero_contention_arrivals",
+    "INFEASIBLE_OFFSET", "MISS_PENALTY", "fitness_key", "make_swarm_fitness",
     "migration_cost",
     "PSOGAConfig", "PSOGAResult", "SwarmDraws", "draw_swarm", "init_swarm",
     "run_pso_ga", "state_from_arrays", "swarm_step",
-    "FleetBucket", "PackedFleet", "bucket_size", "pack_fleet",
-    "pack_problems", "run_pso_ga_batch",
+    "FleetBucket", "PackedFleet", "bucket_size", "pack_arrivals",
+    "pack_fleet", "pack_problems", "run_pso_ga_batch",
     "coerce_seed", "rng_entropy",
     "greedy_offload", "heft_makespan",
     "Stage", "contiguous_stages", "stage_cut_cost", "uniform_stages",

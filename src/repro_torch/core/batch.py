@@ -1,6 +1,7 @@
 """Fleet-scale batched PSO-GA: solve N heterogeneous offloading problems
 with one fleet of swarms per shape bucket, ported from
-``repro.core.batch`` (cold solves; no mesh, traffic or incumbents).
+``repro.core.batch`` (cold solves, with or without traffic; no mesh or
+incumbents).
 
 ``pack_fleet`` groups problems into power-of-two ``(max_p, max_S)``
 buckets and stacks each bucket's members into one ``PaddedProblem`` with
@@ -15,7 +16,10 @@ iterating. A frozen problem never changes again, so the loop checks the
 stop rule on the host only every ``SYNC_EVERY`` iterations; the extra
 steps change no result, and ``it`` stays exact. Every problem draws from
 its own generator seeded like ``run_pso_ga``, within its own true sizes,
-so a batched solve equals the sequential solves gene for gene.
+so a batched solve equals the sequential solves gene for gene. Under
+traffic each problem's arrival draws route with it by original index;
+padded apps never receive a request and padded layers are never walked,
+so that equality holds for traffic solves too.
 """
 from __future__ import annotations
 
@@ -36,9 +40,11 @@ from .pso_ga import (DrawFn, PSOGAConfig, PSOGAResult, SwarmDraws,
 from .seeding import coerce_seed
 from .simulator import (PaddedProblem, SimProblem, kernel_args, pad_problem,
                         stack_problems)
+from .traffic import traffic_inputs
 
-__all__ = ["pack_problems", "run_pso_ga_batch", "bucket_size",
-           "FleetBucket", "PackedFleet", "pack_fleet", "SYNC_EVERY"]
+__all__ = ["pack_problems", "pack_arrivals", "run_pso_ga_batch",
+           "bucket_size", "FleetBucket", "PackedFleet", "pack_fleet",
+           "SYNC_EVERY"]
 
 ProblemLike = Union[SimProblem, Tuple[LayerDAG, Environment]]
 
@@ -155,6 +161,39 @@ def pack_fleet(problems: Sequence[ProblemLike], bucket: bool = True,
                        max_apps=max_apps)
 
 
+def pack_arrivals(arrivals: Sequence[np.ndarray],
+                  max_apps: int) -> np.ndarray:
+    """Stack per-problem ``(M, n_apps_i, R)`` Monte-Carlo arrival arrays
+    into one ``(N, M, max_apps, R)`` array, padding the app axis with +inf
+    (a padded app never receives a request). Every problem must share the
+    seed count M and the request cap R; NaN or negative times are corrupt
+    draws and are rejected."""
+    mats = [np.asarray(a, float) for a in arrivals]
+    if not mats:
+        raise ValueError("pack_arrivals needs at least one arrival set")
+    for i, a in enumerate(mats):
+        if a.ndim != 3:
+            raise ValueError(
+                f"arrivals[{i}] has shape {a.shape}; expected a 3-d "
+                f"(M, n_apps, R) Monte-Carlo array")
+    m0, r0 = mats[0].shape[0], mats[0].shape[2]
+    for i, a in enumerate(mats):
+        if a.shape[0] != m0 or a.shape[2] != r0:
+            raise ValueError(
+                f"arrivals[{i}] has shape {a.shape}; expected (M={m0}, "
+                f"n_apps, R={r0}) with M and R shared across the fleet")
+        if a.shape[1] > max_apps:
+            raise ValueError(f"arrivals[{i}] has {a.shape[1]} apps > "
+                             f"packed max_apps {max_apps}")
+        if np.isnan(a).any() or (a < 0.0).any():
+            raise ValueError(f"arrivals[{i}] contains NaN or negative "
+                             f"request times")
+    out = np.full((len(mats), m0, max_apps, r0), np.inf)
+    for i, a in enumerate(mats):
+        out[i, :, :a.shape[1], :] = a
+    return out
+
+
 def _done(state: _SwarmState, cfg: PSOGAConfig) -> torch.Tensor:
     """(N,) bool — which problems have hit the paper's stopping rule."""
     return (state.it >= cfg.max_iters) | (state.stall >= cfg.stall_iters)
@@ -163,18 +202,23 @@ def _done(state: _SwarmState, cfg: PSOGAConfig) -> torch.Tensor:
 def _run_fleet(ppb: PaddedProblem, X0: torch.Tensor, cfg: PSOGAConfig,
                draw: Optional[Callable[[int], SwarmDraws]],
                generators: Sequence[torch.Generator],
-               record_history: bool = False
+               record_history: bool = False,
+               arrivals: Optional[np.ndarray] = None
                ) -> Tuple[_SwarmState, Optional[torch.Tensor]]:
     """Iterate a stacked fleet of swarms to convergence.
 
     ``X0 (N, P, max_p)``; ``draw(step)`` gives the step's ``(N, P)``
-    draws, else each problem draws from its own generator. Returns the
-    final state and, with ``record_history`` (which runs exactly
-    ``max_iters`` steps without freezing, as the reference's history mode
-    does), the ``(N, max_iters)`` gBest keys.
+    draws, else each problem draws from its own generator. ``arrivals
+    (N, M, max_apps, R)`` switch every problem to the traffic key; their
+    merged orders are built once for the whole solve. Returns the final state
+    and, with ``record_history`` (which runs exactly ``max_iters`` steps
+    without freezing, as the reference's history mode does), the ``(N,
+    max_iters)`` gBest keys.
     """
     max_p = X0.shape[-1]
-    f0 = make_swarm_fitness(ppb, cfg.faithful_sim)(X0)        # (N, P)
+    tin = None if arrivals is None else traffic_inputs(ppb, arrivals)
+    f0 = make_swarm_fitness(ppb, cfg.faithful_sim, arrivals=tin,
+                            miss_budget=cfg.miss_budget)(X0)  # (N, P)
     i0 = f0.argmin(-1, keepdim=True)
     zeros = torch.zeros(X0.shape[0], dtype=torch.int32, device=X0.device)
     state = _SwarmState(
@@ -188,7 +232,7 @@ def _run_fleet(ppb: PaddedProblem, X0: torch.Tensor, cfg: PSOGAConfig,
             break
         new = swarm_step(ppb, state, cfg,
                          draws=None if draw is None else draw(step),
-                         generators=generators)
+                         generators=generators, arrivals=tin)
         if record_history:
             state = new
             history.append(state.gbest_f)
@@ -207,7 +251,9 @@ def run_pso_ga_batch(problems: Sequence[ProblemLike],
                      device: Optional[Union[str, torch.device]] = None,
                      X0: Optional[Sequence[np.ndarray]] = None,
                      draw_fn: Optional[DrawFn] = None,
-                     record_history: bool = False) -> List[PSOGAResult]:
+                     record_history: bool = False,
+                     arrivals: Optional[Sequence[np.ndarray]] = None
+                     ) -> List[PSOGAResult]:
     """Solve N offloading problems with one fleet of swarms per bucket,
     on ``device`` (``None`` = the card).
 
@@ -215,8 +261,12 @@ def run_pso_ga_batch(problems: Sequence[ProblemLike],
     behaves exactly like ``run_pso_ga(..., seed=seed_i)``. ``X0`` (one
     ``(pop_size, p_i)`` swarm per problem) and ``draw_fn(i, step)``
     replace the generator's initial swarms and step draws, indexed by
-    ORIGINAL problem index. Each bucket's epilogue scores its gBests as a
-    one-row swarm through the same replay. Returns per-problem
+    ORIGINAL problem index. ``arrivals`` (one ``(M, n_apps_i, R)`` array
+    per problem, routed by original index) switch every problem to the
+    traffic key under ``cfg.miss_budget``. Each bucket's epilogue scores
+    its gBests as a one-row swarm through the zero-load replay, so
+    ``best_cost`` and ``feasible`` are the zero-load plan's and
+    ``best_fitness`` the key the solve minimised. Returns per-problem
     ``PSOGAResult`` in input order.
     """
     dev = resolve_device(device)
@@ -225,6 +275,8 @@ def run_pso_ga_batch(problems: Sequence[ProblemLike],
     seeds = _normalize_seeds(seed, n)
     if X0 is not None and len(X0) != n:
         raise ValueError(f"{len(X0)} initial swarms for {n} problems")
+    if arrivals is not None and len(arrivals) != n:
+        raise ValueError(f"{len(arrivals)} arrival sets for {n} problems")
     fleet = pack_fleet(probs, bucket=bucket, device=dev)
     results: List[Optional[PSOGAResult]] = [None] * n
     for b in fleet.buckets:
@@ -248,8 +300,10 @@ def run_pso_ga_batch(problems: Sequence[ProblemLike],
             def draw(step, idx=b.idx):
                 return stack_draws([draw_fn(int(i), step) for i in idx], dev)
 
+        arrb = None if arrivals is None else pack_arrivals(
+            [arrivals[i] for i in b.idx], fleet.max_apps)
         state, history = _run_fleet(b.ppb, X0b, cfg, draw, gens,
-                                    record_history)
+                                    record_history, arrb)
         total, feas, _ = schedule_replay(
             *kernel_args(b.ppb), state.gbest_x[:, None, :].contiguous(),
             faithful=cfg.faithful_sim)

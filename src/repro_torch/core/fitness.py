@@ -1,5 +1,5 @@
 """Feasibility-aware fitness (paper §IV-B.2, Eq. 14–16), ported from
-``repro.core.fitness`` (its non-traffic branch).
+``repro.core.fitness``.
 
 The paper's three comparison cases —
   1. both feasible          → smaller C_total wins          (Eq. 14)
@@ -18,24 +18,41 @@ With an ``incumbent`` plan, every moved layer pays its input datasets over
 the incumbent→candidate link's $/MB rate, scaled by ``mig_weight``
 (online re-planning, DESIGN.md §9); a weight of 0 adds exactly 0.
 
+With Monte-Carlo ``arrivals`` (DESIGN.md §10) the key is contention-aware:
+
+    key(X) = mean_m C_total^load(X)                     if static_ok(X) and
+                                                        p95_m(miss) <= budget
+           = INFEASIBLE_OFFSET + MISS_PENALTY·p95_m(miss)
+             + log1p(mean_m Σ latency)                  otherwise
+
+so among over-budget plans fewer misses win first, then lower latency.
+
 The tensors' device picks the replay: CUDA problems launch the
-hand-written kernel, CPU problems run its plain PyTorch version.
+hand-written kernels, CPU problems run their plain PyTorch versions.
 """
 from __future__ import annotations
 
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
-from ..kernels.schedule_sim import schedule_replay
+from ..kernels.schedule_sim import _seq_sum, schedule_replay
+from ..kernels.traffic_sim import traffic_replay
 from .simulator import PaddedProblem, SimResult, kernel_args
+from .traffic import TrafficInputs, percentile_linear, traffic_inputs
 
 #: Must exceed any attainable C_total; costs in both the paper fleet and the
 #: TPU-fleet environment are well under $1e4 per request batch.
 INFEASIBLE_OFFSET = 1e4
+#: Weight of the p95 deadline-miss rate in the infeasible traffic key: the
+#: rate lies in [0, 1] and the latency tail is log-compressed to <~21, so 64
+#: lets a few points of miss rate dominate any latency difference without
+#: swamping the offset.
+MISS_PENALTY = 64.0
 
-__all__ = ["INFEASIBLE_OFFSET", "fitness_key", "make_swarm_fitness",
-           "migration_cost"]
+__all__ = ["INFEASIBLE_OFFSET", "MISS_PENALTY", "fitness_key",
+           "make_swarm_fitness", "migration_cost"]
 
 
 def fitness_key(res: SimResult) -> torch.Tensor:
@@ -70,7 +87,8 @@ def migration_cost(pp: PaddedProblem, X: torch.Tensor,
 
 def make_swarm_fitness(pp: PaddedProblem, faithful: bool = True,
                        incumbent: Optional[torch.Tensor] = None,
-                       mig_weight=None
+                       mig_weight=None, arrivals=None,
+                       miss_budget: Optional[float] = None
                        ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Swarm-fitness evaluator ``X (P, max_p) -> keys (P,)``; on a
     stacked ``pp``, ``X (N, P, max_p) -> keys (N, P)`` with one kernel
@@ -78,7 +96,14 @@ def make_swarm_fitness(pp: PaddedProblem, faithful: bool = True,
 
     With ``incumbent`` (``(max_p,)``, or ``(N, max_p)`` stacked) the key
     gains ``mig_weight`` (scalar or ``(N,)``; default 1) × the
-    ``migration_cost`` of each particle."""
+    ``migration_cost`` of each particle.
+
+    With ``arrivals`` (``(M, max_apps, R)`` Monte-Carlo request times,
+    +inf padded; ``(N, M, max_apps, R)`` stacked) the key is the traffic
+    key under the p95 ``miss_budget`` (default 0.05). The arrivals do not
+    change during a solve, so their merged orders are built here, once
+    (or passed in already built, as ``TrafficInputs``); each call is one
+    traffic-replay launch for all M draws and all N problems."""
     args = kernel_args(pp)
     w = None
     if incumbent is not None:
@@ -87,13 +112,45 @@ def make_swarm_fitness(pp: PaddedProblem, faithful: bool = True,
         if w.dim() == 1:
             w = w[:, None]
 
-    def fit(X: torch.Tensor) -> torch.Tensor:
+    def fleet(X: torch.Tensor) -> torch.Tensor:
         X = X.to(torch.int32).contiguous()
-        total, feas, tsum = schedule_replay(
-            *args, X if pp.stacked else X.unsqueeze(0), faithful=faithful)
+        return X if pp.stacked else X.unsqueeze(0)
+
+    def with_migration(cost: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+        if incumbent is None:
+            return cost
+        return cost + w * migration_cost(pp, X, incumbent)
+
+    if arrivals is not None:
+        tin = arrivals if isinstance(arrivals, TrafficInputs) \
+            else traffic_inputs(pp, arrivals)
+        M = tin.n_valid.shape[1]
+        # compared in float32, as the reference's weakly typed scalar
+        budget = float(np.float32(0.05 if miss_budget is None
+                                  else miss_budget))
+
+        def seed_mean(t: torch.Tensor) -> torch.Tensor:   # (N, M, P) -> (N, P)
+            return _seq_sum(t.transpose(1, 2)) / M
+
+        def fit_traffic(X: torch.Tensor) -> torch.Tensor:
+            total, miss, lat, static_ok, _ = traffic_replay(
+                *args, fleet(X), *tin, faithful=faithful)
+            p95 = percentile_linear(miss, 95.0, dim=1)
+            cost, lat = seed_mean(total), seed_mean(lat)
+            if not pp.stacked:
+                cost, lat, p95, static_ok = cost[0], lat[0], p95[0], \
+                    static_ok[0]
+            return torch.where(static_ok & (p95 <= budget),
+                               with_migration(cost, X),
+                               INFEASIBLE_OFFSET + MISS_PENALTY * p95
+                               + torch.log1p(lat))
+        return fit_traffic
+
+    def fit(X: torch.Tensor) -> torch.Tensor:
+        total, feas, tsum = schedule_replay(*args, fleet(X),
+                                            faithful=faithful)
         if not pp.stacked:
             total, feas, tsum = total[0], feas[0], tsum[0]
-        if incumbent is not None:
-            total = total + w * migration_cost(pp, X, incumbent)
-        return torch.where(feas, total, INFEASIBLE_OFFSET + torch.log1p(tsum))
+        return torch.where(feas, with_migration(total, X),
+                           INFEASIBLE_OFFSET + torch.log1p(tsum))
     return fit

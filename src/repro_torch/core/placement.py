@@ -1,6 +1,6 @@
 """The bridge: any assigned architecture -> the paper's offloading
-problem, ported from ``repro.core.placement`` (no traffic, warm start or
-mesh yet).
+problem, ported from ``repro.core.placement`` (no warm start or mesh
+yet).
 
 A model config is *lowered* to a layer DAG whose node weights are FLOPs
 (the TPU-fleet environment's server power is effective FLOP/s, so Eq. 4's
@@ -14,7 +14,8 @@ the request's origin device) and the LM head. Enc-dec lowers to a
 *branching* DAG: the encoder output fans out to every decoder block.
 
 ``plan_offload`` = lower + deadline(HEFT × ratio) + optimize + partition.
-``plan_offload_batch`` plans MANY requests in one batched PSO-GA fleet.
+``plan_offload_batch`` plans MANY requests in one batched PSO-GA fleet,
+optionally under a request stream (``TrafficConfig``, DESIGN.md §10).
 """
 from __future__ import annotations
 
@@ -32,6 +33,8 @@ from .device import backend_name, resolve_device
 from .environment import DEVICE, Environment, tpu_fleet_environment
 from .partition import Stage, contiguous_stages
 from .pso_ga import PSOGAConfig, PSOGAResult, run_pso_ga
+from .simulator import SimProblem
+from .traffic import TrafficConfig, traffic_replay, traffic_stats
 
 __all__ = ["arch_to_dag", "block_flops", "OffloadPlan", "plan_offload",
            "plan_offload_batch"]
@@ -172,9 +175,12 @@ class OffloadPlan:
     stages: List[Stage]
     deadline: float
     heft: float
-    #: what the solver actually ran: "cuda" (the replay kernel) or "cpu"
-    #: (its plain PyTorch version)
+    #: what the solver actually ran: "cuda" (the replay kernels) or "cpu"
+    #: (their plain PyTorch versions)
     backend: str = "cuda"
+    #: queue-aware evaluation of the plan (``traffic_stats`` dict) when
+    #: planning ran under a request stream (DESIGN.md §10)
+    traffic: Optional[dict] = None
 
     @property
     def cost(self) -> float:
@@ -185,6 +191,14 @@ class OffloadPlan:
         lines = [f"cost ${self.cost:.4f}  deadline {self.deadline:.3f}s "
                  f"(HEFT {self.heft:.3f}s)  feasible={self.result.feasible}"
                  f"  backend={self.backend}"]
+        if self.traffic is not None:
+            lines.append(
+                f"  traffic: miss p50/p95/p99 "
+                f"{self.traffic['miss_p50']:.3f}/"
+                f"{self.traffic['miss_p95']:.3f}/"
+                f"{self.traffic['miss_p99']:.3f}  "
+                f"load cost ${self.traffic['cost_mean']:.4f} "
+                f"({self.traffic['requests']} reqs)")
         for st in self.stages:
             t = tiers[int(self.env.tier[st.server])]
             lines.append(
@@ -233,7 +247,8 @@ def plan_offload_batch(requests: Sequence[Tuple[ModelConfig, ShapeSpec,
                                                       max_iters=300,
                                                       stall_iters=40),
                        seed: int = 0,
-                       device: Optional[Union[str, torch.device]] = None
+                       device: Optional[Union[str, torch.device]] = None,
+                       traffic: Optional[TrafficConfig] = None
                        ) -> List[OffloadPlan]:
     """Plan many serving requests with ONE batched PSO-GA fleet.
 
@@ -242,6 +257,13 @@ def plan_offload_batch(requests: Sequence[Tuple[ModelConfig, ShapeSpec,
     HEFT-derived deadline, then ``run_pso_ga_batch`` solves the whole
     fleet on ``device`` (``None`` = the card); each problem matches a
     sequential ``run_pso_ga(..., seed=seed)`` gene for gene.
+
+    ``traffic`` (a ``TrafficConfig``, DESIGN.md §10): plan under a
+    request stream instead of a single isolated execution. Request i's
+    solver draws are ``traffic.solver_arrivals(seed=seed + 31·i)``, the
+    miss budget is the config's, and every returned plan carries its
+    held-out queue-aware evaluation (``traffic.eval_arrivals``, the same
+    seed) in ``OffloadPlan.traffic``.
     """
     dev = resolve_device(device)
     env = env or tpu_fleet_environment()
@@ -255,9 +277,24 @@ def plan_offload_batch(requests: Sequence[Tuple[ModelConfig, ShapeSpec,
         dags.append(dag.with_deadline(np.asarray([deadline])))
         hefts.append(float(heft))
         deadlines.append(float(deadline))
+    arrivals = None
+    if traffic is not None:
+        pso = dataclasses.replace(pso, miss_budget=traffic.miss_budget)
+        arrivals = [traffic.solver_arrivals(d.num_apps, seed=seed + 31 * i)
+                    for i, d in enumerate(dags)]
     results = run_pso_ga_batch([(d, env) for d in dags], cfg=pso, seed=seed,
-                               device=dev)
+                               device=dev, arrivals=arrivals)
+    reports: List[Optional[dict]] = [None] * len(dags)
+    if traffic is not None:
+        for i, (d, r) in enumerate(zip(dags, results)):
+            res = traffic_replay(
+                SimProblem.build(d, env), r.best_x,
+                traffic.eval_arrivals(d.num_apps, seed=seed + 31 * i),
+                faithful=pso.faithful_sim, device=dev)
+            reports[i] = traffic_stats(res)
     return [OffloadPlan(dag=d, env=env, result=r,
                         stages=contiguous_stages(d, r.best_x),
-                        deadline=dl, heft=h, backend=backend_name(dev))
-            for d, r, dl, h in zip(dags, results, deadlines, hefts)]
+                        deadline=dl, heft=h, backend=backend_name(dev),
+                        traffic=rep)
+            for d, r, dl, h, rep in zip(dags, results, deadlines, hefts,
+                                        reports)]

@@ -1,5 +1,5 @@
 """PSO-GA — self-adaptive discrete PSO with GA operators (paper §IV-B),
-ported from ``repro.core.pso_ga`` (cold solves, no traffic).
+ported from ``repro.core.pso_ga`` (cold solves, with or without traffic).
 
 The particle position is the server-assignment vector (the order genes φ
 are frozen to the topological order). One iteration applies, per particle
@@ -56,6 +56,8 @@ class PSOGAConfig:
     faithful_sim: bool = False      # False = parent-gated recurrence (the
     #   paper's Fig. 2 numbers); True = Alg. 2 line 21 verbatim
     bias_init_to_tiers: bool = True  # seed swarm with tier-aware particles
+    miss_budget: float = 0.05       # p95 deadline-miss budget of the
+    #   traffic key (used only when a solve is given arrivals)
 
 
 class PSOGAResult(NamedTuple):
@@ -198,8 +200,8 @@ def init_swarm(prob: SimProblem, cfg: PSOGAConfig,
 
 def swarm_step(pp: PaddedProblem, state: _SwarmState, cfg: PSOGAConfig,
                draws: Optional[SwarmDraws] = None,
-               generators: Optional[Sequence[torch.Generator]] = None
-               ) -> _SwarmState:
+               generators: Optional[Sequence[torch.Generator]] = None,
+               arrivals=None) -> _SwarmState:
     """One PSO-GA iteration on the padded representation (Eq. 17–23).
 
     Works on one problem or on a stacked fleet (a leading axis on ``pp``,
@@ -207,11 +209,17 @@ def swarm_step(pp: PaddedProblem, state: _SwarmState, cfg: PSOGAConfig,
     generators)``. Mutation and crossover positions lie in each problem's
     true ``p`` and mutation values in its true ``S``, so padded genes are
     never touched and padded servers never proposed.
+
+    ``arrivals`` (``(M, max_apps, R)``, or ``(N, M, max_apps, R)``
+    stacked) switch the fitness to the traffic key under
+    ``cfg.miss_budget``. A solve loop passes them as ``TrafficInputs``,
+    built once by ``traffic_inputs``, so no step rebuilds the merged order.
     """
     max_p = pp.pinned.shape[-1]
     if draws is None:
         draws = draw_swarm(pp, cfg.pop_size, generators)
-    fit = make_swarm_fitness(pp, cfg.faithful_sim)
+    fit = make_swarm_fitness(pp, cfg.faithful_sim, arrivals=arrivals,
+                             miss_budget=cfg.miss_budget)
     t = state.it.to(torch.float32) / cfg.max_iters
     c1 = cfg.c1_start + (cfg.c1_end - cfg.c1_start) * t
     c2 = cfg.c2_start + (cfg.c2_end - cfg.c2_start) * t
@@ -267,7 +275,8 @@ def run_pso_ga(dag: LayerDAG, env: Environment,
                record_history: bool = False,
                device: Optional[Union[str, torch.device]] = None,
                X0: Optional[np.ndarray] = None,
-               draw_fn: Optional[DrawFn] = None) -> PSOGAResult:
+               draw_fn: Optional[DrawFn] = None,
+               arrivals: Optional[np.ndarray] = None) -> PSOGAResult:
     """Run PSO-GA to convergence on ``device`` (``None`` = the card).
 
     ``X0`` replaces the initial swarm and ``draw_fn(0, step)`` each step's
@@ -275,12 +284,20 @@ def run_pso_ga(dag: LayerDAG, env: Environment,
     ``seed``. With ``record_history`` the solve runs all ``max_iters``
     iterations and returns the gBest key after each. The problem is
     padded to its own sizes only, as the reference pads it.
+
+    ``arrivals`` (``(M, n_apps, R)`` Monte-Carlo request times,
+    DESIGN.md §10) switch the fitness to the queue-aware traffic key:
+    ``best_fitness`` is then the traffic key, while ``best_cost`` and
+    ``feasible`` still report the zero-load replay of the winning plan
+    (so a plan can be ``feasible`` with a key above the offset); use
+    ``traffic.traffic_replay`` for the plan's load metrics.
     """
     from .batch import run_pso_ga_batch
     return run_pso_ga_batch(
         [(dag, env)], cfg, seed=seed, bucket=False, device=device,
         X0=None if X0 is None else [X0], draw_fn=draw_fn,
-        record_history=record_history)[0]
+        record_history=record_history,
+        arrivals=None if arrivals is None else [arrivals])[0]
 
 
 def stack_draws(draws: List[SwarmDraws],

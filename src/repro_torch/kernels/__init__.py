@@ -4,6 +4,15 @@ version:
   * schedule_sim — Algorithm-2 swarm-fitness replay for PSO-GA
     (``csrc/schedule_sim.cu``; port of the Pallas kernel
     ``repro/kernels/schedule_sim.py``)
+  * traffic_sim — queue-aware FCFS replay of R request copies per
+    Monte-Carlo arrival draw for the traffic fitness
+    (``csrc/traffic_sim.cu``; port of ``repro/kernels/traffic_sim.py``)
+
+Each module's dispatch (``schedule_replay``, ``traffic_replay``) replays a
+whole swarm on the tensors' device and carries the kernel's ``launches``
+counter. ``core.traffic.traffic_replay`` is a different, higher-level
+function: it replays ONE plan against Monte-Carlo draws and reaches the
+kernel through ``core.traffic.simulate_traffic_swarm``.
 
 Kernels are compiled with ``nvcc`` on first launch (``_build.py``); a CPU
 tensor takes the plain version and never needs the toolkit.

@@ -44,7 +44,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 __all__ = ["schedule_replay", "schedule_replay_plain", "replay_plain",
-           "ReplayState", "MAX_SMEM_BYTES"]
+           "ReplayState", "Phase1", "phase1", "MAX_SMEM_BYTES"]
 
 #: dynamic shared memory one H100 block can opt in to (227 KB)
 MAX_SMEM_BYTES = 232_448
@@ -73,6 +73,72 @@ def _take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return table.gather(1, idx.reshape(n, -1)).reshape(idx.shape)
 
 
+class Phase1(NamedTuple):
+    """The carry-independent quantities of every step, step axis L."""
+    srv: torch.Tensor          # (N, P, L) server of the step's layer
+    exe: torch.Tensor          # (N, P, L) execution time
+    tt: torch.Tensor           # (N, P, L, max_in) incoming transfer times
+    pm: torch.Tensor           # (N, 1, L, max_in) real parent mask
+    psafe: torch.Tensor        # (N, L, max_in) parent layer ids, 0 if none
+    max_trans: torch.Tensor    # (N, P, L)
+    tstep: torch.Tensor        # (N, P, L) transmission $ of the step
+    out_t: torch.Tensor        # (N, P, L) outgoing transfer time
+    bad: torch.Tensor          # (N, P) a forbidden link is used
+    pin_ok: torch.Tensor       # (N, P) every pin honoured
+
+
+def phase1(jsafe, valid, compute, parent_idx, parent_mb, child_idx,
+           child_mb, pinned, power, inv_bw, tran_cost, link_ok, X
+           ) -> Phase1:
+    """Per-step quantities for the layers ``jsafe (N, L)`` (masked by
+    ``valid``), in one vectorized pass: topo positions for the zero-load
+    replay, layer ids for the traffic replay. Sums over parents and
+    children run left to right, the kernels' order."""
+    N, P, max_p = X.shape
+    S = power.shape[-1]
+    L = jsafe.shape[-1]
+    max_in, max_out = parent_idx.shape[-1], child_idx.shape[-1]
+    Xl = X.long()
+    srv = Xl.gather(2, jsafe[:, None, :].expand(N, P, L))    # (N, P, L)
+    exe = compute.gather(1, jsafe)[:, None, :] / _take(power, srv)
+
+    def rows(table, width):                     # (N, L, width) by step
+        return table.gather(1, jsafe[..., None].expand(N, L, width))
+
+    pars = rows(parent_idx, max_in).long()
+    pmask = (pars >= 0) & valid[..., None]                   # (N, L, in)
+    psafe = torch.where(pmask, pars, 0)
+    psrv = Xl.gather(2, psafe.reshape(N, 1, -1).expand(N, P, -1)).reshape(
+        N, P, L, max_in)
+    mb = rows(parent_mb, max_in)[:, None]                    # (N, 1, L, in)
+    pair_in = psrv * S + srv[..., None]
+    flat = lambda m: m.reshape(N, S * S)
+    tt = mb * _take(flat(inv_bw), pair_in)                   # (N, P, L, in)
+    pm = pmask[:, None]
+    max_trans = torch.where(pm, tt, 0.0).amax(-1)            # (N, P, L)
+    tstep = _seq_sum(torch.where(pm, _take(flat(tran_cost), pair_in) * mb,
+                                 0.0))
+    link = flat(link_ok.to(torch.bool))
+    bad = (pm & ~_take(link, pair_in) & (psrv != srv[..., None])).flatten(
+        2).any(-1)                                           # (N, P)
+
+    kids = rows(child_idx, max_out).long()
+    kmask = ((kids >= 0) & valid[..., None])[:, None]        # (N, 1, L, out)
+    ksafe = torch.where(kmask[:, 0], kids, 0)
+    ksrv = Xl.gather(2, ksafe.reshape(N, 1, -1).expand(N, P, -1)).reshape(
+        N, P, L, max_out)
+    pair_out = srv[..., None] * S + ksrv
+    out_t = _seq_sum(torch.where(
+        kmask, rows(child_mb, max_out)[:, None] * _take(flat(inv_bw), pair_out),
+        0.0))
+    bad = bad | (kmask & ~_take(link, pair_out)
+                 & (ksrv != srv[..., None])).flatten(2).any(-1)
+    pin_ok = ((pinned[:, None, :] < 0) | (X == pinned[:, None, :])).all(-1)
+    return Phase1(srv=srv, exe=exe, tt=tt, pm=pm, psafe=psafe,
+                  max_trans=max_trans, tstep=tstep, out_t=out_t, bad=bad,
+                  pin_ok=pin_ok)
+
+
 def replay_plain(order, compute, parent_idx, parent_mb, child_idx, child_mb,
                  app_id, deadline, pinned, power, cost_per_sec, inv_bw,
                  tran_cost, link_ok, X, *, faithful: bool = True
@@ -87,49 +153,17 @@ def replay_plain(order, compute, parent_idx, parent_mb, child_idx, child_mb,
     X = X.to(torch.int32)
     N, P, max_p = X.shape
     S = power.shape[-1]
-    max_in, max_out = parent_idx.shape[-1], child_idx.shape[-1]
+    max_in = parent_idx.shape[-1]
     max_apps = deadline.shape[-1]
     dev = X.device
-    Xl = X.long()
 
     # ---- phase 1: carry-independent quantities, whole fleet at once ----
     valid = order >= 0                                       # (N, max_p)
     jsafe = torch.where(valid, order, 0).long()
-    srv = Xl.gather(2, jsafe[:, None, :].expand(N, P, max_p))  # (N, P, max_p)
-    exe = compute.gather(1, jsafe)[:, None, :] / _take(power, srv)
-
-    def rows(table, width):                     # (N, max_p, width) by step
-        return table.gather(1, jsafe[..., None].expand(N, max_p, width))
-
-    pars = rows(parent_idx, max_in).long()
-    pmask = (pars >= 0) & valid[..., None]                   # (N, max_p, in)
-    psafe = torch.where(pmask, pars, 0)
-    psrv = Xl.gather(2, psafe.reshape(N, 1, -1).expand(N, P, -1)).reshape(
-        N, P, max_p, max_in)
-    mb = rows(parent_mb, max_in)[:, None]                    # (N, 1, max_p, in)
-    pair_in = psrv * S + srv[..., None]
-    flat = lambda m: m.reshape(N, S * S)
-    tt = mb * _take(flat(inv_bw), pair_in)                   # (N, P, max_p, in)
-    pm = pmask[:, None]
-    max_trans = torch.where(pm, tt, 0.0).amax(-1)            # (N, P, max_p)
-    tstep = _seq_sum(torch.where(pm, _take(flat(tran_cost), pair_in) * mb,
-                                 0.0))
-    link = flat(link_ok.to(torch.bool))
-    bad = (pm & ~_take(link, pair_in) & (psrv != srv[..., None])).flatten(
-        2).any(-1)                                           # (N, P)
-
-    kids = rows(child_idx, max_out).long()
-    kmask = ((kids >= 0) & valid[..., None])[:, None]        # (N, 1, max_p, out)
-    ksafe = torch.where(kmask[:, 0], kids, 0)
-    ksrv = Xl.gather(2, ksafe.reshape(N, 1, -1).expand(N, P, -1)).reshape(
-        N, P, max_p, max_out)
-    pair_out = srv[..., None] * S + ksrv
-    out_t = _seq_sum(torch.where(
-        kmask, rows(child_mb, max_out)[:, None] * _take(flat(inv_bw), pair_out),
-        0.0))
-    bad = bad | (kmask & ~_take(link, pair_out)
-                 & (ksrv != srv[..., None])).flatten(2).any(-1)
-    pin_ok = ((pinned[:, None, :] < 0) | (X == pinned[:, None, :])).all(-1)
+    ph = phase1(jsafe, valid, compute, parent_idx, parent_mb, child_idx,
+                child_mb, pinned, power, inv_bw, tran_cost, link_ok, X)
+    srv, exe, tt, pm, psafe = ph.srv, ph.exe, ph.tt, ph.pm, ph.psafe
+    max_trans, tstep, out_t = ph.max_trans, ph.tstep, ph.out_t
 
     # ---- phase 2: the carried recurrence, one step per topo position ----
     lease = torch.zeros((N, P, S), dtype=torch.float32, device=dev)
@@ -169,7 +203,8 @@ def replay_plain(order, compute, parent_idx, parent_mb, child_idx, child_mb,
     appc = torch.zeros((N, P, max_apps), dtype=torch.float32,
                        device=dev).scatter_reduce(
         2, app_id.long()[:, None, :].expand(N, P, max_p), end, "amax")
-    feasible = (appc <= deadline[:, None, :]).all(-1) & pin_ok & ~bad
+    feasible = (appc <= deadline[:, None, :]).all(-1) & ph.pin_ok \
+        & ~ph.bad
     return ReplayState(end=end, app_completion=appc, comp_cost=comp,
                        trans_cost=trans, feasible=feasible)
 

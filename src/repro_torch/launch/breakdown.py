@@ -2,12 +2,14 @@
 kernel time by name (``torch.profiler``), and the share of the wall during
 which the device ran no kernel.
 
-    PYTHONPATH=src python -m repro_torch.launch.breakdown
+    PYTHONPATH=src python -m repro_torch.launch.breakdown [--traffic bursty]
 
 Profiles two solves after a warm-up of each: the qwen3-0.6b serving plan
 (``launch/plan.py``'s settings) and the paper's Fig. 8 problem at the
-paper's PSO-GA settings. Prints one JSON line per solve; chrome traces
-go to ``--trace-dir`` when given.
+paper's PSO-GA settings; with ``--traffic SCENARIO`` also the qwen3-0.6b
+plan under that request stream (``launch/plan.py --traffic``, rate 0.5).
+Prints one JSON line per solve; chrome traces go to ``--trace-dir`` when
+given.
 """
 from __future__ import annotations
 
@@ -21,9 +23,10 @@ from typing import Callable, Optional
 import torch
 
 from ..configs import SHAPES, get
-from ..core import plan_offload_batch, run_pso_ga, tpu_fleet_environment
+from ..core import (TRAFFIC_KINDS, TrafficConfig, plan_offload_batch,
+                    run_pso_ga, tpu_fleet_environment)
 from ..core.paper import PAPER_PSO, fig8_problem
-from ..kernels import schedule_sim
+from ..kernels import schedule_sim, traffic_sim
 from .plan import DEADLINE_RATIO, DEFAULT_PSO
 
 
@@ -33,6 +36,7 @@ def profile(tag: str, solve: Callable[[], object],
     solve()
     torch.cuda.synchronize()
     schedule_sim.schedule_replay.launches = 0
+    traffic_sim.traffic_replay.launches = 0
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -48,19 +52,26 @@ def profile(tag: str, solve: Callable[[], object],
         if dev_us and ev.device_type == torch.autograd.DeviceType.CUDA:
             kernels[ev.key] = (ev.count, dev_us / 1e3)
     busy_ms = sum(ms for _, ms in kernels.values())
-    replay = [(c, ms) for k, (c, ms) in kernels.items()
-              if "schedule_replay_kernel" in k]
-    replay_n = sum(c for c, _ in replay)
-    replay_ms = sum(ms for _, ms in replay)
+
+    def by_name(name):
+        hits = [(c, ms) for k, (c, ms) in kernels.items() if name in k]
+        n, ms = sum(c for c, _ in hits), sum(ms for _, ms in hits)
+        return ms, ms / n if n else None
+
+    replay_ms, replay_per = by_name("schedule_replay_kernel")
+    traffic_ms, traffic_per = by_name("traffic_replay_kernel")
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
     if trace_dir is not None:
         trace_dir.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(trace_dir / f"{tag}.json"))
     return {"solve": tag, "wall_ms": wall * 1e3,
             "device_busy_ms": busy_ms, "replay_kernel_ms": replay_ms,
-            "replay_ms_per_launch": replay_ms / replay_n if replay_n else None,
+            "replay_ms_per_launch": replay_per,
+            "traffic_kernel_ms": traffic_ms,
+            "traffic_ms_per_launch": traffic_per,
             "idle_share": 1.0 - busy_ms / (wall * 1e3),
             "replay_launches": schedule_sim.schedule_replay.launches,
+            "traffic_launches": traffic_sim.traffic_replay.launches,
             "device_kernels": len(kernels),
             "top": [{"kernel": k[:80], "count": c, "ms": ms}
                     for k, (c, ms) in top]}
@@ -70,6 +81,9 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="qwen3-0.6b")
     ap.add_argument("--trace-dir", type=Path, default=None)
+    ap.add_argument("--traffic", default=None, metavar="SCENARIO",
+                    choices=TRAFFIC_KINDS,
+                    help="also profile the plan under this arrival family")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("breakdown measures the card: no CUDA device")
@@ -82,6 +96,12 @@ def main(argv=None) -> None:
     requests = [(cfg, s, DEADLINE_RATIO) for s in SHAPES if s.kind != "train"]
     print(json.dumps(profile(f"plan-{args.arch}", lambda: plan_offload_batch(
         requests, env=env, pso=DEFAULT_PSO), args.trace_dir)))
+    if args.traffic:
+        tc = TrafficConfig(kind=args.traffic, rate=0.5)
+        print(json.dumps(profile(
+            f"plan-{args.arch}-{args.traffic}", lambda: plan_offload_batch(
+                requests, env=env, pso=DEFAULT_PSO, traffic=tc),
+            args.trace_dir)))
 
     dag8, env8 = fig8_problem()
     print(json.dumps(profile("fig8", lambda: run_pso_ga(dag8, env8, PAPER_PSO),

@@ -3,8 +3,13 @@ TPU-fleet environment with one batched PSO-GA fleet — the port's
 counterpart of ``repro.launch.serve --plan`` (its planning block only).
 
     PYTHONPATH=src python -m repro_torch.launch.plan --arch qwen3-0.6b
+    PYTHONPATH=src python -m repro_torch.launch.plan --arch qwen3-0.6b \
+        --traffic bursty
 
-Runs on the card unless ``--device cpu`` is given.
+Runs on the card unless ``--device cpu`` is given. ``--traffic SCENARIO``
+plans under a request stream of that arrival family (DESIGN.md §10), as
+``serve --plan --traffic`` does, and reports each plan's held-out
+deadline-miss tails.
 """
 from __future__ import annotations
 
@@ -12,7 +17,8 @@ import argparse
 import time
 
 from ..configs import SHAPES, get
-from ..core import PSOGAConfig, plan_offload_batch, tpu_fleet_environment
+from ..core import (TRAFFIC_KINDS, PSOGAConfig, TrafficConfig,
+                    plan_offload_batch, tpu_fleet_environment)
 
 #: the serve planner's settings (``repro/launch/serve.py``)
 DEADLINE_RATIO = 1.5
@@ -25,19 +31,29 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda", help="cuda (default) | cpu")
     ap.add_argument("--pop", type=int, default=DEFAULT_PSO.pop_size)
     ap.add_argument("--iters", type=int, default=DEFAULT_PSO.max_iters)
+    ap.add_argument("--traffic", default=None, metavar="SCENARIO",
+                    choices=TRAFFIC_KINDS,
+                    help="plan under a request stream of this arrival "
+                         "family; the report shows each plan's held-out "
+                         "p50/p95/p99 deadline-miss rate")
+    ap.add_argument("--traffic-rate", type=float, default=0.5,
+                    help="mean request arrivals/s per app for --traffic")
     args = ap.parse_args(argv)
 
     cfg = get(args.arch)
     shapes = [s for s in SHAPES if s.kind != "train"]
     pso = PSOGAConfig(pop_size=args.pop, max_iters=args.iters,
                       stall_iters=DEFAULT_PSO.stall_iters)
+    traffic = None if args.traffic is None else TrafficConfig(
+        kind=args.traffic, rate=args.traffic_rate)
     t0 = time.perf_counter()
     plans = plan_offload_batch([(cfg, s, DEADLINE_RATIO) for s in shapes],
                                env=tpu_fleet_environment(), pso=pso,
-                               device=args.device)
+                               device=args.device, traffic=traffic)
     wall = time.perf_counter() - t0
+    tag = f" under {args.traffic} traffic" if args.traffic else ""
     for shape, plan in zip(shapes, plans):
-        print(f"[plan] PSO-GA fleet placement for {shape.name} "
+        print(f"[plan] PSO-GA fleet placement for {shape.name}{tag} "
               f"(backend={plan.backend}):")
         print(plan.summary())
     print(f"[plan] {len(plans)} shapes planned in {wall:.3f} s")
