@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's planner on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's planner and LM server on one NVIDIA GPU and
+check them.
 
     python3 chip_smoke.py
 
 Phases (each prints its seconds; any failure exits non-zero with no
 result line):
 
-  1. build   — compile every CUDA kernel of the main paths from
-               ``src/repro_torch/kernels/csrc`` with nvcc, one process per
-               source, all started together;
+  1. build   — compile every CUDA kernel of ``_build.SOURCES`` (every
+               ``src/repro_torch/kernels/csrc/*.cu``) with nvcc, one process
+               per source, all started together;
   2. check   — each kernel against its plain PyTorch version on CUDA
                tensors, for seeded random swarms. B1 (zero-load replay):
                resnet101 on the paper fleet (both fidelity modes), the
@@ -35,15 +36,38 @@ result line):
                traffic: B2 is held against its plain version at the
                solves' own buckets and draws and at every held-out replay,
                and the traffic-aware plan's held-out p95 miss rate is no
-               worse than the zero-load plan's.
+               worse than the zero-load plan's;
+  8. check-attn — B3 (flash prefill) and B4 (flash decode) against their
+               plain versions on CUDA tensors, float32 to 2e-5 and bfloat16
+               to 2e-2: qwen3-0.6b's serving shapes (batch 8, prompt 2048,
+               cache 2080; causal and a 512 window; valid_len 1, 1000, 2048,
+               2080) and ragged shapes of the CPU sweep (head_dim 16 to 256);
+  9. serve   — the LM main path: ``repro_torch.launch.serve.Server`` with
+               qwen3-0.6b at full width and depth (28 layers, bfloat16,
+               seeded weights on the card), batch 8, prompt 2048, 32 new
+               tokens, no EOS; a first call, then a counted one that must
+               launch B3 28 times and B4 28 x 31 times and give the same
+               tokens; prints prefill ms and decode tokens/s;
+ 10. serve-check — qwen3-0.6b at full width, 2 layers, float32: prefill of
+               1000 tokens and 4 greedy decode steps through the kernels
+               against the same steps through the plain versions on the card
+               (logits to 1e-4, equal tokens), and decode logits against the
+               prefill logits of the longer prompt (teacher-forced, 2e-3);
+ 11. time-attn — B3 and B4 per launch at the serving shapes (CUDA events
+               over calls queued behind a device sleep, five rounds in turns
+               with one ``scaled_dot_product_attention`` call as the
+               yardstick, medians), beside their plain versions and bounds.
 
-Kernel launch counters are zeroed just before each solve path and read
-just after; every solve's plans are replayed by the numpy oracle
-``simulate_np``. The last lines are the kernels' JSON summary, the card's
+Kernel launch counters are zeroed just before each solve path and the
+counted serve call and read just after; every solve's plans are replayed
+by the numpy oracle ``simulate_np``. The last lines are the kernels' JSON summary, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import importlib
 import json
 import subprocess
 import sys
@@ -63,9 +87,17 @@ RTOL = 1e-5          # kernel vs plain version: both float32
 #: 11,100 edges (Fig. 8) drifts ~1e-5 relative from the float64 sum
 ORACLE_RTOL = 1e-4
 SEED = 0
-#: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 non-tensor FLOP/s
+#: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 non-tensor FLOP/s,
+#: bf16 dense tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
+#: device spin ahead of a timed stretch of attention calls (~25 ms at the
+#: H100's clocks), so the host queues every call before the stretch starts
+SLEEP_CYCLES = 50_000_000
+#: attention kernels vs plain versions: the reference kernel tests'
+#: tolerances (float32 sums in another order; bfloat16 outputs rounded)
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
 def _phase(name, fn, failures, *args):
@@ -158,6 +190,38 @@ def traffic_bound_ms(ppb, tin, P, faithful):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def flash_plain(q, k, v, causal=True, window=0):
+    """B3's plain version on the model layout: q (B,S,K,G,hd), k/v
+    (B,S,K,hd)."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    return flash_attention_plain(
+        q.permute(0, 2, 3, 1, 4), k.permute(0, 2, 1, 3),
+        v.permute(0, 2, 1, 3), causal=causal,
+        window=window).permute(0, 3, 1, 2, 4)
+
+
+def decode_plain(q, k, v, valid_len):
+    """B4's plain version on the model layout: q (B,K,G,hd), k/v the
+    (B,C,K,hd) cache."""
+    from repro_torch.kernels.decode_attention import decode_attention_plain
+    return decode_attention_plain(q, k.permute(0, 2, 1, 3),
+                                  v.permute(0, 2, 1, 3), valid_len)
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Route the model's attention through the plain versions on the card,
+    to compare a model run through the kernels with the same run without
+    them."""
+    from repro_torch.kernels import ops
+    saved = ops.flash_attention, ops.decode_attention
+    ops.flash_attention, ops.decode_attention = flash_plain, decode_plain
+    try:
+        yield
+    finally:
+        ops.flash_attention, ops.decode_attention = saved
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -185,7 +249,7 @@ def main() -> int:
     # 1. build ------------------------------------------------------------
     def build():
         t0 = time.perf_counter()
-        names = ("schedule_sim", "traffic_sim")
+        names = _build.SOURCES
         with ThreadPoolExecutor(len(names)) as pool:
             paths = list(pool.map(_build.build, names))
         for name, path in zip(names, paths):
@@ -193,8 +257,8 @@ def main() -> int:
             print(_build.build_log(name) or "(cached)")
         print(f"[build] {len(names)} kernels in "
               f"{time.perf_counter() - t0:.2f} s")
-        schedule_sim._lib()
-        traffic_sim._lib()
+        for name in names:
+            importlib.import_module(f"repro_torch.kernels.{name}")._lib()
     _phase("build", build, failures)
 
     # 2. check ------------------------------------------------------------
@@ -640,6 +704,274 @@ def main() -> int:
                     (kind, i, st)
     _phase("traffic-fleet", traffic_fleet, failures)
 
+    # 8. check-attn: B3 and B4 against their plain versions ----------------
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.breakdown import (SERVE_BATCH, SERVE_NEW,
+                                              SERVE_PROMPT)
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import TransformerLM
+    b3, b4 = fa.flash_attention_folded, da.decode_attention_folded
+    qwen = get("qwen3-0.6b")
+    H, KV, HD = qwen.n_heads, qwen.n_kv_heads, qwen.head_dim
+    G = H // KV
+    serve_cache = SERVE_PROMPT + SERVE_NEW
+    gen = torch.Generator(device=dev)
+    rec.update(flash_max_abs_err=0.0, decode_max_abs_err=0.0)
+
+    def randn(shape, dtype, seed):
+        gen.manual_seed(seed)
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def attn_check(kind, tag, got, want, dtype):
+        """Kernel output against the plain version: every element within
+        tol + tol * |want| (the reference tests' allclose), all finite."""
+        tol = ATTN_TOL[dtype]
+        err = (got.float() - want.float()).abs()
+        n_bad = int((err > tol + tol * want.float().abs()).sum())
+        mx = float(err.max())
+        rec[f"{kind}_max_abs_err"] = max(rec[f"{kind}_max_abs_err"], mx)
+        print(f"[check-attn] {kind} {tag} {str(dtype)[6:]}: max_abs_err "
+              f"{mx:.3g} (tol {tol:g}) outside {n_bad}", flush=True)
+        assert bool(torch.isfinite(got).all()), tag
+        assert n_bad == 0, f"{kind} {tag}: {n_bad} elements beyond tol {tol}"
+
+    def check_attn():
+        flash_cases = [
+            ((SERVE_BATCH, SERVE_PROMPT, KV, G, HD), 0, "qwen3 serve"),
+            ((2, SERVE_PROMPT, KV, G, HD), 512, "qwen3 window 512"),
+            ((1, 300, 1, 4, 64), 0, "ragged"), ((2, 257, 2, 1, 128), 64,
+                                                 "ragged window"),
+            ((1, 512, 4, 2, 64), 64, "multi-tile window"),
+            ((2, 200, 2, 2, 16), 0, "hd 16"), ((1, 100, 2, 3, 256), 7,
+                                               "hd 256 window")]
+        decode_cases = [
+            ((SERVE_BATCH, serve_cache, KV, G, HD), v, f"qwen3 valid {v}")
+            for v in (1, 1000, SERVE_PROMPT, serve_cache)] + [
+            ((2, 100, 1, 8, 64), 1, "G 8 single slot"),
+            ((1, 1000, 2, 2, 64), 999, "ragged"),
+            ((1, 64, 2, 3, 16), 64, "hd 16 G 3 full"),
+            ((1, 300, 1, 1, 256), 77, "hd 256")]
+        for dtype in (torch.float32, torch.bfloat16):
+            for i, ((b, s, kh, g, hd), window, tag) in enumerate(flash_cases):
+                q = randn((b, s, kh, g, hd), dtype, 3 * i)
+                k = randn((b, s, kh, hd), dtype, 3 * i + 1)
+                v = randn((b, s, kh, hd), dtype, 3 * i + 2)
+                got = ops.flash_attention(q, k, v, causal=True, window=window)
+                torch.cuda.synchronize()
+                want = flash_plain(q, k, v, True, window)
+                attn_check("flash", f"{tag} {(b, s, kh, g, hd)} window "
+                           f"{window}", got, want, dtype)
+                del want
+            for i, ((b, c, kh, g, hd), valid, tag) in enumerate(decode_cases):
+                q = randn((b, kh, g, hd), dtype, 100 + 3 * i)
+                k = randn((b, c, kh, hd), dtype, 101 + 3 * i)
+                v = randn((b, c, kh, hd), dtype, 102 + 3 * i)
+                k[:, valid:] = 1e9                 # dead slots
+                v[:, valid:] = -1e9
+                got = ops.decode_attention(q, k, v, valid)
+                torch.cuda.synchronize()
+                attn_check("decode", f"{tag} {(b, c, kh, g, hd)}", got,
+                           decode_plain(q, k, v, valid), dtype)
+    _phase("check-attn", check_attn, failures)
+
+    # 9. serve: qwen3-0.6b at full width and depth --------------------------
+    def serve():
+        t0 = time.perf_counter()
+        srv = Server(qwen, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, eos_id=-1,
+                     device=dev)
+        srv.init_params(SEED)
+        torch.cuda.synchronize()
+        n_par = sum(p.numel() for p in srv.model.parameters())
+        print(f"[serve] {qwen.name}: {qwen.n_layers} layers, d_model "
+              f"{qwen.d_model}, {qwen.dtype}, {n_par} parameters "
+              f"({n_par * 2 / 1e9:.3f} GB), seeded in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        tokens = np.random.default_rng(SEED).integers(
+            2, qwen.vocab, (SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
+        first = srv.generate({"tokens": tokens})
+        torch.cuda.reset_peak_memory_stats(dev)
+        b3.launches = 0
+        b4.launches = 0
+        out = srv.generate({"tokens": tokens})
+        launches["serve_b3"], launches["serve_b4"] = b3.launches, b4.launches
+        peak = torch.cuda.max_memory_allocated(dev)
+        for tag, o in (("first call", first), ("counted call", out)):
+            print(f"[serve] {tag}: batch {SERVE_BATCH} prompt "
+                  f"{SERVE_PROMPT}: prefill {1e3 * o['prefill_s']:.2f} ms, "
+                  f"decode {o['tokens_generated']} tokens in "
+                  f"{1e3 * o['decode_s']:.2f} ms "
+                  f"({o['decode_tok_per_s']:.1f} tok/s)", flush=True)
+        print(f"[serve] counted call: flash_attention launches "
+              f"{launches['serve_b3']}, decode_attention launches "
+              f"{launches['serve_b4']}, peak device memory "
+              f"{peak / 1e9:.3f} GB; first row {out['tokens'][0][:8]}",
+              flush=True)
+        assert launches["serve_b3"] == qwen.n_layers, launches
+        assert launches["serve_b4"] == qwen.n_layers * (SERVE_NEW - 1), \
+            launches
+        toks = out["tokens"]
+        assert toks.shape == (SERVE_BATCH, SERVE_NEW), toks.shape
+        assert ((toks >= 0) & (toks < qwen.vocab)).all()
+        np.testing.assert_array_equal(toks, first["tokens"])   # greedy
+        with torch.inference_mode():
+            lg, _ = srv.model.prefill({"tokens": tokens[:1, :64]})
+        assert lg.shape == (1, 1, qwen.vocab) and bool(torch.isfinite(
+            lg).all())
+    _phase("serve", serve, failures)
+
+    # 10. serve-check: the kernels against the plain path in one model -----
+    def serve_check():
+        cfg = dataclasses.replace(qwen, n_layers=2, dtype="float32")
+        model = TransformerLM(cfg, device=dev).init(
+            torch.Generator(device=dev).manual_seed(SEED))
+        b, s, steps = 2, 1000, 4
+        prompt = torch.as_tensor(np.random.default_rng(SEED + 1).integers(
+            2, cfg.vocab, (b, s)), device=dev)
+
+        def greedy():
+            lg, c = model.prefill({"tokens": prompt}, cache_len=s + steps)
+            logits, toks = [lg], []
+            for j in range(steps):
+                toks.append(logits[-1][:, -1].argmax(-1)[:, None])
+                lg, c = model.decode_step(c, {"token": toks[-1],
+                                              "pos": s + j})
+                logits.append(lg)
+            return torch.cat(logits, 1), torch.cat(toks, 1)
+
+        with torch.inference_mode():
+            b3.launches = 0
+            b4.launches = 0
+            lk, tk = greedy()
+            assert (b3.launches, b4.launches) == (2, 2 * steps), \
+                (b3.launches, b4.launches)
+            with plain_attention():
+                lp, tp = greedy()
+            err = float((lk - lp).abs().max())
+            print(f"[serve-check] 2-layer float32 qwen3-0.6b, prompt {s}, "
+                  f"{steps} greedy steps: kernels vs plain logits max_abs_err "
+                  f"{err:.3g} (|logit| <= {float(lp.abs().max()):.3g}), "
+                  f"tokens equal {bool(torch.equal(tk, tp))}", flush=True)
+            # float32 on both sides; attention sums in another order
+            torch.testing.assert_close(lk, lp, rtol=1e-4, atol=1e-4)
+            assert torch.equal(tk, tp)
+            seq = torch.cat([prompt, tk], 1)
+            tf = 0.0
+            for j in range(1, steps + 1):
+                want, _ = model.prefill({"tokens": seq[:, :s + j]})
+                # the reference's own teacher-forced tolerance
+                torch.testing.assert_close(lk[:, j], want[:, -1], rtol=2e-3,
+                                           atol=2e-3)
+                tf = max(tf, float((lk[:, j] - want[:, -1]).abs().max()))
+            print(f"[serve-check] teacher-forced: decode vs prefill logits "
+                  f"max_abs_err {tf:.3g}", flush=True)
+    _phase("serve-check", serve_check, failures)
+
+    # 11. time-attn: B3 and B4 at the serving shapes ------------------------
+    def queued_ms(fn, reps):
+        """Device ms per call of ``fn`` over ``reps`` calls queued behind a
+        device sleep, after a warm-up: the host's cost of each call (the
+        wrapper's checks, ctypes) overlaps the sleep, not the timed
+        stretch. Also the host's ms per call, and whether every call was
+        queued before the sleep ended (else the time holds host gaps)."""
+        fn()
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host = 1e3 * (time.perf_counter() - t0)
+        ev[2].record()
+        torch.cuda.synchronize()
+        return (ev[1].elapsed_time(ev[2]) / reps, host / reps,
+                host < ev[0].elapsed_time(ev[1]))
+
+    def in_turns(tag, kernel, library, plain, reps, plain_reps, rounds=5):
+        """Kernel and library call timed in turns, ``rounds`` times each,
+        then the plain version once; medians of the device times."""
+        k, lib = [], []
+        for _ in range(rounds):
+            k.append(queued_ms(kernel, reps))
+            lib.append(queued_ms(library, reps))
+        p = queued_ms(plain, plain_reps)
+        queued = all(r[2] for r in k + lib) and p[2]
+        print(f"[time-attn] {tag}: kernel ms per round "
+              f"{[round(r[0], 5) for r in k]} (host ms per call "
+              f"{float(np.median([r[1] for r in k])):.4f}), sdpa ms per "
+              f"round {[round(r[0], 5) for r in lib]}, plain {p[0]:.4f} ms; "
+              f"every call queued ahead of the device: {queued}", flush=True)
+        return (float(np.median([r[0] for r in k])),
+                float(np.median([r[0] for r in lib])), p[0])
+
+    def time_attn():
+        dt = torch.bfloat16
+        B, S = SERVE_BATCH, SERVE_PROMPT
+        q = randn((B, S, KV, G, HD), dt, 1)
+        k, v = randn((B, S, KV, HD), dt, 2), randn((B, S, KV, HD), dt, 3)
+        qs = q.reshape(B, S, H, HD).transpose(1, 2).contiguous()
+        ks, vs = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                                  enable_gqa=True)
+        ms, lib, plain = in_turns(
+            "B3", lambda: ops.flash_attention(q, k, v), sdpa,
+            lambda: flash_plain(q, k, v), 20, 3)
+        lib_err = float((sdpa().transpose(1, 2).reshape(q.shape).float()
+                         - ops.flash_attention(q, k, v).float()).abs().max())
+        flops = 4 * B * H * (S * (S + 1) // 2) * HD
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        t_ops, t_bytes = flops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+        timing["flash"] = dict(
+            ms=ms, plain_ms=plain, library_ms=lib,
+            bound_ms=1e3 * max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes")
+        print(f"[time-attn] B3 bf16 q {tuple(q.shape)} causal: kernel "
+              f"{ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), plain "
+              f"{plain:.3f} ms, sdpa {lib:.4f} ms (max |diff| {lib_err:.3g})"
+              f", bound {timing['flash']['bound_ms']:.4f} ms "
+              f"({timing['flash']['bound_by']}: {flops:.4g} FLOPs, "
+              f"{nbytes:.4g} bytes)", flush=True)
+        C, valid = serve_cache, SERVE_PROMPT
+        qd = randn((B, KV, G, HD), dt, 4)
+        kc, vc = randn((B, C, KV, HD), dt, 5), randn((B, C, KV, HD), dt, 6)
+        qsd = qd.reshape(B, H, 1, HD)
+        ksd, vsd = kc.transpose(1, 2).contiguous(), \
+            vc.transpose(1, 2).contiguous()
+        live = (torch.arange(C, device=dev) < valid)[None, None, None, :]
+
+        def sdpa_d():
+            return F.scaled_dot_product_attention(qsd, ksd, vsd,
+                                                  attn_mask=live,
+                                                  enable_gqa=True)
+        ms, lib, plain = in_turns(
+            "B4", lambda: ops.decode_attention(qd, kc, vc, valid), sdpa_d,
+            lambda: decode_plain(qd, kc, vc, valid), 50, 20)
+        lib_err = float((sdpa_d().reshape(qd.shape).float()
+                         - ops.decode_attention(qd, kc, vc, valid).float()
+                         ).abs().max())
+        nbytes = 2 * B * valid * KV * HD * 2 + 2 * 2 * qd.numel()
+        flops = 4 * B * H * valid * HD
+        t_ops, t_bytes = flops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+        timing["decode"] = dict(
+            ms=ms, plain_ms=plain, library_ms=lib,
+            bound_ms=1e3 * max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes")
+        print(f"[time-attn] B4 bf16 q {tuple(qd.shape)} cache "
+              f"{tuple(kc.shape)} valid {valid}: kernel {ms:.4f} ms "
+              f"({nbytes / ms / 1e9:.2f} TB/s), plain {plain:.3f} ms, sdpa "
+              f"{lib:.4f} ms (max |diff| {lib_err:.3g}), bound "
+              f"{timing['decode']['bound_ms']:.4f} ms "
+              f"({timing['decode']['bound_by']}: {nbytes:.4g} bytes)",
+              flush=True)
+    _phase("time-attn", time_attn, failures)
+
     jax_loaded = "jax" in sys.modules
     print(f"[imports] jax loaded: {jax_loaded}")
     if jax_loaded:
@@ -665,7 +997,17 @@ def main() -> int:
         "max_abs_err": rec["traffic_max_abs_err"],
         "ms": t_main["ms"], "plain_ms": t_main["plain_ms"],
         "bound_ms": t_main["bound_ms"], "bound_by": t_main["bound_by"],
-        "library_ms": None}]}))
+        "library_ms": None}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:40",
+        "launches": launches["serve_b3"],
+        "max_abs_err": rec["flash_max_abs_err"], **timing["flash"]}, {
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:34",
+        "launches": launches["serve_b4"],
+        "max_abs_err": rec["decode_max_abs_err"], **timing["decode"]}]}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)

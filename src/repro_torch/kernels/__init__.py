@@ -7,12 +7,23 @@ version:
   * traffic_sim — queue-aware FCFS replay of R request copies per
     Monte-Carlo arrival draw for the traffic fitness
     (``csrc/traffic_sim.cu``; port of ``repro/kernels/traffic_sim.py``)
+  * flash_attention — causal / sliding-window GQA flash prefill
+    (``csrc/flash_attention.cu``; port of
+    ``repro/kernels/flash_attention.py``)
+  * decode_attention — one-token flash decode over a KV cache
+    (``csrc/decode_attention.cu``; port of
+    ``repro/kernels/decode_attention.py``)
 
-Each module's dispatch (``schedule_replay``, ``traffic_replay``) replays a
-whole swarm on the tensors' device and carries the kernel's ``launches``
-counter. ``core.traffic.traffic_replay`` is a different, higher-level
-function: it replays ONE plan against Monte-Carlo draws and reaches the
-kernel through ``core.traffic.simulate_traffic_swarm``.
+``_build.SOURCES`` lists every ``csrc/<name>.cu``; each is wrapped by the
+module ``<name>.py``. ``ops`` holds the attention kernels' wrappers in the
+model's layout.
+
+Each module's dispatch (``schedule_replay``, ``traffic_replay``,
+``flash_attention_folded``, ``decode_attention_folded``) runs on the
+tensors' device and carries the kernel's ``launches`` counter.
+``core.traffic.traffic_replay`` is a different, higher-level function: it
+replays ONE plan against Monte-Carlo draws and reaches the kernel through
+``core.traffic.simulate_traffic_swarm``.
 
 Kernels are compiled with ``nvcc`` on first launch (``_build.py``); a CPU
 tensor takes the plain version and never needs the toolkit.

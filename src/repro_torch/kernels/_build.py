@@ -19,10 +19,13 @@ import time
 from pathlib import Path
 from typing import Dict, Optional
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "find_nvcc", "build", "load",
-           "build_log"]
+__all__ = ["CSRC", "SOURCES", "BUILD_DIR", "NVCC_FLAGS", "find_nvcc",
+           "build", "load", "build_log"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+#: every kernel source, by name: ``csrc/<name>.cu`` is wrapped by the module
+#: ``kernels/<name>.py``
+SOURCES = tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas=-v", "-shared",

@@ -1,0 +1,137 @@
+"""One-token flash decode over a KV cache (kernel B4): the CUDA kernel's
+wrapper and its plain PyTorch version.
+
+The hand-written Hopper kernel (``csrc/decode_attention.cu``) is the port
+of the Pallas kernel ``repro/kernels/decode_attention.py::_decode_kernel``:
+every query head of a kv head attends over the cache slots
+``[0, valid_len)``, with fp32 running max, sum and accumulator; slots at or
+past ``valid_len`` are neither read nor counted. It splits each
+(batch, kv head) row's live slots over a cluster of 8 blocks and combines
+their partial softmax states on chip, in the same launch.
+``decode_attention_plain`` is the same function in plain PyTorch, after
+``repro/kernels/ref.py::decode_attention_ref``.
+
+Both take the folded layout of the reference, ``q (BK, G, hd)`` and
+``k, v (BK, C, hd)``, and also the same with the row axis split as
+``(B, K)``: ``q (B, K, G, hd)``, ``k, v (B, K, C, hd)``. The split form lets
+``kernels.ops.decode_attention`` hand the kernel a permuted view of the
+model's ``(B, C, K, hd)`` cache, which it reads in place through its
+strides. ``valid_len`` is one Python int (or 0-d tensor) for the whole
+batch, 1 <= valid_len <= C. The output has q's shape and dtype.
+
+``decode_attention_folded`` picks by the tensors' device: plain on the
+CPU, the kernel on CUDA, where it raises on anything the kernel does not
+take. Its ``launches`` attribute counts kernel launches (one per call).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .flash_attention import (DTYPE_CODES, HEAD_DIMS, NEG_INF,
+                              check_operand)
+
+__all__ = ["decode_attention_folded", "decode_attention_plain"]
+
+
+def _split(q, k, v):
+    """Folded tensors as (B, K, ...) views: a (BK, ...) row axis becomes
+    (BK, 1, ...)."""
+    if q.dim() == 3 and k.dim() == 3 and v.dim() == 3:
+        q, k, v = q[:, None], k[:, None], v[:, None]
+    elif not (q.dim() == 4 and k.dim() == 4 and v.dim() == 4):
+        raise ValueError(f"q must be (BK, G, hd) with k, v (BK, C, hd), or "
+                         f"(B, K, G, hd) with k, v (B, K, C, hd); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, K, G, hd = q.shape
+    C = k.shape[2]
+    for name, t in (("k", k), ("v", v)):
+        if tuple(t.shape) != (B, K, C, hd):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{(B, K, C, hd)} for q {tuple(q.shape)}")
+    return q, k, v
+
+
+def _valid(valid_len, C: int) -> int:
+    n = int(valid_len)
+    if not 1 <= n <= C:
+        raise ValueError(f"valid_len must be in [1, {C}], got {n}")
+    return n
+
+
+def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           valid_len) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: fp32 scores over every
+    slot, slots >= ``valid_len`` masked with ``NEG_INF``, softmax, fp32
+    P·V; returned in q's dtype."""
+    q4, k4, v4 = _split(q, k, v)
+    C, hd = k4.shape[2:]
+    n = _valid(valid_len, C)
+    s = torch.einsum("bkgd,bkcd->bkgc", q4.float(), k4.float()) * hd ** -0.5
+    live = torch.arange(C, device=q.device) < n
+    w = torch.softmax(torch.where(live, s, NEG_INF), dim=-1)
+    out = torch.einsum("bkgc,bkcd->bkgd", w, v4.float()).to(q.dtype)
+    return out if q.dim() == 4 else out[:, 0]
+
+
+def decode_attention_folded(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, valid_len) -> torch.Tensor:
+    """Decode attention over the folded (or row-split) layout: the plain
+    version on the CPU, the kernel on CUDA (or it raises)."""
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k, v, valid_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"no decode attention for tensors on {q.device}")
+    return _launch(q, k, v, valid_len)
+
+
+decode_attention_folded.launches = 0
+
+
+def _launch(q, k, v, valid_len):
+    q4, k4, v4 = _split(q, k, v)
+    B, K, G, hd = q4.shape
+    n = _valid(valid_len, k4.shape[2])
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} is not one the kernel is built for "
+                         f"{HEAD_DIMS}")
+    if B * K > 65535:
+        raise ValueError(f"grid too large: B*K {B * K}")
+    for name, t in (("q", q4), ("k", k4), ("v", v4)):
+        check_operand(name, t, q4)
+    o = torch.empty_like(q4)
+    check_operand("o", o, q4)
+    st = (ctypes.c_longlong * 12)(*q4.stride()[:3], *k4.stride()[:3],
+                                  *v4.stride()[:3], *o.stride()[:3])
+    lib = _lib()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    decode_attention_folded.launches += 1
+    err = lib.decode_attention_launch(
+        q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o.data_ptr(), st, B, K,
+        G, hd, n, hd ** -0.5, DTYPE_CODES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(
+            "decode_attention kernel launch failed: "
+            f"{lib.decode_attention_error_string(err).decode()}")
+    return o if q.dim() == 4 else o[:, 0]
+
+
+_LIB = None
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        from ._build import load
+        lib = load("decode_attention")
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.decode_attention_launch.argtypes = (
+            [vp] * 4 + [ctypes.POINTER(ctypes.c_longlong)] + [ci] * 5
+            + [ctypes.c_float, ci, vp])
+        lib.decode_attention_launch.restype = ci
+        lib.decode_attention_error_string.argtypes = [ci]
+        lib.decode_attention_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB

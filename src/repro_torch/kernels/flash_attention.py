@@ -1,0 +1,162 @@
+"""Causal / sliding-window GQA flash prefill attention (kernel B3): the
+CUDA kernel's wrapper and its plain PyTorch version.
+
+The hand-written Hopper kernel (``csrc/flash_attention.cu``) is the port
+of the Pallas kernel ``repro/kernels/flash_attention.py::_flash_kernel``:
+an online softmax with fp32 running max, sum and accumulator over the kv
+tiles that meet each query tile's causal / window band.
+``flash_attention_plain`` is the same function in plain PyTorch, with the
+masks and fp32 math of ``repro/kernels/ref.py::flash_attention_ref``; the
+CPU path and the checks on the card use it.
+
+Both take the folded layout of the reference, ``q (BK, G, S, hd)`` and
+``k, v (BK, S, hd)``, and also the same with the row axis split as
+``(B, K)``: ``q (B, K, G, S, hd)``, ``k, v (B, K, S, hd)``. The split form
+lets ``kernels.ops.flash_attention`` hand the kernel permuted views of the
+model's ``(B, S, K, G, hd)`` tensors, which it reads through their strides
+without a copy. The output has q's shape and dtype (float32 or bfloat16).
+
+``flash_attention_folded`` picks by the tensors' device: plain on the CPU,
+the kernel on CUDA, where it raises on anything the kernel does not take.
+Its ``launches`` attribute counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+__all__ = ["flash_attention_folded", "flash_attention_plain", "NEG_INF",
+           "HEAD_DIMS"]
+
+#: the reference's large-but-finite mask value
+NEG_INF = -2.0 ** 30
+#: the head_dim values the kernel is built for: the reduced test configs
+#: (16), 64, qwen3 and starcoder2 (128), gemma-7b (256)
+HEAD_DIMS = (16, 64, 128, 256)
+#: the dtypes the kernels take, with the code their C entry points use
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _split(q, k, v):
+    """Folded tensors as (B, K, ...) views: a (BK, ...) row axis becomes
+    (BK, 1, ...)."""
+    if q.dim() == 4 and k.dim() == 3 and v.dim() == 3:
+        return q[:, None], k[:, None], v[:, None]
+    if q.dim() == 5 and k.dim() == 4 and v.dim() == 4:
+        return q, k, v
+    raise ValueError(f"q must be (BK, G, S, hd) with k, v (BK, S, hd), or "
+                     f"(B, K, G, S, hd) with k, v (B, K, S, hd); got "
+                     f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+
+
+def _check_shapes(q5, k4, v4):
+    B, K, G, S, hd = q5.shape
+    for name, t in (("k", k4), ("v", v4)):
+        if tuple(t.shape) != (B, K, S, hd):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{(B, K, S, hd)} for q {tuple(q5.shape)}")
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool, window: int) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: fp32 scores over the whole
+    row, masked to the causal / window band with ``NEG_INF``, softmax, fp32
+    P·V; returned in q's dtype."""
+    q5, k4, v4 = _split(q, k, v)
+    _check_shapes(q5, k4, v4)
+    s, hd = q5.shape[-2:]
+    scores = torch.einsum("bkgqd,bkcd->bkgqc", q5.float(),
+                          k4.float()) * hd ** -0.5
+    qpos = torch.arange(s, device=q.device)[:, None]
+    kpos = torch.arange(s, device=q.device)[None, :]
+    ok = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= kpos <= qpos
+    if window:
+        ok &= kpos > qpos - window
+    w = torch.softmax(torch.where(ok, scores, NEG_INF), dim=-1)
+    out = torch.einsum("bkgqc,bkcd->bkgqd", w, v4.float()).to(q.dtype)
+    return out if q.dim() == 5 else out[:, 0]
+
+
+def flash_attention_folded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           *, causal: bool, window: int) -> torch.Tensor:
+    """Prefill attention over the folded (or row-split) layout: the plain
+    version on the CPU, the kernel on CUDA (or it raises)."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash attention for tensors on {q.device}")
+    return _launch(q, k, v, causal=causal, window=window)
+
+
+flash_attention_folded.launches = 0
+
+
+def check_operand(name: str, t: torch.Tensor, ref: torch.Tensor) -> None:
+    """What both attention kernels require of an operand: q's device and
+    dtype, a contiguous head_dim, and 16-byte aligned rows (the kernels load
+    16 bytes at a time)."""
+    if t.device != ref.device:
+        raise ValueError(f"{name} is on {t.device}, q on {ref.device}")
+    if t.dtype != ref.dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, q {ref.dtype}")
+    if t.dtype not in DTYPE_CODES:
+        raise TypeError(f"{name} has dtype {t.dtype}; the kernel takes "
+                        f"float32 or bfloat16")
+    if t.stride(-1) != 1:
+        raise ValueError(f"{name}'s head_dim is not contiguous")
+    if t.data_ptr() % 16 or any(st % 8 for st, n in zip(t.stride()[:-1],
+                                                       t.shape[:-1]) if n > 1):
+        raise ValueError(f"{name} is not 16-byte aligned: pointer "
+                         f"{t.data_ptr()}, strides {t.stride()}")
+
+
+def _launch(q, k, v, *, causal: bool, window: int):
+    q5, k4, v4 = _split(q, k, v)
+    _check_shapes(q5, k4, v4)
+    B, K, G, S, hd = q5.shape
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} is not one the kernel is built for "
+                         f"{HEAD_DIMS}")
+    if S < 1 or window < 0:
+        raise ValueError(f"need seq >= 1 and window >= 0, got {S}, {window}")
+    if B * K > 65535 or G > 65535:
+        raise ValueError(f"grid too large: B*K {B * K}, G {G}")
+    for name, t in (("q", q5), ("k", k4), ("v", v4)):
+        check_operand(name, t, q5)
+    o = torch.empty_like(q5)             # q's layout: dense views stay dense
+    check_operand("o", o, q5)
+    st = (ctypes.c_longlong * 14)(*q5.stride()[:4], *k4.stride()[:3],
+                                  *v4.stride()[:3], *o.stride()[:4])
+    lib = _lib()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    flash_attention_folded.launches += 1
+    err = lib.flash_attention_launch(
+        q5.data_ptr(), k4.data_ptr(), v4.data_ptr(), o.data_ptr(), st, B, K,
+        G, S, hd, int(bool(causal)), int(window), hd ** -0.5,
+        DTYPE_CODES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError("flash_attention kernel launch failed: "
+                           f"{lib.flash_attention_error_string(err).decode()}")
+    return o if q.dim() == 5 else o[:, 0]
+
+
+_LIB = None
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        from ._build import load
+        lib = load("flash_attention")
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.flash_attention_launch.argtypes = (
+            [vp] * 4 + [ctypes.POINTER(ctypes.c_longlong)] + [ci] * 7
+            + [ctypes.c_float, ci, vp])
+        lib.flash_attention_launch.restype = ci
+        lib.flash_attention_error_string.argtypes = [ci]
+        lib.flash_attention_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB

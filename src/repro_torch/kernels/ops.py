@@ -1,0 +1,34 @@
+"""Layout wrappers around the attention kernels, in the model's layout.
+
+Each op hands the kernel permuted views of the model-layout tensors, which
+it reads through their strides: no transpose is copied (the reference's
+``repro/kernels/ops.py`` folds q, k and v into ``(B*K, ...)`` copies).
+The route is chosen by the tensors' device, in the kernel modules: the
+plain PyTorch version on the CPU, the kernel on CUDA or an error. That is
+the port's counterpart of the reference's ``interpret_default``: there is
+no interpret mode and no switch.
+"""
+from __future__ import annotations
+
+import torch
+
+from .decode_attention import decode_attention_folded
+from .flash_attention import flash_attention_folded
+
+__all__ = ["flash_attention", "decode_attention"]
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q: (B,S,K,G,hd); k/v: (B,S,K,hd) -> (B,S,K,G,hd)."""
+    o = flash_attention_folded(q.permute(0, 2, 3, 1, 4), k.permute(0, 2, 1, 3),
+                               v.permute(0, 2, 1, 3), causal=causal,
+                               window=window)
+    return o.permute(0, 3, 1, 2, 4)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     valid_len) -> torch.Tensor:
+    """q: (B,K,G,hd); k/v: (B,C,K,hd); valid_len: int -> (B,K,G,hd)."""
+    return decode_attention_folded(q, k.permute(0, 2, 1, 3),
+                                   v.permute(0, 2, 1, 3), valid_len)

@@ -1,15 +1,18 @@
-"""Where a planning solve's time goes on the card: host wall clock, device
-kernel time by name (``torch.profiler``), and the share of the wall during
-which the device ran no kernel.
+"""Where a planning solve's or a served batch's time goes on the card:
+host wall clock, device kernel time by name (``torch.profiler``), and the
+share of the wall during which the device ran no kernel.
 
     PYTHONPATH=src python -m repro_torch.launch.breakdown [--traffic bursty]
+    PYTHONPATH=src python -m repro_torch.launch.breakdown --serve
 
 Profiles two solves after a warm-up of each: the qwen3-0.6b serving plan
 (``launch/plan.py``'s settings) and the paper's Fig. 8 problem at the
 paper's PSO-GA settings; with ``--traffic SCENARIO`` also the qwen3-0.6b
 plan under that request stream (``launch/plan.py --traffic``, rate 0.5).
-Prints one JSON line per solve; chrome traces go to ``--trace-dir`` when
-given.
+``--serve`` profiles the LM server instead, at the batch ``chip_smoke.py``
+serves: the prefill of 8 prompts of 2048 tokens and the 31 decode steps
+after it (``launch/serve.py``, seeded weights, full width and depth). Prints one JSON line per profiled run; chrome traces go to
+``--trace-dir`` when given.
 """
 from __future__ import annotations
 
@@ -26,8 +29,20 @@ from ..configs import SHAPES, get
 from ..core import (TRAFFIC_KINDS, TrafficConfig, plan_offload_batch,
                     run_pso_ga, tpu_fleet_environment)
 from ..core.paper import PAPER_PSO, fig8_problem
-from ..kernels import schedule_sim, traffic_sim
+from ..kernels import (decode_attention, flash_attention, schedule_sim,
+                       traffic_sim)
 from .plan import DEADLINE_RATIO, DEFAULT_PSO
+from .serve import Server
+
+#: the served batch: 8 prompts of 2048 tokens, 32 new tokens each
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 2048, 32
+#: each kernel's device symbol and the dispatch that counts its launches
+KERNELS = {
+    "replay": ("schedule_replay_kernel", schedule_sim.schedule_replay),
+    "traffic": ("traffic_replay_kernel", traffic_sim.traffic_replay),
+    "flash": ("flash_kernel", flash_attention.flash_attention_folded),
+    "decode": ("decode_kernel", decode_attention.decode_attention_folded),
+}
 
 
 def profile(tag: str, solve: Callable[[], object],
@@ -35,8 +50,8 @@ def profile(tag: str, solve: Callable[[], object],
     """Run ``solve`` once to warm up, then once under the profiler."""
     solve()
     torch.cuda.synchronize()
-    schedule_sim.schedule_replay.launches = 0
-    traffic_sim.traffic_replay.launches = 0
+    for _, dispatch in KERNELS.values():
+        dispatch.launches = 0
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -58,23 +73,49 @@ def profile(tag: str, solve: Callable[[], object],
         n, ms = sum(c for c, _ in hits), sum(ms for _, ms in hits)
         return ms, ms / n if n else None
 
-    replay_ms, replay_per = by_name("schedule_replay_kernel")
-    traffic_ms, traffic_per = by_name("traffic_replay_kernel")
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
     if trace_dir is not None:
         trace_dir.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(trace_dir / f"{tag}.json"))
-    return {"solve": tag, "wall_ms": wall * 1e3,
-            "device_busy_ms": busy_ms, "replay_kernel_ms": replay_ms,
-            "replay_ms_per_launch": replay_per,
-            "traffic_kernel_ms": traffic_ms,
-            "traffic_ms_per_launch": traffic_per,
-            "idle_share": 1.0 - busy_ms / (wall * 1e3),
-            "replay_launches": schedule_sim.schedule_replay.launches,
-            "traffic_launches": traffic_sim.traffic_replay.launches,
-            "device_kernels": len(kernels),
-            "top": [{"kernel": k[:80], "count": c, "ms": ms}
-                    for k, (c, ms) in top]}
+    out = {"run": tag, "wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
+           "idle_share": 1.0 - busy_ms / (wall * 1e3)}
+    for key, (symbol, dispatch) in KERNELS.items():
+        ms, per = by_name(symbol)
+        out.update({f"{key}_kernel_ms": ms, f"{key}_ms_per_launch": per,
+                    f"{key}_launches": dispatch.launches})
+    out.update(device_kernels=len(kernels),
+               top=[{"kernel": k[:80], "count": c, "ms": ms}
+                    for k, (c, ms) in top])
+    return out
+
+
+def profile_serve(arch: str, trace_dir: Optional[Path]) -> None:
+    """The LM server's prefill, then its decode steps, each profiled."""
+    import numpy as np
+    srv = Server(get(arch), SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, eos_id=-1)
+    srv.init_params(0)
+    tokens = np.random.default_rng(0).integers(
+        2, srv.cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
+    state = {}
+
+    @torch.inference_mode()
+    def prefill():
+        state["logits"], state["caches"] = srv.model.prefill(
+            {"tokens": tokens}, cache_len=srv.cache_len)
+
+    @torch.inference_mode()
+    def decode():
+        tok = state["logits"][:, -1].argmax(-1)[:, None]
+        for i in range(SERVE_NEW - 1):
+            logits, _ = srv.model.decode_step(
+                state["caches"], {"token": tok, "pos": SERVE_PROMPT + i})
+            tok = logits[:, -1].argmax(-1)[:, None]
+            tok.cpu()                  # the server reads every token back
+
+    tag = f"serve-{arch}-b{SERVE_BATCH}-s{SERVE_PROMPT}"
+    print(json.dumps(profile(f"{tag}-prefill", prefill, trace_dir)))
+    print(json.dumps(profile(f"{tag}-decode{SERVE_NEW - 1}", decode,
+                             trace_dir)))
 
 
 def main(argv=None) -> None:
@@ -84,6 +125,9 @@ def main(argv=None) -> None:
     ap.add_argument("--traffic", default=None, metavar="SCENARIO",
                     choices=TRAFFIC_KINDS,
                     help="also profile the plan under this arrival family")
+    ap.add_argument("--serve", action="store_true",
+                    help="profile the LM server's prefill and decode "
+                         "instead of the planner")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("breakdown measures the card: no CUDA device")
@@ -91,6 +135,9 @@ def main(argv=None) -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(f"[breakdown] {smi} torch {torch.__version__}")
+    if args.serve:
+        profile_serve(args.arch, args.trace_dir)
+        return
 
     cfg, env = get(args.arch), tpu_fleet_environment()
     requests = [(cfg, s, DEADLINE_RATIO) for s in SHAPES if s.kind != "train"]

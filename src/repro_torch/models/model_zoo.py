@@ -1,0 +1,103 @@
+"""Model construction and analytic counts — the port of
+``repro/models/model_zoo.py``.
+
+``build_model`` builds the dense family (``TransformerLM``); every other
+family raises NotImplementedError until its slice lands (ROADMAP queue A
+item 12). ``supports_shape``, ``skip_reason``, ``param_count`` and
+``model_flops`` are plain Python, copied from the reference. The
+reference's ``input_specs``/``batch_pspecs`` describe inputs for XLA's
+ahead-of-time lowering and sharding and have no counterpart here.
+"""
+from __future__ import annotations
+
+from ..configs.base import ModelConfig, ShapeSpec
+from .transformer import TransformerLM
+
+__all__ = ["build_model", "supports_shape", "skip_reason", "model_flops",
+           "param_count"]
+
+
+def build_model(cfg: ModelConfig, device=None) -> TransformerLM:
+    """The model for ``cfg`` on ``device`` (``cuda`` unless told)."""
+    if cfg.family == "dense":
+        return TransformerLM(cfg, device=device)
+    raise NotImplementedError(
+        f"family {cfg.family!r} ({cfg.name}) is not ported yet: ROADMAP "
+        f"queue A item 12 lists what is left")
+
+
+# ---------------------------------------------------------------------------
+# shape applicability
+# ---------------------------------------------------------------------------
+
+def supports_shape(cfg: ModelConfig, shape: ShapeSpec) -> bool:
+    if shape.name.startswith("long"):
+        if cfg.family in ("ssm", "hybrid"):
+            return True
+        # uniform sliding-window (mixtral) qualifies; periodic local:global
+        # (gemma3) still has full-attention layers -> skip
+        return cfg.window > 0 and cfg.local_global_period == 0
+    return True
+
+
+def skip_reason(cfg: ModelConfig, shape: ShapeSpec) -> str:
+    if supports_shape(cfg, shape):
+        return ""
+    return ("pure full attention at 512k context (no sub-quadratic path); "
+            "skipped per assignment")
+
+
+# ---------------------------------------------------------------------------
+# analytic parameter / FLOP counts (roofline MODEL_FLOPS)
+# ---------------------------------------------------------------------------
+
+def param_count(cfg: ModelConfig, active_only: bool = False) -> int:
+    d, v = cfg.d_model, cfg.vocab
+    n = v * d                                   # embed
+    if not cfg.tie_embeddings and cfg.family != "ssm":
+        n += v * d
+
+    def attn_params():
+        return d * cfg.n_heads * cfg.head_dim * 2 \
+            + d * cfg.n_kv_heads * cfg.head_dim * 2
+
+    def mlp_params(ff):
+        mult = 3 if cfg.act in ("swiglu", "geglu") else 2
+        return mult * d * ff
+
+    def mamba_params():
+        din, ns, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+        return d * din * 2 + d * ns * 2 + d * h + din * d \
+            + cfg.ssm_conv * (din + 2 * ns)
+
+    if cfg.family in ("dense", "vlm"):
+        n += cfg.n_layers * (attn_params() + mlp_params(cfg.d_ff))
+    elif cfg.family == "moe":
+        e = cfg.top_k if active_only else cfg.n_experts
+        per = attn_params() + e * 3 * d * cfg.d_ff + d * cfg.n_experts
+        if cfg.moe_dense_residual:
+            per += mlp_params(cfg.d_ff_dense)
+        n += cfg.n_layers * per
+    elif cfg.family == "ssm":
+        n += cfg.n_layers * mamba_params()
+    elif cfg.family == "hybrid":
+        n += cfg.n_layers * mamba_params()
+        n += attn_params() + mlp_params(cfg.d_ff)   # shared block, once
+    elif cfg.family == "encdec":
+        n += cfg.enc_layers * (attn_params() + mlp_params(cfg.d_ff))
+        n += cfg.dec_layers * (2 * attn_params() + mlp_params(cfg.d_ff))
+    if cfg.family == "vlm":
+        n += d * d                              # vision projection stub
+    return int(n)
+
+
+def model_flops(cfg: ModelConfig, shape: ShapeSpec) -> float:
+    """MODEL_FLOPS = 6·N·D (train) or 2·N·D (inference), N = active params
+    (matmul params only — embedding lookup excluded), D = tokens."""
+    n_active = param_count(cfg, active_only=True)
+    n_active -= cfg.vocab * cfg.d_model         # lookup is not a matmul
+    if shape.kind == "train":
+        return 6.0 * n_active * shape.global_batch * shape.seq_len
+    if shape.kind == "prefill":
+        return 2.0 * n_active * shape.global_batch * shape.seq_len
+    return 2.0 * n_active * shape.global_batch

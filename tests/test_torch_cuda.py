@@ -1,4 +1,5 @@
-"""The CUDA replay kernels against their plain PyTorch versions, on a card.
+"""The CUDA kernels against their plain PyTorch versions, on a card: the
+replay kernels B1 and B2, the attention kernels B3 and B4.
 
 Run where there is one (no JAX needed):
 
@@ -6,6 +7,8 @@ Run where there is one (no JAX needed):
 
 Elsewhere every test skips with its reason: the kernels have no CPU mode.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -15,9 +18,15 @@ from repro_torch.core import (SimProblem, heft_makespan, merge_dags,
                               sample_arrivals, stack_problems, traffic_inputs,
                               zoo)
 from repro_torch.core.simulator import kernel_args
-from repro_torch.kernels import schedule_sim, traffic_sim
+from repro_torch.configs import get
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops, schedule_sim, traffic_sim
+from repro_torch.models import TransformerLM
 
 RTOL = 1e-5
+#: attention kernels vs plain: the reference kernel tests' tolerances
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
 @pytest.fixture
@@ -155,3 +164,114 @@ def test_traffic_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="M >= 1"):
         traffic_sim.traffic_replay(*kernel_args(ppb), X,
                                    *(t[:, :0] for t in tin))
+
+
+def _randn(shape, dtype, device, seed):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=g).to(device=device, dtype=dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,kh,g,hd,causal,window", [
+    (1, 300, 1, 4, 64, True, 0),       # ragged seq, GQA
+    (2, 257, 2, 1, 128, True, 64),     # odd seq, sliding window
+    (2, 200, 2, 2, 16, True, 0),       # the reduced configs' head_dim
+    (1, 100, 2, 3, 256, True, 7),      # gemma-7b's head_dim
+    (1, 130, 1, 2, 128, False, 0),     # bidirectional
+])
+def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, b, s, kh, g,
+                                            hd, causal, window):
+    """B3 through the model-layout wrapper, one launch, against
+    ``flash_attention_plain`` on the same CUDA tensors."""
+    q = _randn((b, s, kh, g, hd), dtype, cuda_device, 1)
+    k = _randn((b, s, kh, hd), dtype, cuda_device, 2)
+    v = _randn((b, s, kh, hd), dtype, cuda_device, 3)
+    before = fa.flash_attention_folded.launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_folded.launches == before + 1
+    assert got.is_contiguous() and got.dtype == dtype
+    want = fa.flash_attention_plain(q.permute(0, 2, 3, 1, 4),
+                                    k.permute(0, 2, 1, 3),
+                                    v.permute(0, 2, 1, 3), causal=causal,
+                                    window=window).permute(0, 3, 1, 2, 4)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c,kh,g,hd,valid", [
+    (2, 100, 1, 8, 64, 1),             # single live slot, two head groups
+    (1, 1000, 2, 2, 64, 999),          # ragged cache
+    (2, 2080, 8, 2, 128, 2048),        # qwen3's serving cache
+    (1, 64, 2, 3, 16, 64),             # full cache, G not a power of two
+    (1, 300, 1, 1, 256, 77),
+])
+def test_decode_kernel_matches_plain_on_card(cuda_device, dtype, b, c, kh,
+                                             g, hd, valid):
+    """B4 reading the (B, C, K, hd) cache in place, one launch, against
+    ``decode_attention_plain``; dead slots hold +-1e9."""
+    q = _randn((b, kh, g, hd), dtype, cuda_device, 4)
+    k = _randn((b, c, kh, hd), dtype, cuda_device, 5)
+    v = _randn((b, c, kh, hd), dtype, cuda_device, 6)
+    k[:, valid:] = 1e9
+    v[:, valid:] = -1e9
+    before = da.decode_attention_folded.launches
+    got = ops.decode_attention(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert da.decode_attention_folded.launches == before + 1
+    want = da.decode_attention_plain(q, k.permute(0, 2, 1, 3),
+                                     v.permute(0, 2, 1, 3), valid)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_attention_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    q = torch.zeros((1, 8, 1, 1, 32), device=cuda_device)
+    k = torch.zeros((1, 8, 1, 32), device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.flash_attention(q, k, k)
+    q = torch.zeros((1, 8, 1, 1, 16), device=cuda_device)
+    k = torch.zeros((1, 8, 1, 16), device=cuda_device)
+    with pytest.raises(TypeError):
+        ops.flash_attention(q.half(), k.half(), k.half())
+    with pytest.raises(TypeError):
+        ops.flash_attention(q, k.bfloat16(), k)
+    with pytest.raises(ValueError, match="aligned"):
+        ops.flash_attention(q, torch.zeros(8 * 16 + 1, device=cuda_device)
+                            [1:].view(1, 8, 1, 16), k)
+    with pytest.raises(ValueError):
+        ops.decode_attention(q[:, 0], k, k, 9)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k.cpu(), k)
+
+
+@pytest.mark.cuda
+def test_model_on_card_matches_plain_path(cuda_device):
+    """Reduced qwen3 with a sliding window (ring caches), float32: prefill
+    and 3 decode steps through B3/B4 on the card against the same weights
+    on the CPU plain path; logits to 1e-4 (other summation orders), every
+    layer through the kernels."""
+    cfg = dataclasses.replace(get("qwen3-0.6b").reduced(), window=8)
+    cpu = TransformerLM(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    card = TransformerLM(cfg, device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 15))
+    f0, d0 = fa.flash_attention_folded.launches, \
+        da.decode_attention_folded.launches
+    outs = []
+    for m in (card, cpu):
+        lg, c = m.prefill({"tokens": toks[:, :12]}, cache_len=15)
+        steps = [lg]
+        for j in range(3):
+            lg, c = m.decode_step(c, {"token": toks[:, 12 + j:13 + j],
+                                      "pos": 12 + j})
+            steps.append(lg)
+        outs.append(torch.cat(steps, 1).cpu())
+    assert fa.flash_attention_folded.launches - f0 == cfg.n_layers
+    assert da.decode_attention_folded.launches - d0 == 3 * cfg.n_layers
+    torch.testing.assert_close(outs[0], outs[1], rtol=1e-4, atol=1e-4)
