@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's planner and LM server on one NVIDIA GPU and
+"""Drive the PyTorch port's planner and LM servers on one NVIDIA GPU and
 check them.
 
     python3 chip_smoke.py
@@ -41,7 +41,9 @@ result line):
                plain versions on CUDA tensors, float32 to 2e-5 and bfloat16
                to 2e-2: qwen3-0.6b's serving shapes (batch 8, prompt 2048,
                cache 2080; causal and a 512 window; valid_len 1, 1000, 2048,
-               2080) and ragged shapes of the CPU sweep (head_dim 16 to 256);
+               2080), zamba2-7b's (32 q and 32 kv heads of head_dim 112;
+               valid_len 1, 2049, 2079) and ragged shapes of the CPU sweep
+               (head_dim 16 to 256, 112 among them);
   9. serve   — the LM main path: ``repro_torch.launch.serve.Server`` with
                qwen3-0.6b at full width and depth (28 layers, bfloat16,
                seeded weights on the card), batch 8, prompt 2048, 32 new
@@ -56,12 +58,37 @@ result line):
  11. time-attn — B3 and B4 per launch at the serving shapes (CUDA events
                over calls queued behind a device sleep, five rounds in turns
                with one ``scaled_dot_product_attention`` call as the
-               yardstick, medians), beside their plain versions and bounds.
+               yardstick, medians), beside their plain versions and bounds;
+ 12. check-ssd — B5 (the SSD intra-chunk form) against its plain version
+               on CUDA tensors, every element within 1e-4 + 1e-4 |plain|:
+               the reference's sweep shapes, chunks of 17 and 37 rows,
+               mamba2-2.7b's serving shape (64 chunks of 256, 80 heads of 64,
+               state 128) and zamba2-7b's (112 heads, state 64), B and C as
+               column slices, the inputs of a real full-width ``mamba_seq``
+               prefill, a log-decay steep enough that exp overflows above the
+               diagonal, and causality (future inputs leave past rows equal);
+ 13. serve-ssm — ``Server`` with mamba2-2.7b at full width and depth (64
+               layers, bfloat16, seeded weights on the card), batch 8,
+               prompt 2048, 32 new tokens, no EOS; the counted call must
+               launch B5 64 times and B3 and B4 never, and give the first
+               call's tokens; prints prefill ms, decode tokens/s, peak memory;
+ 14. serve-hybrid — the same with zamba2-7b (81 Mamba2 blocks, 13 shared
+               attention sites): B5 81 times, B3 13 and B4 13 x 31 times;
+ 15. serve-check-ssm — mamba2-2.7b at full width with 2 layers and
+               zamba2-7b with 7 (one group and one tail block), float32:
+               prefill of 1000 tokens (a ragged last chunk) and 4 greedy
+               steps through the kernels and through the plain versions on
+               the card (logits to 1e-4, equal tokens), and decode logits
+               against the prefill of the longer prompt (2e-3);
+ 16. time-ssd — B5 per launch at mamba2-2.7b's and zamba2-7b's serving
+               shapes, timed as in 11 (no single PyTorch call computes it, so
+               no library yardstick), beside its plain version and bound.
 
-Kernel launch counters are zeroed just before each solve path and the
+Kernel launch counters are zeroed just before each solve path and each
 counted serve call and read just after; every solve's plans are replayed
-by the numpy oracle ``simulate_np``. The last lines are the kernels' JSON summary, the card's
-name and power limit, and ``{"ok": true, "device": {...}}``.
+by the numpy oracle ``simulate_np``. The last lines are the kernels' JSON
+summary, the card's name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -98,6 +125,8 @@ SLEEP_CYCLES = 50_000_000
 #: attention kernels vs plain versions: the reference kernel tests'
 #: tolerances (float32 sums in another order; bfloat16 outputs rounded)
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+#: B5 vs its plain version: the reference kernel test's float32 tolerance
+SSD_TOL = 1e-4
 
 
 def _phase(name, fn, failures, *args):
@@ -208,18 +237,28 @@ def decode_plain(q, k, v, valid_len):
                                   v.permute(0, 2, 1, 3), valid_len)
 
 
+def ssd_plain(xc, cum, Bc, Cc):
+    """B5's plain version on the model layout: xc (b,c,q,h,p), cum
+    (b,c,q,h), Bc/Cc (b,c,q,n)."""
+    from repro_torch.kernels.ssd_scan import ssd_intra_plain
+    b, c = xc.shape[:2]
+    return ssd_intra_plain(*(t.flatten(0, 1) for t in (xc, cum, Bc, Cc))
+                           ).unflatten(0, (b, c))
+
+
 @contextlib.contextmanager
-def plain_attention():
-    """Route the model's attention through the plain versions on the card,
-    to compare a model run through the kernels with the same run without
-    them."""
+def plain_kernels():
+    """Route the model's attention and SSD intra-chunk form through the
+    plain versions on the card, to compare a model run through the kernels
+    with the same run without them."""
     from repro_torch.kernels import ops
-    saved = ops.flash_attention, ops.decode_attention
-    ops.flash_attention, ops.decode_attention = flash_plain, decode_plain
+    saved = ops.flash_attention, ops.decode_attention, ops.ssd_intra
+    ops.flash_attention, ops.decode_attention, ops.ssd_intra = \
+        flash_plain, decode_plain, ssd_plain
     try:
         yield
     finally:
-        ops.flash_attention, ops.decode_attention = saved
+        ops.flash_attention, ops.decode_attention, ops.ssd_intra = saved
 
 
 def main() -> int:
@@ -712,10 +751,13 @@ def main() -> int:
     from repro_torch.kernels import ops
     from repro_torch.launch.breakdown import (SERVE_BATCH, SERVE_NEW,
                                               SERVE_PROMPT)
+    from repro_torch.kernels import ssd_scan
     from repro_torch.launch.serve import Server
-    from repro_torch.models import TransformerLM
+    from repro_torch.models import build_model
     b3, b4 = fa.flash_attention_folded, da.decode_attention_folded
-    qwen = get("qwen3-0.6b")
+    b5 = ssd_scan.ssd_intra_folded
+    qwen, mamba2, zamba2 = (get(a) for a in ("qwen3-0.6b", "mamba2-2.7b",
+                                              "zamba2-7b"))
     H, KV, HD = qwen.n_heads, qwen.n_kv_heads, qwen.head_dim
     G = H // KV
     serve_cache = SERVE_PROMPT + SERVE_NEW
@@ -747,14 +789,19 @@ def main() -> int:
                                                  "ragged window"),
             ((1, 512, 4, 2, 64), 64, "multi-tile window"),
             ((2, 200, 2, 2, 16), 0, "hd 16"), ((1, 100, 2, 3, 256), 7,
-                                               "hd 256 window")]
+                                               "hd 256 window"),
+            ((SERVE_BATCH, SERVE_PROMPT, 32, 1, 112), 0, "zamba2 serve"),
+            ((2, 300, 2, 2, 112), 64, "hd 112 ragged window")]
         decode_cases = [
             ((SERVE_BATCH, serve_cache, KV, G, HD), v, f"qwen3 valid {v}")
             for v in (1, 1000, SERVE_PROMPT, serve_cache)] + [
             ((2, 100, 1, 8, 64), 1, "G 8 single slot"),
             ((1, 1000, 2, 2, 64), 999, "ragged"),
             ((1, 64, 2, 3, 16), 64, "hd 16 G 3 full"),
-            ((1, 300, 1, 1, 256), 77, "hd 256")]
+            ((1, 300, 1, 1, 256), 77, "hd 256")] + [
+            ((SERVE_BATCH, serve_cache, 32, 1, 112), v, f"zamba2 valid {v}")
+            for v in (1, SERVE_PROMPT + 1, serve_cache - 1)] + [
+            ((2, 100, 2, 3, 112), 77, "hd 112 G 3")]
         for dtype in (torch.float32, torch.bfloat16):
             for i, ((b, s, kh, g, hd), window, tag) in enumerate(flash_cases):
                 q = randn((b, s, kh, g, hd), dtype, 3 * i)
@@ -779,96 +826,122 @@ def main() -> int:
     _phase("check-attn", check_attn, failures)
 
     # 9. serve: qwen3-0.6b at full width and depth --------------------------
-    def serve():
+    def expected_launches(cfg, steps):
+        """(B3, B4, B5) launches of one prefill and ``steps`` decode steps:
+        one attention kernel per layer (dense) or shared site (hybrid) and
+        one B5 per Mamba2 block."""
+        if cfg.family == "dense":
+            return cfg.n_layers, cfg.n_layers * steps, 0
+        sites = cfg.n_layers // cfg.hybrid_attn_every \
+            if cfg.family == "hybrid" else 0
+        return sites, sites * steps, cfg.n_layers
+
+    def serve_model(cfg):
+        """``Server`` with ``cfg`` at full width and depth, seeded weights
+        on the card: a first call, then a counted one, which must launch
+        the kernels ``expected_launches`` says and give the same tokens.
+        Returns the counted call's (B3, B4, B5) launches."""
+        torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        srv = Server(qwen, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, eos_id=-1,
+        srv = Server(cfg, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, eos_id=-1,
                      device=dev)
         srv.init_params(SEED)
         torch.cuda.synchronize()
         n_par = sum(p.numel() for p in srv.model.parameters())
-        print(f"[serve] {qwen.name}: {qwen.n_layers} layers, d_model "
-              f"{qwen.d_model}, {qwen.dtype}, {n_par} parameters "
-              f"({n_par * 2 / 1e9:.3f} GB), seeded in "
+        nbytes = sum(p.numel() * p.element_size()
+                     for p in srv.model.parameters())
+        print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}, {cfg.dtype}, {n_par} parameters "
+              f"({nbytes / 1e9:.3f} GB), seeded in "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
         tokens = np.random.default_rng(SEED).integers(
-            2, qwen.vocab, (SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
+            2, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
         first = srv.generate({"tokens": tokens})
         torch.cuda.reset_peak_memory_stats(dev)
-        b3.launches = 0
-        b4.launches = 0
+        b3.launches = b4.launches = b5.launches = 0
         out = srv.generate({"tokens": tokens})
-        launches["serve_b3"], launches["serve_b4"] = b3.launches, b4.launches
+        got = (b3.launches, b4.launches, b5.launches)
         peak = torch.cuda.max_memory_allocated(dev)
+        want = expected_launches(cfg, SERVE_NEW - 1)
         for tag, o in (("first call", first), ("counted call", out)):
-            print(f"[serve] {tag}: batch {SERVE_BATCH} prompt "
+            print(f"[serve] {cfg.name} {tag}: batch {SERVE_BATCH} prompt "
                   f"{SERVE_PROMPT}: prefill {1e3 * o['prefill_s']:.2f} ms, "
                   f"decode {o['tokens_generated']} tokens in "
                   f"{1e3 * o['decode_s']:.2f} ms "
                   f"({o['decode_tok_per_s']:.1f} tok/s)", flush=True)
-        print(f"[serve] counted call: flash_attention launches "
-              f"{launches['serve_b3']}, decode_attention launches "
-              f"{launches['serve_b4']}, peak device memory "
+        print(f"[serve] {cfg.name} counted call: launches B3 {got[0]}, B4 "
+              f"{got[1]}, B5 {got[2]} (expected {want}), peak device memory "
               f"{peak / 1e9:.3f} GB; first row {out['tokens'][0][:8]}",
               flush=True)
-        assert launches["serve_b3"] == qwen.n_layers, launches
-        assert launches["serve_b4"] == qwen.n_layers * (SERVE_NEW - 1), \
-            launches
+        assert got == want, (got, want)
         toks = out["tokens"]
         assert toks.shape == (SERVE_BATCH, SERVE_NEW), toks.shape
-        assert ((toks >= 0) & (toks < qwen.vocab)).all()
+        assert ((toks >= 0) & (toks < cfg.vocab)).all()
         np.testing.assert_array_equal(toks, first["tokens"])   # greedy
         with torch.inference_mode():
             lg, _ = srv.model.prefill({"tokens": tokens[:1, :64]})
-        assert lg.shape == (1, 1, qwen.vocab) and bool(torch.isfinite(
+        assert lg.shape == (1, 1, cfg.vocab) and bool(torch.isfinite(
             lg).all())
+        return got
+
+    def serve():
+        launches["serve_b3"], launches["serve_b4"], _ = serve_model(qwen)
     _phase("serve", serve, failures)
 
     # 10. serve-check: the kernels against the plain path in one model -----
-    def serve_check():
-        cfg = dataclasses.replace(qwen, n_layers=2, dtype="float32")
-        model = TransformerLM(cfg, device=dev).init(
-            torch.Generator(device=dev).manual_seed(SEED))
+    def serve_check(cfgs):
+        """Each of ``cfgs`` (cut in depth, float32, full width): prefill of
+        1000 tokens and 4 greedy steps through the kernels, then through
+        the plain versions on the card (logits to 1e-4, equal tokens), and
+        decode logits against the prefill of the longer prompt (2e-3)."""
+        torch.cuda.empty_cache()
         b, s, steps = 2, 1000, 4
-        prompt = torch.as_tensor(np.random.default_rng(SEED + 1).integers(
-            2, cfg.vocab, (b, s)), device=dev)
+        for cfg in cfgs:
+            cfg = dataclasses.replace(cfg, dtype="float32")
+            model = build_model(cfg, device=dev).init(
+                torch.Generator(device=dev).manual_seed(SEED))
+            prompt = torch.as_tensor(np.random.default_rng(SEED + 1).integers(
+                2, cfg.vocab, (b, s)), device=dev)
 
-        def greedy():
-            lg, c = model.prefill({"tokens": prompt}, cache_len=s + steps)
-            logits, toks = [lg], []
-            for j in range(steps):
-                toks.append(logits[-1][:, -1].argmax(-1)[:, None])
-                lg, c = model.decode_step(c, {"token": toks[-1],
-                                              "pos": s + j})
-                logits.append(lg)
-            return torch.cat(logits, 1), torch.cat(toks, 1)
+            def greedy():
+                lg, c = model.prefill({"tokens": prompt}, cache_len=s + steps)
+                logits, toks = [lg], []
+                for j in range(steps):
+                    toks.append(logits[-1][:, -1].argmax(-1)[:, None])
+                    lg, c = model.decode_step(c, {"token": toks[-1],
+                                                  "pos": s + j})
+                    logits.append(lg)
+                return torch.cat(logits, 1), torch.cat(toks, 1)
 
-        with torch.inference_mode():
-            b3.launches = 0
-            b4.launches = 0
-            lk, tk = greedy()
-            assert (b3.launches, b4.launches) == (2, 2 * steps), \
-                (b3.launches, b4.launches)
-            with plain_attention():
-                lp, tp = greedy()
-            err = float((lk - lp).abs().max())
-            print(f"[serve-check] 2-layer float32 qwen3-0.6b, prompt {s}, "
-                  f"{steps} greedy steps: kernels vs plain logits max_abs_err "
-                  f"{err:.3g} (|logit| <= {float(lp.abs().max()):.3g}), "
-                  f"tokens equal {bool(torch.equal(tk, tp))}", flush=True)
-            # float32 on both sides; attention sums in another order
-            torch.testing.assert_close(lk, lp, rtol=1e-4, atol=1e-4)
-            assert torch.equal(tk, tp)
-            seq = torch.cat([prompt, tk], 1)
-            tf = 0.0
-            for j in range(1, steps + 1):
-                want, _ = model.prefill({"tokens": seq[:, :s + j]})
-                # the reference's own teacher-forced tolerance
-                torch.testing.assert_close(lk[:, j], want[:, -1], rtol=2e-3,
-                                           atol=2e-3)
-                tf = max(tf, float((lk[:, j] - want[:, -1]).abs().max()))
-            print(f"[serve-check] teacher-forced: decode vs prefill logits "
-                  f"max_abs_err {tf:.3g}", flush=True)
-    _phase("serve-check", serve_check, failures)
+            with torch.inference_mode():
+                b3.launches = b4.launches = b5.launches = 0
+                lk, tk = greedy()
+                got = (b3.launches, b4.launches, b5.launches)
+                assert got == expected_launches(cfg, steps), (cfg.name, got)
+                with plain_kernels():
+                    lp, tp = greedy()
+                err = float((lk - lp).abs().max())
+                print(f"[serve-check] {cfg.n_layers}-layer float32 "
+                      f"{cfg.name}, prompt {s}, {steps} greedy steps: kernels "
+                      f"vs plain logits max_abs_err {err:.3g} (|logit| <= "
+                      f"{float(lp.abs().max()):.3g}), tokens equal "
+                      f"{bool(torch.equal(tk, tp))}", flush=True)
+                # float32 on both sides; sums in another order
+                torch.testing.assert_close(lk, lp, rtol=1e-4, atol=1e-4)
+                assert torch.equal(tk, tp)
+                seq = torch.cat([prompt, tk], 1)
+                tf = 0.0
+                for j in range(1, steps + 1):
+                    want, _ = model.prefill({"tokens": seq[:, :s + j]})
+                    # the reference's own teacher-forced tolerance
+                    torch.testing.assert_close(lk[:, j], want[:, -1],
+                                               rtol=2e-3, atol=2e-3)
+                    tf = max(tf, float((lk[:, j] - want[:, -1]).abs().max()))
+                print(f"[serve-check] {cfg.name} teacher-forced: decode vs "
+                      f"prefill logits max_abs_err {tf:.3g}", flush=True)
+            del model
+    _phase("serve-check", serve_check, failures,
+           [dataclasses.replace(qwen, n_layers=2)])
 
     # 11. time-attn: B3 and B4 at the serving shapes ------------------------
     def queued_ms(fn, reps):
@@ -972,6 +1045,144 @@ def main() -> int:
               flush=True)
     _phase("time-attn", time_attn, failures)
 
+    # 12. check-ssd: B5 against its plain version ---------------------------
+    rec["ssd_max_abs_err"] = 0.0
+
+    def ssd_shape(cfg, batch=SERVE_BATCH, prompt=SERVE_PROMPT):
+        """(BC, Q, H, P, N) of one Mamba2 prefill of ``cfg``."""
+        return (batch * prompt // cfg.ssm_chunk, cfg.ssm_chunk,
+                cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)
+
+    def ssd_inputs(shape, seed):
+        """xc, cum, B, C drawn as the reference test draws them: x, B, C
+        standard normal, log-decay -|N(0, 1)| * 0.1 summed within chunks."""
+        bc, q, h, p, n = shape
+        gen.manual_seed(seed)
+        x = torch.randn((bc, q, h, p), generator=gen, device=dev)
+        la = -torch.randn((bc, q, h), generator=gen, device=dev).abs() * 0.1
+        B = torch.randn((bc, q, n), generator=gen, device=dev)
+        C = torch.randn((bc, q, n), generator=gen, device=dev)
+        return x, la.cumsum(1), B, C
+
+    def ssd_check(tag, x, cum, B, C):
+        """B5 against its plain version: every element within tol + tol *
+        |plain|, all finite. Returns the kernel's output."""
+        got = b5(x, cum, B, C)
+        torch.cuda.synchronize()
+        want = ssd_scan.ssd_intra_plain(x, cum, B, C)
+        err = (got - want).abs()
+        n_bad = int((err > SSD_TOL + SSD_TOL * want.abs()).sum())
+        mx = float(err.max())
+        rec["ssd_max_abs_err"] = max(rec["ssd_max_abs_err"], mx)
+        print(f"[check-ssd] {tag} {tuple(x.shape)} N {B.shape[-1]}: "
+              f"max_abs_err {mx:.3g} (|plain| <= {float(want.abs().max()):.3g}"
+              f", tol {SSD_TOL:g}) outside {n_bad}", flush=True)
+        assert bool(torch.isfinite(got).all()), tag
+        assert n_bad == 0, f"B5 {tag}: {n_bad} elements beyond tol"
+        return got
+
+    def captured_prefill_inputs():
+        """The inputs B5 gets from a real prefill: one full-width float32
+        mamba2-2.7b block (seeded weights) over 2 prompts of 1024 tokens
+        (no padding, so B and C reach B5 as column slices of the block's
+        fused activation)."""
+        cfg = dataclasses.replace(mamba2, n_layers=1, dtype="float32")
+        model = build_model(cfg, device=dev).init(
+            torch.Generator(device=dev).manual_seed(SEED))
+        seen = []
+        real = ops.ssd_intra
+
+        def capture(*args):
+            seen.append(args)
+            return real(*args)
+        ops.ssd_intra = capture
+        try:
+            with torch.inference_mode():
+                model.prefill({"tokens": np.random.default_rng(SEED).integers(
+                    2, cfg.vocab, (2, 1024))})
+        finally:
+            ops.ssd_intra = real
+        assert len(seen) == 1, len(seen)
+        return [t.flatten(0, 1) for t in seen[0]]
+
+    def check_ssd():
+        for i, shape in enumerate([(1, 16, 1, 8, 4), (2, 64, 2, 32, 16),
+                                   (6, 37, 1, 16, 8), (1, 128, 4, 64, 128),
+                                   (5, 17, 3, 64, 128), (3, 37, 80, 64, 128),
+                                   (2, 200, 3, 128, 64)]):
+            ssd_check("sweep", *ssd_inputs(shape, 200 + i))
+        ssd_check("mamba2 serve", *ssd_inputs(ssd_shape(mamba2), 210))
+        ssd_check("zamba2 serve", *ssd_inputs(ssd_shape(zamba2), 211))
+        x, cum, B, C = ssd_inputs((4, 256, 6, 64, 128), 212)
+        wide = torch.cat([B[..., :8], B, C], -1)         # slices of a row
+        ssd_check("B, C column slices", x, cum, wide[..., 8:136],
+                  wide[..., 136:])
+        x, cum, B, C = captured_prefill_inputs()
+        assert B.stride(-2) != B.shape[-1], "expected a column slice"
+        ssd_check("mamba2 prefill inputs", x, cum, B, C)
+        x, _, B, C = ssd_inputs((2, 100, 3, 16, 8), 213)
+        cum = torch.linspace(0.0, -500.0, 100, device=dev)[None, :, None] \
+            .expand(2, 100, 3).contiguous()             # exp(+500) above
+        ssd_check("steep decay", x, cum, B, C)
+        x, cum, B, C = ssd_inputs((2, 256, 8, 64, 128), 214)
+        before = ssd_check("causality", x, cum, B, C)
+        x2, B2 = x.clone(), B.clone()
+        x2[:, 150:] += 5.0
+        B2[:, 150:] -= 3.0
+        after = b5(x2, cum, B2, C)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(before[:, :150], after[:, :150]))
+        print(f"[check-ssd] causality: rows before 150 equal after changing "
+              f"x and B from row 150: {same}", flush=True)
+        assert same and not torch.equal(before[:, 150:], after[:, 150:])
+    _phase("check-ssd", check_ssd, failures)
+
+    # 13-14. serve-ssm, serve-hybrid: full width and depth -------------------
+    def serve_ssm():
+        launches["serve_b5"] = serve_model(mamba2)[2]
+    _phase("serve-ssm", serve_ssm, failures)
+    _phase("serve-hybrid", serve_model, failures, zamba2)
+
+    # 15. serve-check-ssm: kernels against plain inside both models ----------
+    _phase("serve-check-ssm", serve_check, failures,
+           [dataclasses.replace(mamba2, n_layers=2),
+            dataclasses.replace(zamba2, n_layers=7)])
+
+    # 16. time-ssd: B5 at the serving shapes --------------------------------
+    def ssd_bound(shape):
+        """Least time of one B5 launch: the causal band's operations (scores
+        C_i . B_j once per chunk, 2N each; per head a weight, 3 operations,
+        and P multiply-adds) over the fp32 peak, against x and out once, cum,
+        B and C once over HBM bandwidth."""
+        bc, q, h, p, n = shape
+        pairs = q * (q + 1) // 2
+        ops_ = bc * pairs * (2 * n + h * (2 * p + 3))
+        nbytes = 4 * bc * q * (2 * h * p + h + 2 * n)
+        t_ops, t_bytes = ops_ / F32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+        return (1e3 * max(t_ops, t_bytes),
+                "operations" if t_ops >= t_bytes else "bytes", ops_, nbytes)
+
+    def time_ssd():
+        for cfg in (mamba2, zamba2):
+            shape = ssd_shape(cfg)
+            args = ssd_inputs(shape, 220)
+            k = [queued_ms(lambda: b5(*args), 20) for _ in range(5)]
+            p = queued_ms(lambda: ssd_scan.ssd_intra_plain(*args), 3)
+            ms = float(np.median([r[0] for r in k]))
+            bms, by, ops_, nbytes = ssd_bound(shape)
+            print(f"[time-ssd] B5 {cfg.name} {shape}: kernel ms per round "
+                  f"{[round(r[0], 5) for r in k]} (host ms per call "
+                  f"{float(np.median([r[1] for r in k])):.4f}), median "
+                  f"{ms:.4f} ms ({ops_ / ms / 1e9:.2f} TFLOP/s), plain "
+                  f"{p[0]:.3f} ms, library none, bound {bms:.4f} ms ({by}: "
+                  f"{ops_:.4g} operations, {nbytes:.4g} bytes); every call "
+                  f"queued ahead of the device: "
+                  f"{all(r[2] for r in k) and p[2]}", flush=True)
+            if cfg is mamba2:
+                timing["ssd"] = dict(ms=ms, plain_ms=p[0], library_ms=None,
+                                     bound_ms=bms, bound_by=by)
+    _phase("time-ssd", time_ssd, failures)
+
     jax_loaded = "jax" in sys.modules
     print(f"[imports] jax loaded: {jax_loaded}")
     if jax_loaded:
@@ -1007,7 +1218,12 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:34",
         "launches": launches["serve_b4"],
-        "max_abs_err": rec["decode_max_abs_err"], **timing["decode"]}]}))
+        "max_abs_err": rec["decode_max_abs_err"], **timing["decode"]}, {
+        "name": "ssd_intra", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:34",
+        "launches": launches["serve_b5"],
+        "max_abs_err": rec["ssd_max_abs_err"], **timing["ssd"]}]}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)

@@ -13,13 +13,16 @@ version:
   * decode_attention — one-token flash decode over a KV cache
     (``csrc/decode_attention.cu``; port of
     ``repro/kernels/decode_attention.py``)
+  * ssd_scan — the intra-chunk SSD quadratic form of Mamba2
+    (``csrc/ssd_scan.cu``; port of ``repro/kernels/ssd_scan.py``)
 
 ``_build.SOURCES`` lists every ``csrc/<name>.cu``; each is wrapped by the
-module ``<name>.py``. ``ops`` holds the attention kernels' wrappers in the
-model's layout.
+module ``<name>.py``. ``ops`` holds the attention and SSD kernels'
+wrappers in the model's layout.
 
 Each module's dispatch (``schedule_replay``, ``traffic_replay``,
-``flash_attention_folded``, ``decode_attention_folded``) runs on the
+``flash_attention_folded``, ``decode_attention_folded``,
+``ssd_intra_folded``) runs on the
 tensors' device and carries the kernel's ``launches`` counter.
 ``core.traffic.traffic_replay`` is a different, higher-level function: it
 replays ONE plan against Monte-Carlo draws and reaches the kernel through

@@ -25,7 +25,8 @@
 //     launch, no scratch in device memory;
 //   * in a block, each of 4 warps walks batches of 4 slots: every lane loads
 //     hd/32 contiguous elements of 4 keys and 4 values (8-byte loads at
-//     hd 128 in bf16) before any arithmetic, so many loads are in flight;
+//     hd 128 in bf16; at hd 112, 4 elements on 28 lanes) before any
+//     arithmetic, so many loads are in flight;
 //     the dot products reduce over the warp with shuffles;
 //   * all G query heads of a kv head (up to 4 per block; more go to further
 //     blocks) share each loaded key and value, as the Pallas kernel shares
@@ -123,13 +124,24 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// elements of a head row per lane: the fewest, at least HD / 32, that split
+// the row into whole lanes (hd 112: 4 elements on each of 28 lanes). Lanes
+// past HD / EPL own nothing: their q, keys and values are zeros, so they add
+// exact zeros to every shuffle sum and write no output.
+__host__ __device__ constexpr int elems_per_lane(int hd) {
+  int e = (hd + 31) / 32;
+  while (hd % e) ++e;
+  return e;
+}
+
 // grid (kSplit, ceil(G / GC), B * K); the cluster spans the kSplit blocks of
 // one (row, head group)
 template <typename T, int HD, int GC>
 __global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(kWarps * 32)
 decode_kernel(const DecodeArgs a) {
-  constexpr int EPL = HD >= 32 ? HD / 32 : 1;  // elements per lane
+  constexpr int EPL = elems_per_lane(HD);
   constexpr int ACTIVE = HD / EPL;             // lanes that own elements
+  static_assert(ACTIVE <= 32 && ACTIVE * EPL == HD, "a head row per warp");
   __shared__ float part_acc[kWarps][GC][HD];
   __shared__ float part_m[kWarps][GC], part_l[kWarps][GC];
   __shared__ float blk_acc[GC][HD];
@@ -292,6 +304,7 @@ cudaError_t launch_t(const DecodeArgs& a, int hd, int BK, cudaStream_t st) {
   switch (hd) {
     case 16: return launch_hd<T, 16>(a, BK, st);
     case 64: return launch_hd<T, 64>(a, BK, st);
+    case 112: return launch_hd<T, 112>(a, BK, st);
     case 128: return launch_hd<T, 128>(a, BK, st);
     case 256: return launch_hd<T, 256>(a, BK, st);
     default: return cudaErrorInvalidValue;

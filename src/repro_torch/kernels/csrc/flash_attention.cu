@@ -24,8 +24,11 @@
 //   * q, k and v are read in place through element strides in the model's
 //     (B, S, K, G, hd) / (B, S, K, hd) layout (no folded copy), converted to
 //     fp32 and staged in dynamic shared memory (117 KB at hd 128);
-//   * each thread owns a 4 x (kv tile / 16) block of scores and a
-//     4 x (hd / 16) block of the output; the row max and sum reduce over the
+//   * each thread owns a 4 x (kv tile / 16) block of scores and 4 rows of
+//     the output in float4 columns 4 * (tx + 16 c) (at hd 112 the second
+//     column exists for tx < 12 only: every use is guarded by col < HD,
+//     and shared-memory rows of 116 floats keep 16-byte alignment and stay
+//     free of bank conflicts); the row max and sum reduce over the
 //     16 threads of a row with warp shuffles; rows are padded by 4 floats so
 //     the 16-byte shared-memory reads are free of bank conflicts;
 //   * the ragged tail is masked with the true seq: rows past it are zero in
@@ -308,6 +311,7 @@ cudaError_t launch_t(const FlashArgs& a, int hd, int n_q, int G, int BK,
   switch (hd) {
     case 16: return launch_hd<T, 16>(a, n_q, G, BK, st);
     case 64: return launch_hd<T, 64>(a, n_q, G, BK, st);
+    case 112: return launch_hd<T, 112>(a, n_q, G, BK, st);
     case 128: return launch_hd<T, 128>(a, n_q, G, BK, st);
     case 256: return launch_hd<T, 256>(a, n_q, G, BK, st);
     default: return cudaErrorInvalidValue;

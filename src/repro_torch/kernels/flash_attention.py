@@ -31,9 +31,10 @@ __all__ = ["flash_attention_folded", "flash_attention_plain", "NEG_INF",
 
 #: the reference's large-but-finite mask value
 NEG_INF = -2.0 ** 30
-#: the head_dim values the kernel is built for: the reduced test configs
-#: (16), 64, qwen3 and starcoder2 (128), gemma-7b (256)
-HEAD_DIMS = (16, 64, 128, 256)
+#: the head_dim values the kernels are built for: the reduced test configs
+#: (16), 64, zamba2's shared attention (112), qwen3 and starcoder2 (128),
+#: gemma-7b (256)
+HEAD_DIMS = (16, 64, 112, 128, 256)
 #: the dtypes the kernels take, with the code their C entry points use
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -1,7 +1,8 @@
-"""Layout wrappers around the attention kernels, in the model's layout.
+"""Layout wrappers around the attention and SSD kernels, in the model's
+layout.
 
-Each op hands the kernel permuted views of the model-layout tensors, which
-it reads through their strides: no transpose is copied (the reference's
+Each op hands the kernel views of the model-layout tensors, which it reads
+through their strides: no transpose is copied (the reference's
 ``repro/kernels/ops.py`` folds q, k and v into ``(B*K, ...)`` copies).
 The route is chosen by the tensors' device, in the kernel modules: the
 plain PyTorch version on the CPU, the kernel on CUDA or an error. That is
@@ -14,8 +15,9 @@ import torch
 
 from .decode_attention import decode_attention_folded
 from .flash_attention import flash_attention_folded
+from .ssd_scan import ssd_intra_folded
 
-__all__ = ["flash_attention", "decode_attention"]
+__all__ = ["flash_attention", "decode_attention", "ssd_intra"]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -32,3 +34,16 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B,K,G,hd); k/v: (B,C,K,hd); valid_len: int -> (B,K,G,hd)."""
     return decode_attention_folded(q, k.permute(0, 2, 1, 3),
                                    v.permute(0, 2, 1, 3), valid_len)
+
+
+def ssd_intra(xc: torch.Tensor, cum: torch.Tensor, Bc: torch.Tensor,
+              Cc: torch.Tensor) -> torch.Tensor:
+    """xc: (b,c,q,h,p); cum: (b,c,q,h); Bc/Cc: (b,c,q,n), float32 ->
+    (b,c,q,h,p). The folded ``(b*c, ...)`` operands are views of these
+    (a column slice of the model's fused projection stays a view)."""
+    b, c, q, h, p = xc.shape
+    n = Bc.shape[-1]
+    out = ssd_intra_folded(xc.reshape(b * c, q, h, p),
+                           cum.reshape(b * c, q, h),
+                           Bc.reshape(b * c, q, n), Cc.reshape(b * c, q, n))
+    return out.reshape(b, c, q, h, p)

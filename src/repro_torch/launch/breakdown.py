@@ -3,7 +3,8 @@ host wall clock, device kernel time by name (``torch.profiler``), and the
 share of the wall during which the device ran no kernel.
 
     PYTHONPATH=src python -m repro_torch.launch.breakdown [--traffic bursty]
-    PYTHONPATH=src python -m repro_torch.launch.breakdown --serve
+    PYTHONPATH=src python -m repro_torch.launch.breakdown --serve \
+        [--arch mamba2-2.7b | zamba2-7b]
 
 Profiles two solves after a warm-up of each: the qwen3-0.6b serving plan
 (``launch/plan.py``'s settings) and the paper's Fig. 8 problem at the
@@ -11,8 +12,10 @@ paper's PSO-GA settings; with ``--traffic SCENARIO`` also the qwen3-0.6b
 plan under that request stream (``launch/plan.py --traffic``, rate 0.5).
 ``--serve`` profiles the LM server instead, at the batch ``chip_smoke.py``
 serves: the prefill of 8 prompts of 2048 tokens and the 31 decode steps
-after it (``launch/serve.py``, seeded weights, full width and depth). Prints one JSON line per profiled run; chrome traces go to
-``--trace-dir`` when given.
+after it (``launch/serve.py``, seeded weights, full width and depth) for
+``--arch`` (qwen3-0.6b unless told; mamba2-2.7b and zamba2-7b run their
+Mamba2 prefill through B5). Prints one JSON line per profiled run; chrome
+traces go to ``--trace-dir`` when given.
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ from ..core import (TRAFFIC_KINDS, TrafficConfig, plan_offload_batch,
                     run_pso_ga, tpu_fleet_environment)
 from ..core.paper import PAPER_PSO, fig8_problem
 from ..kernels import (decode_attention, flash_attention, schedule_sim,
-                       traffic_sim)
+                       ssd_scan, traffic_sim)
 from .plan import DEADLINE_RATIO, DEFAULT_PSO
 from .serve import Server
 
@@ -42,6 +45,7 @@ KERNELS = {
     "traffic": ("traffic_replay_kernel", traffic_sim.traffic_replay),
     "flash": ("flash_kernel", flash_attention.flash_attention_folded),
     "decode": ("decode_kernel", decode_attention.decode_attention_folded),
+    "ssd": ("ssd_kernel", ssd_scan.ssd_intra_folded),
 }
 
 
@@ -120,7 +124,9 @@ def profile_serve(arch: str, trace_dir: Optional[Path]) -> None:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="qwen3-0.6b")
+    ap.add_argument("--arch", default="qwen3-0.6b",
+                    help="the planned arch; with --serve the served one: "
+                         "qwen3-0.6b, mamba2-2.7b or zamba2-7b")
     ap.add_argument("--trace-dir", type=Path, default=None)
     ap.add_argument("--traffic", default=None, metavar="SCENARIO",
                     choices=TRAFFIC_KINDS,

@@ -4,15 +4,21 @@ per-slot completion — the port of ``repro/launch/serve.py``'s ``Server``.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
         --plan --traffic bursty
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
         --reduced --device cpu
 
 Static slot batching, as in the reference: a batch of B same-length
 prompts is prefilled together, then decoded in lock-step at one shared
 cache position ``prompt_len + i``; the loop stops when every slot has
-emitted EOS or after ``max_new`` tokens. Attention runs through the CUDA
-kernels B3 (prefill) and B4 (decode) on the card, their plain versions
-with ``--device cpu``. Weights are random, from a seed.
+emitted EOS or after ``max_new`` tokens. Every family ``build_model``
+builds is served alike: the dense transformer (qwen3-0.6b, starcoder2-3b),
+the Mamba2 LM (mamba2-2.7b) and the Zamba2 hybrid (zamba2-7b). On the card,
+attention runs through the CUDA kernels B3 (prefill) and B4 (decode) and
+every Mamba2 block's prefill through B5 (the SSD intra-chunk form); with
+``--device cpu`` their plain versions run. Weights are random, from a
+seed.
 
 ``--plan`` first plans the serving shapes' placement over the TPU fleet
 (``launch/plan.py``), as the reference's ``--plan`` does, then serves.
@@ -98,7 +104,9 @@ class Server:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True,
+                    help="a dense (qwen3-0.6b, starcoder2-3b), SSM "
+                         "(mamba2-2.7b) or hybrid (zamba2-7b) config")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

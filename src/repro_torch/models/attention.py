@@ -1,6 +1,7 @@
 """Grouped-query attention: causal or sliding-window prefill, and
 single-token decode against full or ring caches — the port of
-``repro/models/attention.py`` for the dense serving path.
+``repro/models/attention.py`` for serving: the dense transformer's layers
+and Zamba2's shared attention block.
 
 Both paths go through the attention kernels' layout wrappers
 (``kernels.ops``), whose route the tensors' device picks: the hand-written

@@ -2,17 +2,33 @@
 
 ``params_from_reference(cfg, tree)`` takes the reference model's parameter
 pytree as numpy arrays (``jax.tree.map(np.asarray, params)``), in its
-layer-stacked layout (``repro/models/transformer.py:92-121``)::
+layer-stacked layout, and returns the state dict of the port's model for
+``cfg.family``: the same values under per-block names, one block per index.
 
-    embed (vocab, d), final_norm (d,), [unembed (d, vocab)],
-    blocks/{ln1, ln2 (L, d),
-            attn/{wq (L, d, h, hd), wk, wv (L, d, k, hd), wo (L, h, hd, d),
-                  [q_norm, k_norm (L, hd)]},
-            mlp/{wi, [wg] (L, d, ff), wo (L, ff, d)}}
+* dense (``repro/models/transformer.py:92-121``)::
 
-and returns the state dict of ``TransformerLM``: the same values under
-``blocks.<i>.`` names, one layer per index. Nothing is transposed or
-re-laid out; bfloat16 arrays keep their bits.
+      embed (vocab, d), final_norm (d,), [unembed (d, vocab)],
+      blocks/{ln1, ln2 (L, d),
+              attn/{wq (L, d, h, hd), wk, wv (L, d, k, hd), wo (L, h, hd, d),
+                    [q_norm, k_norm (L, hd)]},
+              mlp/{wi, [wg] (L, d, ff), wo (L, ff, d)}}
+
+  → ``blocks.<i>.{ln1, ln2, attn.<name>, mlp.<name>}``;
+* ssm (``repro/models/hybrid.py:50-59``, ``ssm.py:39-57``)::
+
+      embed, final_norm, blocks/{ln (L, d), mamba/{wz, wx, wB, wC, wdt,
+                                  conv_w, conv_b, A_log, D, dt_bias, norm,
+                                  wo} (L, ...)}
+
+  → ``blocks.<i>.{ln, mamba.<name>}``;
+* hybrid (``repro/models/hybrid.py:140-166``): the same mamba blocks under
+  ``groups`` (leading ``(n_groups, k)``) and ``tail`` (leading
+  ``n_tail``), plus ``shared_attn/{ln1, attn/..., ln2, mlp/...}`` (one
+  set) → ``groups.<g>.<l>.*``, ``tail.<t>.*``, ``shared_attn.*``.
+
+Nothing is transposed or re-laid out; bfloat16 arrays keep their bits and
+the float32 ``A_log``, ``D`` and ``dt_bias`` of a bfloat16 model stay
+float32.
 """
 from __future__ import annotations
 
@@ -33,22 +49,43 @@ def _tensor(a: Any) -> torch.Tensor:
     return torch.from_numpy(a.copy())
 
 
+def _flatten(node: Any, prefix: str, out: Dict[str, torch.Tensor],
+             index=()) -> None:
+    """Every leaf of ``node`` under ``prefix.<path>``, indexed by
+    ``index`` along its leading axes."""
+    if isinstance(node, Mapping):
+        for k, v in node.items():
+            _flatten(v, f"{prefix}.{k}" if prefix else k, out, index)
+    else:
+        out[prefix] = _tensor(np.asarray(node)[index])
+
+
+def _stacked(tree: Any, name: str, lead: tuple,
+             out: Dict[str, torch.Tensor]) -> None:
+    """A layer-stacked subtree with leading axes ``lead`` as
+    ``name.<i>[.<j>].<path>``."""
+    for idx in np.ndindex(*lead):
+        _flatten(tree, ".".join([name, *map(str, idx)]), out, idx)
+
+
 def params_from_reference(cfg: ModelConfig, tree: Mapping[str, Any]
                           ) -> Dict[str, torch.Tensor]:
-    if cfg.family != "dense" or cfg.local_global_period:
+    if cfg.family not in ("dense", "ssm", "hybrid") or (
+            cfg.family == "dense" and cfg.local_global_period):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense uniform family is ported (ROADMAP "
-            f"queue A item 12)")
+            f"{cfg.name}: only the dense uniform, SSM and hybrid families "
+            f"are ported (ROADMAP queue A item 12)")
     out = {"embed": _tensor(tree["embed"]),
            "final_norm": _tensor(tree["final_norm"])}
-    if not cfg.tie_embeddings:
+    if cfg.family == "dense" and not cfg.tie_embeddings:
         out["unembed"] = _tensor(tree["unembed"])
-    blocks = tree["blocks"]
-    for i in range(cfg.n_layers):
-        pre = f"blocks.{i}."
-        out[pre + "ln1"] = _tensor(blocks["ln1"][i])
-        out[pre + "ln2"] = _tensor(blocks["ln2"][i])
-        for group in ("attn", "mlp"):
-            for name, a in blocks[group].items():
-                out[f"{pre}{group}.{name}"] = _tensor(a[i])
+    if cfg.family in ("dense", "ssm"):
+        _stacked(tree["blocks"], "blocks", (cfg.n_layers,), out)
+        return out
+    n_groups, n_tail = divmod(cfg.n_layers, cfg.hybrid_attn_every)
+    _stacked(tree["groups"], "groups", (n_groups, cfg.hybrid_attn_every),
+             out)
+    if n_tail:
+        _stacked(tree["tail"], "tail", (n_tail,), out)
+    _flatten(tree["shared_attn"], "shared_attn", out)
     return out

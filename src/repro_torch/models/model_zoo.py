@@ -1,8 +1,9 @@
 """Model construction and analytic counts — the port of
 ``repro/models/model_zoo.py``.
 
-``build_model`` builds the dense family (``TransformerLM``); every other
-family raises NotImplementedError until its slice lands (ROADMAP queue A
+``build_model`` builds the dense family (``TransformerLM``), the SSM
+family (``MambaLM``) and the hybrid (``Zamba2LM``); MoE, VLM and enc-dec
+raise NotImplementedError until their slices land (ROADMAP queue A
 item 12). ``supports_shape``, ``skip_reason``, ``param_count`` and
 ``model_flops`` are plain Python, copied from the reference. The
 reference's ``input_specs``/``batch_pspecs`` describe inputs for XLA's
@@ -11,16 +12,21 @@ ahead-of-time lowering and sharding and have no counterpart here.
 from __future__ import annotations
 
 from ..configs.base import ModelConfig, ShapeSpec
+from .hybrid import MambaLM, Zamba2LM
 from .transformer import TransformerLM
 
 __all__ = ["build_model", "supports_shape", "skip_reason", "model_flops",
            "param_count"]
 
 
-def build_model(cfg: ModelConfig, device=None) -> TransformerLM:
+def build_model(cfg: ModelConfig, device=None):
     """The model for ``cfg`` on ``device`` (``cuda`` unless told)."""
     if cfg.family == "dense":
         return TransformerLM(cfg, device=device)
+    if cfg.family == "ssm":
+        return MambaLM(cfg, device=device)
+    if cfg.family == "hybrid":
+        return Zamba2LM(cfg, device=device)
     raise NotImplementedError(
         f"family {cfg.family!r} ({cfg.name}) is not ported yet: ROADMAP "
         f"queue A item 12 lists what is left")

@@ -9,6 +9,8 @@ layer ``blocks.<i>.{ln1, ln2}``, ``blocks.<i>.attn.{wq (d,h,hd), wk, wv
 (``models.convert`` maps the reference's layer-stacked pytree onto these
 names). A plain Python loop over the layers stands in for the reference's
 ``lax.scan``. Parameters do not require gradients: this slice serves.
+``LMBase`` holds what every family's LM shares (embedding, final norm,
+tied head); ``DenseBlock`` is also Zamba2's shared attention block.
 
 Caches are layer-stacked as in the reference, ``{"k", "v"}`` of shape
 (L, B, C, K, hd); ``decode_step`` writes each layer's new key and value
@@ -27,7 +29,7 @@ from ..core.device import resolve_device
 from . import attention as attn
 from .layers import DTYPES, dense_init, embed_init, mlp_apply, rms_norm
 
-__all__ = ["TransformerLM"]
+__all__ = ["TransformerLM", "LMBase"]
 
 Caches = Dict[str, torch.Tensor]
 
@@ -38,7 +40,7 @@ def _param(t: torch.Tensor) -> nn.Parameter:
 
 class DenseBlock(nn.Module):
     """One pre-norm attention + MLP layer; parameters allocated, not
-    initialised (``TransformerLM.init`` fills them)."""
+    initialised (``init`` fills them)."""
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype,
                  device: torch.device):
@@ -62,13 +64,64 @@ class DenseBlock(nn.Module):
         if cfg.act in ("swiglu", "geglu"):
             m["wg"] = empty(d, ff)
         self.mlp = nn.ParameterDict(m)
+        self.cfg = cfg
+
+    @torch.no_grad()
+    def init(self, gen: torch.Generator) -> None:
+        """He-normal projections from ``gen``, zero norm scales."""
+        cfg = self.cfg
+        d, h, k, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        dt = self.ln1.dtype
+        self.ln1.zero_()
+        self.ln2.zero_()
+        a = self.attn
+        a["wq"].copy_(dense_init(gen, d, h * hd, dt).reshape(d, h, hd))
+        a["wk"].copy_(dense_init(gen, d, k * hd, dt).reshape(d, k, hd))
+        a["wv"].copy_(dense_init(gen, d, k * hd, dt).reshape(d, k, hd))
+        a["wo"].copy_(dense_init(gen, h * hd, d, dt).reshape(h, hd, d))
+        if cfg.qk_norm:
+            a["q_norm"].zero_()
+            a["k_norm"].zero_()
+        for name in self.mlp:
+            w = self.mlp[name]
+            w.copy_(dense_init(gen, w.shape[0], w.shape[1], dt))
 
 
-class TransformerLM(nn.Module):
-    """cfg.family == "dense" with ``local_global_period == 0``."""
+class LMBase(nn.Module):
+    """What every family's LM shares: ``embed (vocab, d)`` and
+    ``final_norm (d,)`` in the model dtype on the model's device (``cuda``
+    unless told), the scaled embedding lookup and the tied head."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = DTYPES[cfg.dtype]
+        self.embed = _param(torch.empty((cfg.vocab, cfg.d_model),
+                                        dtype=self.dtype, device=self.device))
+        self.final_norm = _param(torch.zeros(cfg.d_model, dtype=self.dtype,
+                                             device=self.device))
+
+    def init_embed(self, gen: torch.Generator) -> None:
+        self.embed.copy_(embed_init(gen, self.cfg.vocab, self.cfg.d_model,
+                                    self.dtype))
+        self.final_norm.zero_()
+
+    def embed_inputs(self, tok) -> torch.Tensor:
+        """Token ids (any int array) -> embeddings times d_model**0.5, the
+        scale cast to the model dtype as the reference does."""
+        x = self.embed[torch.as_tensor(tok, device=self.device).long()]
+        return x * torch.tensor(self.cfg.d_model ** 0.5, dtype=self.dtype,
+                                device=self.device)
+
+    def logits(self, h: torch.Tensor) -> torch.Tensor:
+        return rms_norm(h, self.final_norm, self.cfg.norm_eps) @ self.embed.T
+
+
+class TransformerLM(LMBase):
+    """cfg.family == "dense" with ``local_global_period == 0``."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
         if cfg.family != "dense":
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet (ROADMAP queue A "
@@ -81,15 +134,9 @@ class TransformerLM(nn.Module):
             raise NotImplementedError(
                 "the int8 KV cache is not ported yet (ROADMAP queue A "
                 "item 12)")
-        self.cfg = cfg
-        self.device = resolve_device(device)
-        self.dtype = DTYPES[cfg.dtype]
+        super().__init__(cfg, device)
         self.is_global = cfg.window == 0
         dev, dt = self.device, self.dtype
-        self.embed = _param(torch.empty((cfg.vocab, cfg.d_model), dtype=dt,
-                                        device=dev))
-        self.final_norm = _param(torch.zeros(cfg.d_model, dtype=dt,
-                                             device=dev))
         self.blocks = nn.ModuleList(DenseBlock(cfg, dt, dev)
                                     for _ in range(cfg.n_layers))
         if not cfg.tie_embeddings:
@@ -101,52 +148,26 @@ class TransformerLM(nn.Module):
     def init(self, gen: torch.Generator) -> "TransformerLM":
         """He-normal weights and embeddings from ``gen`` (on the model's
         device), zero norm scales."""
-        cfg, dt = self.cfg, self.dtype
-        d, h, k, hd, ff = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                           cfg.head_dim, cfg.d_ff)
-        self.embed.copy_(embed_init(gen, cfg.vocab, d, dt))
-        self.final_norm.zero_()
+        cfg = self.cfg
+        self.init_embed(gen)
         for blk in self.blocks:
-            blk.ln1.zero_()
-            blk.ln2.zero_()
-            a = blk.attn
-            a["wq"].copy_(dense_init(gen, d, h * hd, dt).reshape(d, h, hd))
-            a["wk"].copy_(dense_init(gen, d, k * hd, dt).reshape(d, k, hd))
-            a["wv"].copy_(dense_init(gen, d, k * hd, dt).reshape(d, k, hd))
-            a["wo"].copy_(dense_init(gen, h * hd, d, dt).reshape(h, hd, d))
-            if cfg.qk_norm:
-                a["q_norm"].zero_()
-                a["k_norm"].zero_()
-            for name in blk.mlp:
-                w = blk.mlp[name]
-                w.copy_(dense_init(gen, w.shape[0], w.shape[1], dt))
+            blk.init(gen)
         if not cfg.tie_embeddings:
-            self.unembed.copy_(embed_init(gen, cfg.vocab, d, dt).T)
+            self.unembed.copy_(embed_init(gen, cfg.vocab, cfg.d_model,
+                                          self.dtype).T)
         return self
 
-    # -------------------------------------------------------------- embed
-    def _tokens(self, tok) -> torch.Tensor:
-        return torch.as_tensor(tok, device=self.device).long()
-
-    def _scale_embed(self, x: torch.Tensor) -> torch.Tensor:
-        # d_model**0.5 cast to the model dtype, as the reference does
-        return x * torch.tensor(self.cfg.d_model ** 0.5, dtype=self.dtype,
-                                device=self.device)
-
-    def embed_inputs(self, batch: Dict) -> torch.Tensor:
-        return self._scale_embed(self.embed[self._tokens(batch["tokens"])])
-
     def logits(self, h: torch.Tensor) -> torch.Tensor:
-        h = rms_norm(h, self.final_norm, self.cfg.norm_eps)
-        w = self.embed.T if self.cfg.tie_embeddings else self.unembed
-        return h @ w
+        if self.cfg.tie_embeddings:
+            return super().logits(h)
+        return rms_norm(h, self.final_norm, self.cfg.norm_eps) @ self.unembed
 
     # ----------------------------------------------------------- seq path
     def forward(self, batch: Dict, with_cache: bool = False
                 ) -> Tuple[torch.Tensor, Optional[Caches]]:
         """Returns (hidden (B,S,D), layer-stacked caches or None)."""
         cfg = self.cfg
-        x = self.embed_inputs(batch)
+        x = self.embed_inputs(batch["tokens"])
         b, s, _ = x.shape
         positions = torch.arange(s, dtype=torch.int32,
                                  device=self.device).expand(b, s)
@@ -184,7 +205,7 @@ class TransformerLM(nn.Module):
         (B,1,V), caches), the caches updated in place."""
         cfg = self.cfg
         pos = int(batch["pos"])
-        x = self._scale_embed(self.embed[self._tokens(batch["token"])])
+        x = self.embed_inputs(batch["token"])
         for i, blk in enumerate(self.blocks):
             layer = {n: t[i] for n, t in caches.items()}
             h, _ = attn.attn_decode(

@@ -1,7 +1,8 @@
 """The attention kernels' plain versions (B3 flash prefill, B4 flash
 decode), through the port's layout wrappers on CPU tensors, against the
 reference's Pallas kernels (interpret mode, as ``tests/test_kernels.py``
-runs them) and its ``ref`` oracles, over the reference's own sweeps.
+runs them) and its ``ref`` oracles, over the reference's own sweeps and
+zamba2's head_dim of 112.
 
 Inputs are drawn with numpy and handed to both packages; bfloat16 inputs
 round the same float32 values in both. Tolerances are the reference's
@@ -45,6 +46,7 @@ def _close(got, want, tol, msg=""):
     (1, 300, 1, 4, 64),      # non-multiple seq (padding path)
     (2, 257, 2, 1, 128),     # odd seq, wide head
     (1, 512, 4, 2, 64),      # multi-tile
+    (2, 200, 2, 1, 112),     # zamba2's head_dim, not a power of two
 ])
 @pytest.mark.parametrize("window", [0, 64])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -130,6 +132,8 @@ def test_operand_check_takes_the_model_layout_views():
     (1, 2048, 4, 1, 128, 2048),
     (2, 100, 1, 8, 64, 1),          # single valid slot
     (1, 1000, 2, 2, 64, 999),       # ragged cache
+    (2, 300, 2, 1, 112, 257),       # zamba2's head_dim: 28 lanes of 4
+    (1, 64, 1, 3, 112, 1),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_attention_matches_reference(b, c, kh, g, hd, valid, dtype):

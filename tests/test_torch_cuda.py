@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions, on a card: the
-replay kernels B1 and B2, the attention kernels B3 and B4.
+replay kernels B1 and B2, the attention kernels B3 and B4, the SSD
+intra-chunk kernel B5, and the dense, SSM and hybrid models through them.
 
 Run where there is one (no JAX needed):
 
@@ -21,8 +22,8 @@ from repro_torch.core.simulator import kernel_args
 from repro_torch.configs import get
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import ops, schedule_sim, traffic_sim
-from repro_torch.models import TransformerLM
+from repro_torch.kernels import ops, schedule_sim, ssd_scan, traffic_sim
+from repro_torch.models import TransformerLM, build_model
 
 RTOL = 1e-5
 #: attention kernels vs plain: the reference kernel tests' tolerances
@@ -179,6 +180,8 @@ def _randn(shape, dtype, device, seed):
     (2, 200, 2, 2, 16, True, 0),       # the reduced configs' head_dim
     (1, 100, 2, 3, 256, True, 7),      # gemma-7b's head_dim
     (1, 130, 1, 2, 128, False, 0),     # bidirectional
+    (2, 300, 4, 1, 112, True, 0),      # zamba2's head_dim
+    (1, 200, 2, 2, 112, True, 64),
 ])
 def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, b, s, kh, g,
                                             hd, causal, window):
@@ -208,6 +211,8 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, b, s, kh, g,
     (2, 2080, 8, 2, 128, 2048),        # qwen3's serving cache
     (1, 64, 2, 3, 16, 64),             # full cache, G not a power of two
     (1, 300, 1, 1, 256, 77),
+    (2, 2080, 4, 1, 112, 2049),        # zamba2's head_dim: 28 lanes of 4
+    (1, 100, 2, 3, 112, 1),
 ])
 def test_decode_kernel_matches_plain_on_card(cuda_device, dtype, b, c, kh,
                                              g, hd, valid):
@@ -274,4 +279,101 @@ def test_model_on_card_matches_plain_path(cuda_device):
         outs.append(torch.cat(steps, 1).cpu())
     assert fa.flash_attention_folded.launches - f0 == cfg.n_layers
     assert da.decode_attention_folded.launches - d0 == 3 * cfg.n_layers
+    torch.testing.assert_close(outs[0], outs[1], rtol=1e-4, atol=1e-4)
+
+
+def _ssd_inputs(shape, device, seed):
+    bc, q, h, p, n = shape
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((bc, q, h, p)).astype(np.float32)
+    cum = np.cumsum(-np.abs(rng.standard_normal((bc, q, h))) * 0.1,
+                    axis=1).astype(np.float32)
+    B, C = (rng.standard_normal((bc, q, n)).astype(np.float32)
+            for _ in range(2))
+    return [torch.from_numpy(a).to(device) for a in (x, cum, B, C)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (1, 16, 1, 8, 4), (2, 64, 2, 32, 16), (6, 37, 1, 16, 8),
+    (1, 128, 4, 64, 128),              # the reference's sweep
+    (3, 17, 5, 128, 64),               # a short chunk, the widest head
+    (64, 256, 80, 64, 128),            # mamba2-2.7b's serving shape
+])
+def test_ssd_kernel_matches_plain_on_card(cuda_device, shape):
+    """B5, one launch, against ``ssd_intra_plain`` on the same CUDA
+    tensors: every element within 1e-4 + 1e-4 |plain| (the reference
+    test's tolerance)."""
+    args = _ssd_inputs(shape, cuda_device, sum(shape))
+    before = ssd_scan.ssd_intra_folded.launches
+    got = ssd_scan.ssd_intra_folded(*args)
+    torch.cuda.synchronize()
+    assert ssd_scan.ssd_intra_folded.launches == before + 1
+    want = ssd_scan.ssd_intra_plain(*args)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_reads_column_slices_and_skips_the_upper_triangle(
+        cuda_device):
+    """B and C as column slices of one wider tensor; a log-decay so steep
+    that exp(cum_i - cum_j) overflows above the diagonal: nothing is NaN."""
+    x, _, B, C = _ssd_inputs((2, 100, 3, 16, 8), cuda_device, 1)
+    cum = torch.linspace(0.0, -500.0, 100, device=cuda_device)[
+        None, :, None].expand(2, 100, 3).contiguous()
+    wide = torch.cat([B[..., :4], B, C], -1)
+    got = ssd_scan.ssd_intra_folded(x, cum, wide[..., 4:12], wide[..., 12:])
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, ssd_scan.ssd_intra_plain(x, cum, B, C),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    x, cum, B, C = _ssd_inputs((1, 16, 2, 8, 4), cuda_device, 0)
+    with pytest.raises(TypeError, match="float32"):
+        ssd_scan.ssd_intra_folded(x.bfloat16(), cum, B, C)
+    with pytest.raises(ValueError, match="aligned"):
+        ssd_scan.ssd_intra_folded(x, cum, torch.zeros(
+            1 + B.numel(), device=cuda_device)[1:].view(B.shape), C)
+    with pytest.raises(ValueError, match="head_dim"):
+        ssd_scan.ssd_intra_folded(x[..., :6], cum, B, C)
+    big = _ssd_inputs((1, 257, 1, 8, 4), cuda_device, 0)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_scan.ssd_intra_folded(*big)
+    with pytest.raises(ValueError):
+        ssd_scan.ssd_intra_folded(x, cum.cpu(), B, C)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,layers,launches", [
+    ("mamba2-2.7b", 2, (0, 0, 2)),     # B3, B4 (3 steps), B5 per run
+    ("zamba2-7b", 3, (1, 3, 3)),       # one group of 2 and a tail of 1
+])
+def test_ssm_models_on_card_match_plain_path(cuda_device, arch, layers,
+                                             launches):
+    """Reduced float32 MambaLM and Zamba2LM: a 21-token prefill (a ragged
+    last chunk) and 3 decode steps through the kernels on the card against
+    the same weights on the CPU plain path; logits to 1e-4."""
+    cfg = dataclasses.replace(get(arch).reduced(), n_layers=layers)
+    cpu = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    card = build_model(cfg, device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 24))
+    counters = (fa.flash_attention_folded, da.decode_attention_folded,
+                ssd_scan.ssd_intra_folded)
+    start = [c.launches for c in counters]
+    outs = []
+    with torch.inference_mode():
+        for m in (card, cpu):
+            lg, c = m.prefill({"tokens": toks[:, :21]}, cache_len=24)
+            steps = [lg]
+            for j in range(3):
+                lg, c = m.decode_step(c, {"token": toks[:, 21 + j:22 + j],
+                                          "pos": 21 + j})
+                steps.append(lg)
+            outs.append(torch.cat(steps, 1).cpu())
+    assert tuple(c.launches - s for c, s in zip(counters, start)) == launches
     torch.testing.assert_close(outs[0], outs[1], rtol=1e-4, atol=1e-4)

@@ -62,3 +62,30 @@ def test_cli_without_device_needs_a_card():
         serve.main(["--arch", "qwen3-0.6b", "--reduced"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.Server(get("qwen3-0.6b").reduced(), 1, 4, 2)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-7b"])
+def test_generate_ssm_and_hybrid(arch):
+    """Reduced mamba2 and zamba2 through the same ``Server``: a 21-token
+    prompt (a ragged last chunk), 5 new tokens, no EOS; token shapes and
+    range, and the same tokens from a second call (greedy, and the caches
+    of the first call do not leak into the second)."""
+    cfg = get(arch).reduced()
+    srv = serve.Server(cfg, batch=2, prompt_len=21, max_new=5, eos_id=-1,
+                       device="cpu")
+    srv.init_params(3)
+    rng = np.random.default_rng(1)
+    batch = {"tokens": rng.integers(2, cfg.vocab, (2, 21)).astype(np.int32)}
+    first = srv.generate(batch)
+    again = srv.generate(batch)
+    toks = first["tokens"]
+    assert toks.shape == (2, 5) and first["tokens_generated"] == 10
+    assert ((toks >= 0) & (toks < cfg.vocab)).all()
+    np.testing.assert_array_equal(again["tokens"], toks)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-7b"])
+def test_cli_serves_ssm_and_hybrid_on_the_cpu(arch, capsys):
+    serve.main(["--arch", arch, "--reduced", "--device", "cpu", "--batch",
+                "2", "--prompt-len", "8", "--max-new", "3"])
+    assert f"[serve] {arch}-smoke on cpu" in capsys.readouterr().out
