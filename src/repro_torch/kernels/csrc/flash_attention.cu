@@ -1,6 +1,6 @@
 // Causal / sliding-window GQA flash prefill attention for Hopper (sm_90a).
 //
-// Port of the Pallas TPU kernel repro/kernels/flash_attention.py
+// Port of the Pallas TPU kernel repro/kernels/flash_attention.py:40
 // (_flash_kernel, called through flash_attention_folded). It computes, for
 // every query row of every (batch, kv head, query-group head),
 //
@@ -11,43 +11,68 @@
 // kpos < seq, kpos <= qpos (causal), kpos > qpos - window (window > 0), the
 // masked score is the finite NEG_INF = -2^30, and l is floored at 1e-30.
 //
-// What bounds it on the H100: at the serving shape (B*K = 64, G = 2,
-// S = 2048, hd = 128) the causal band is ~1.4e11 FLOPs against ~0.2 GB of
-// q/k/v/o, far above the card's ridge point, so it is bound by operations.
-// This first version does its products with scalar fp32 FMAs (no tensor
-// cores: the float32 path must stay exact to 2e-5), so it runs against the
-// fp32 CUDA-core rate, not the bf16 tensor-core peak. Its design:
+// What bounds it on the H100: at qwen3-0.6b's serving shape (B*K = 64,
+// G = 2, S = 2048, hd = 128) the causal band is 1.375e11 FLOPs against
+// ~0.2 GB of q/k/v/o, far above the card's ridge point, so it is bound by
+// operations: 0.139 ms at the 989 TFLOP/s bf16 tensor-core peak. There are
+// two routes, by dtype, behind one entry point:
 //
-//   * one block of 256 threads owns a (64-row q tile, kv-head row, group
-//     head); the TPU's sequential kv-tile grid axis becomes a loop inside the
-//     block, over only the kv tiles that meet the causal / window band;
-//   * q, k and v are read in place through element strides in the model's
-//     (B, S, K, G, hd) / (B, S, K, hd) layout (no folded copy), converted to
-//     fp32 and staged in dynamic shared memory (117 KB at hd 128);
-//   * each thread owns a 4 x (kv tile / 16) block of scores and 4 rows of
-//     the output in float4 columns 4 * (tx + 16 c) (at hd 112 the second
-//     column exists for tx < 12 only: every use is guarded by col < HD,
-//     and shared-memory rows of 116 floats keep 16-byte alignment and stay
-//     free of bank conflicts); the row max and sum reduce over the
-//     16 threads of a row with warp shuffles; rows are padded by 4 floats so
-//     the 16-byte shared-memory reads are free of bank conflicts;
-//   * the ragged tail is masked with the true seq: rows past it are zero in
-//     shared memory and are never written, so nothing is padded;
-//   * q tiles are issued heaviest first (the last causal tile has the most kv
-//     tiles), so the tail of the grid is short.
+// bfloat16 (the served models): flash_bf16_mma_kernel, on the tensor cores.
+//   * one block owns a (128-row q tile, kv-head row, group head): 4 warps of
+//     32 query rows (two m16 tiles, so each K and V fragment read from
+//     shared memory feeds two products), two blocks per SM; at hd 256, 8
+//     warps of 16 rows (registers). The TPU's sequential kv-tile grid axis
+//     becomes a loop over only the kv tiles that meet the tile's causal /
+//     window band; a warp skips a tile that lies wholly outside its own
+//     rows' band. kv tiles are 64 rows, 32 at hd 128 and 256, so that the
+//     fp32 accumulators of O and S fit the 255 registers without spilling;
+//   * q, k and v stay bf16 and are copied in place from the model's
+//     (B, S, K, G, hd) / (B, S, K, hd) layout, through element strides, into
+//     shared memory with 16-byte cp.async copies; rows past seq are
+//     zero-filled. K and V tiles go through a ring of 2 stages (64-row
+//     tiles) or 3 (32-row tiles): the next tiles are requested before tile
+//     j's products run. Rows are padded by 8 bf16 so ldmatrix is free of
+//     bank conflicts;
+//   * both products are mma.sync m16n8k16 bf16 x bf16 -> fp32. Q's A
+//     fragments come from shared memory by ldmatrix (held in registers for
+//     the whole q tile where they fit: hd <= 128 at 16 rows per warp), K's B
+//     fragments by ldmatrix and V's by ldmatrix.trans;
+//   * the online softmax runs in registers: a row's max reduces over the 4
+//     lanes that share it in the accumulator fragment, and O is rescaled
+//     only when some row of the warp raised its max. The weights go to P.V
+//     straight from the score registers (the m16n8k16 C layout is its A
+//     layout) as two bf16 parts, hi = bf16(p) and lo = bf16(p - hi), each
+//     multiplied by V: P.V keeps the fp32 weights of the reference to
+//     2^-18, where one bf16 rounding (2^-9) put the served 2-layer model's
+//     logits past the bf16 tolerance (PERF.md). The lo part doubles the
+//     P.V products. l sums the fp32 weights.
+//     The scale is applied to the fp32 scores, folded with log2(e) into
+//     exp2f, so a masked score (NEG_INF) still underflows to exactly 0 once
+//     a row has a live key, and a wholly masked first tile (p = exp2(0) = 1)
+//     is wiped by corr = 0 at the next, as in the reference. Masks are
+//     evaluated only on tiles that cross the diagonal, the window's edge or
+//     the ragged tail.
+//   wgmma and TMA are the next step (ROADMAP).
 //
-// The C entry point launches on the caller's stream, allocates nothing, and
-// returns cudaGetLastError().
+// float32 (the exact model checks): flash_f32_kernel, scalar fp32 FMAs on
+//   the CUDA cores, to stay within 2e-5 of the plain version (TF32 would
+//   not). One block of 256 threads owns a (64-row q tile, kv-head row,
+//   group head); q, k and v are staged in shared memory (rows padded by 4
+//   floats); each thread owns a 4 x (kv tile / 16) block of scores and 4
+//   rows of the output in float4 columns 4 * (tx + 16 c) (at hd 112 the
+//   second column exists for tx < 12 only: every use is guarded by
+//   col < HD); row max and sum reduce over 16 lanes with shuffles.
+//
+// Both routes issue q tiles heaviest first (the last causal tile has the
+// most kv tiles), so the tail of the grid is short. The C entry point
+// launches on the caller's stream, allocates nothing, and returns
+// cudaGetLastError().
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-
-#include <type_traits>
 
 namespace {
 
 constexpr float kNegInf = -1073741824.0f;  // -2^30, finite as in the reference
-constexpr int kThreads = 256;
-constexpr int kBQ = 64;                     // query rows per block
 
 struct FlashArgs {
   const void* q;
@@ -64,34 +89,25 @@ struct FlashArgs {
   float scale;
 };
 
-// 4 consecutive elements -> fp32 (16 bytes of float, 8 bytes of bf16)
-template <typename T>
-__device__ __forceinline__ float4 load4(const T* p) {
-  if constexpr (std::is_same<T, float>::value) {
-    return *reinterpret_cast<const float4*>(p);
-  } else {
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const float2 a = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-    const float2 b = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-    return make_float4(a.x, a.y, b.x, b.y);
-  }
+// kv tiles [j0, j1) that meet the band of the q tile starting at q0
+__device__ __forceinline__ void kv_range(const FlashArgs& a, int q0, int bq,
+                                         int bkv, int& j0, int& j1) {
+  int hi = a.S;
+  if (a.causal) hi = min(hi, q0 + bq);
+  int lo = 0;
+  if (a.window) lo = max(0, q0 - a.window + 1);
+  j0 = lo / bkv;
+  j1 = (hi + bkv - 1) / bkv;
 }
 
-template <typename T>
-__device__ __forceinline__ void store4(T* p, float4 x) {
-  if constexpr (std::is_same<T, float>::value) {
-    *reinterpret_cast<float4*>(p) = x;
-  } else {
-    __nv_bfloat162 a = __floats2bfloat162_rn(x.x, x.y);
-    __nv_bfloat162 b = __floats2bfloat162_rn(x.z, x.w);
-    uint2 raw;
-    raw.x = *reinterpret_cast<unsigned*>(&a);
-    raw.y = *reinterpret_cast<unsigned*>(&b);
-    *reinterpret_cast<uint2*>(p) = raw;
-  }
-}
+// ---------------------------------------------------------------------------
+// float32: CUDA cores
+// ---------------------------------------------------------------------------
+
+namespace f32 {
+
+constexpr int kThreads = 256;
+constexpr int kBQ = 64;                     // query rows per block
 
 __device__ __forceinline__ float fma4(float4 a, float4 b, float acc) {
   acc = fmaf(a.x, b.x, acc);
@@ -115,16 +131,16 @@ __device__ __forceinline__ float row_sum(float x) {
 
 // kv rows per tile: 64, or 32 at head_dim 256 so the tiles fit one block
 template <int HD>
-constexpr int kv_tile() { return HD >= 256 ? 32 : 64; }
+__host__ __device__ constexpr int kv_tile() { return HD >= 256 ? 32 : 64; }
 
 template <int HD, int BKV>
 constexpr int smem_floats() {
   return kBQ * (HD + 4) + BKV * (HD + 4) + BKV * HD + kBQ * (BKV + 4);
 }
 
-template <typename T, int HD, int BKV>
+template <int HD, int BKV>
 __global__ void __launch_bounds__(kThreads)
-flash_kernel(const FlashArgs a) {
+flash_f32_kernel(const FlashArgs a) {
   constexpr int QS = HD + 4;          // padded row stride of sQ and sK
   constexpr int PS = BKV + 4;         // padded row stride of sP
   constexpr int NC = BKV / 16;        // score columns per thread
@@ -143,29 +159,27 @@ flash_kernel(const FlashArgs a) {
   const int S = a.S;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
 
-  const T* qp = static_cast<const T*>(a.q) + b * a.q_sb + kh * a.q_sk +
-                g * a.q_sg;
-  const T* kp = static_cast<const T*>(a.k) + b * a.k_sb + kh * a.k_sk;
-  const T* vp = static_cast<const T*>(a.v) + b * a.v_sb + kh * a.v_sk;
-  T* op = static_cast<T*>(a.o) + b * a.o_sb + kh * a.o_sk + g * a.o_sg;
+  const float* qp = static_cast<const float*>(a.q) + b * a.q_sb +
+                    kh * a.q_sk + g * a.q_sg;
+  const float* kp = static_cast<const float*>(a.k) + b * a.k_sb + kh * a.k_sk;
+  const float* vp = static_cast<const float*>(a.v) + b * a.v_sb + kh * a.v_sk;
+  float* op = static_cast<float*>(a.o) + b * a.o_sb + kh * a.o_sk +
+              g * a.o_sg;
 
   // the q tile, scaled, rows past seq zero
   for (int i = tid; i < kBQ * V4; i += kThreads) {
     const int r = i / V4, c = (i % V4) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     if (q0 + r < S) {
-      x = load4(qp + (long long)(q0 + r) * a.q_ss + c);
+      x = *reinterpret_cast<const float4*>(qp + (long long)(q0 + r) * a.q_ss +
+                                           c);
       x.x *= a.scale; x.y *= a.scale; x.z *= a.scale; x.w *= a.scale;
     }
     *reinterpret_cast<float4*>(sQ + r * QS + c) = x;
   }
 
-  // kv tiles that meet the band of this q tile
-  int hi = S;
-  if (a.causal) hi = min(hi, q0 + kBQ);
-  int lo = 0;
-  if (a.window) lo = max(0, q0 - a.window + 1);
-  const int j0 = lo / BKV, j1 = (hi + BKV - 1) / BKV;
+  int j0, j1;
+  kv_range(a, q0, kBQ, BKV, j0, j1);
 
   float m[4], l[4], acc[4][NV][4];
 #pragma unroll
@@ -185,8 +199,10 @@ flash_kernel(const FlashArgs a) {
       const int r = i / V4, c = (i % V4) * 4;
       float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
       if (k0 + r < S) {
-        kx = load4(kp + (long long)(k0 + r) * a.k_ss + c);
-        vx = load4(vp + (long long)(k0 + r) * a.v_ss + c);
+        kx = *reinterpret_cast<const float4*>(kp + (long long)(k0 + r) *
+                                              a.k_ss + c);
+        vx = *reinterpret_cast<const float4*>(vp + (long long)(k0 + r) *
+                                              a.v_ss + c);
       }
       *reinterpret_cast<float4*>(sK + r * QS + c) = kx;
       *reinterpret_cast<float4*>(sV + r * HD + c) = vx;
@@ -285,37 +301,396 @@ flash_kernel(const FlashArgs a) {
     for (int c = 0; c < NV; ++c) {
       const int col = 4 * (tx + 16 * c);
       if (col < HD)
-        store4(op + (long long)qpos * a.o_ss + col,
-               make_float4(acc[i][c][0] * inv, acc[i][c][1] * inv,
-                           acc[i][c][2] * inv, acc[i][c][3] * inv));
+        *reinterpret_cast<float4*>(op + (long long)qpos * a.o_ss + col) =
+            make_float4(acc[i][c][0] * inv, acc[i][c][1] * inv,
+                        acc[i][c][2] * inv, acc[i][c][3] * inv);
     }
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch_hd(const FlashArgs& a, int n_q, int G, int BK,
-                      cudaStream_t st) {
+template <int HD>
+cudaError_t launch(const FlashArgs& a, int G, int BK, cudaStream_t st) {
   constexpr int BKV = kv_tile<HD>();
   constexpr size_t smem = sizeof(float) * smem_floats<HD, BKV>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, HD, BKV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_f32_kernel<HD, BKV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  flash_kernel<T, HD, BKV><<<dim3(n_q, G, BK), kThreads, smem, st>>>(a);
+  const int n_q = (a.S + kBQ - 1) / kBQ;
+  flash_f32_kernel<HD, BKV><<<dim3(n_q, G, BK), kThreads, smem, st>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_t(const FlashArgs& a, int hd, int n_q, int G, int BK,
-                     cudaStream_t st) {
-  switch (hd) {
-    case 16: return launch_hd<T, 16>(a, n_q, G, BK, st);
-    case 64: return launch_hd<T, 64>(a, n_q, G, BK, st);
-    case 112: return launch_hd<T, 112>(a, n_q, G, BK, st);
-    case 128: return launch_hd<T, 128>(a, n_q, G, BK, st);
-    case 256: return launch_hd<T, 256>(a, n_q, G, BK, st);
-    default: return cudaErrorInvalidValue;
+}  // namespace f32
+
+// ---------------------------------------------------------------------------
+// bfloat16: tensor cores (mma.sync, ldmatrix, cp.async as inline PTX)
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int kBQ = 128;                    // query rows per block
+
+// per head_dim: m16 tiles (16 q rows) per warp (2, so each K and V fragment
+// feeds two products; 1 at hd 256, for registers), warps, kv rows per tile,
+// ring stages, blocks per SM. O and S take MT * (HD + BKV) / 2 fp32
+// registers a thread: kv tiles are 64 rows while that stays within 176
+// (ptxas spills at hd 128 and 64 rows), else 32
+template <int HD>
+struct Cfg {
+  static constexpr int MT = HD >= 256 ? 1 : 2;
+  static constexpr int WARPS = kBQ / (16 * MT);
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int BKV = HD < 256 && MT * (HD + 64) / 2 <= 176 ? 64 : 32;
+  static constexpr int STAGES = MT == 2 && BKV == 64 ? 2 : 3;
+  static constexpr int MIN_BLOCKS = MT == 1 ? 1 : 2;
+  // the q tile and STAGES K and V tiles, rows padded by 8 bf16
+  static constexpr size_t SMEM =
+      sizeof(__nv_bfloat16) * (HD + 8) * (kBQ + 2 * STAGES * BKV);
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !in (no bytes
+// are read from src then)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// four 8x8 bf16 matrices from the shared-memory address `addr` (bytes)
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
+                                                  unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c += a . b for one m16n8k16 tile, bf16 inputs, fp32 accumulators
+__device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4],
+                                    unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two fp32 weights -> their bf16 pair `hi` (x in the low half) and the bf16
+// pair of what rounding left out, `lo`: hi + lo is (x, y) to 2^-18 relative,
+// so P.V = hi.V + lo.V keeps the fp32 weights of the reference
+__device__ __forceinline__ void split_bf16(float x, float y, unsigned& hi,
+                                           unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 r = __floats2bfloat162_rn(x - hf.x, y - hf.y);
+  hi = *reinterpret_cast<const unsigned*>(&h);
+  lo = *reinterpret_cast<const unsigned*>(&r);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(Cfg<HD>::THREADS, Cfg<HD>::MIN_BLOCKS)
+flash_bf16_mma_kernel(const FlashArgs a) {
+  using bf16 = __nv_bfloat16;
+  using C = Cfg<HD>;
+  constexpr int MT = C::MT, BKV = C::BKV, STAGES = C::STAGES;
+  constexpr int THREADS = C::THREADS;
+  constexpr int RS = HD + 8;            // padded row stride, in bf16
+  constexpr int CH = HD / 8;            // 16-byte chunks per row
+  constexpr int KS = HD / 16;           // k steps of Q.K^T
+  constexpr int NS = BKV / 8;           // n tiles of S
+  constexpr int NO = HD / 8;            // n tiles of O
+  constexpr int WR = 16 * MT;           // query rows per warp
+  constexpr bool kQInRegs = HD * MT <= 128;
+  static_assert(HD % 16 == 0 && BKV % 16 == 0, "m16n8k16 tiling");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sK = sQ + kBQ * RS;             // STAGES tiles of BKV rows
+  bf16* sV = sK + STAGES * BKV * RS;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
+  const int g = blockIdx.y;
+  const int b = blockIdx.z / a.K, kh = blockIdx.z % a.K;
+  const int q0 = qt * kBQ;
+  const int S = a.S;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wq0 = q0 + WR * warp;       // this warp's first query row
+
+  const bf16* qp = static_cast<const bf16*>(a.q) + b * a.q_sb + kh * a.q_sk +
+                   g * a.q_sg;
+  const bf16* kp = static_cast<const bf16*>(a.k) + b * a.k_sb + kh * a.k_sk;
+  const bf16* vp = static_cast<const bf16*>(a.v) + b * a.v_sb + kh * a.v_sk;
+  bf16* op = static_cast<bf16*>(a.o) + b * a.o_sb + kh * a.o_sk + g * a.o_sg;
+
+  int j0, j1;
+  kv_range(a, q0, kBQ, BKV, j0, j1);
+
+  auto load_kv = [&](int j, int stage) {
+    const int k0 = j * BKV;
+    bf16* dk = sK + stage * BKV * RS;
+    bf16* dv = sV + stage * BKV * RS;
+    // not unrolled: the copies' addresses are not worth registers that the
+    // accumulators need
+#pragma unroll 1
+    for (int i = tid; i < BKV * CH; i += THREADS) {
+      const int r = i / CH, c = (i % CH) * 8;
+      const bool in = k0 + r < S;
+      const long long row = in ? k0 + r : 0;
+      cp_async16(dk + r * RS + c, kp + row * a.k_ss + c, in);
+      cp_async16(dv + r * RS + c, vp + row * a.v_ss + c, in);
+    }
+  };
+
+  // prologue: q with the first kv tile, then the next STAGES - 2
+  for (int i = tid; i < kBQ * CH; i += THREADS) {
+    const int r = i / CH, c = (i % CH) * 8;
+    const bool in = q0 + r < S;
+    cp_async16(sQ + r * RS + c, qp + (in ? q0 + r : 0) * a.q_ss + c, in);
   }
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) {
+    if (j0 + t < j1) load_kv(j0 + t, t);
+    cp_async_commit();
+  }
+
+  // ldmatrix addressing, in bytes of shared memory: lane l feeds row (l & 7)
+  // of 8x8 matrix l >> 3
+  const int lrow = lane & 7, lmat = lane >> 3;
+  constexpr int RB = 2 * RS;            // row stride in bytes
+  // Q (A, row-major): matrices (rows 0-7 | 8-15) x (k 0-7 | 8-15)
+  const unsigned qa = smem_addr(sQ) + (WR * warp + (lmat & 1) * 8 + lrow) *
+                      RB + (lmat >> 1) * 16;
+  // K (B, col): n = kv row, k = head column; matrices (n 0-7: k lo, k hi),
+  // (n 8-15: k lo, k hi)
+  const unsigned ka = smem_addr(sK) + ((lmat >> 1) * 8 + lrow) * RB +
+                      (lmat & 1) * 16;
+  // V (B via .trans): k = kv row, n = head column
+  const unsigned va = smem_addr(sV) + ((lmat & 1) * 8 + lrow) * RB +
+                      (lmat >> 1) * 16;
+
+  // this lane's accumulator rows (+ 16 mt, + 8 h) and first column
+  const int r0 = lane >> 2, c0 = 2 * (lane & 3);
+  const float sl2 = a.scale * 1.4426950408889634f;   // scale * log2(e)
+
+  unsigned qf[kQInRegs ? MT : 1][kQInRegs ? KS : 1][4];
+  float o[MT][NO][4];
+  float m[MT][2], l[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[mt][n][e] = 0.f;
+    m[mt][0] = m[mt][1] = kNegInf;
+    l[mt][0] = l[mt][1] = 0.f;
+  }
+
+  for (int j = j0; j < j1; ++j) {
+    const int it = j - j0;
+    cp_async_wait<STAGES - 2>();        // tile j (and q) has landed
+    __syncthreads();                    // ... for every thread; tile j - 1 is
+                                        // consumed, so its stage is free
+    if (j + STAGES - 1 < j1)
+      load_kv(j + STAGES - 1, (it + STAGES - 1) % STAGES);
+    cp_async_commit();
+    if constexpr (kQInRegs) {
+      if (it == 0) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int kk = 0; kk < KS; ++kk)
+            ldmatrix_x4(qf[mt][kk], qa + 16 * mt * RB + 32 * kk);
+      }
+    }
+    const int k0 = j * BKV;
+    // a tile wholly outside this warp's rows' band adds nothing
+    if ((a.causal && k0 > wq0 + WR - 1) ||
+        (a.window && k0 + BKV - 1 <= wq0 - a.window))
+      continue;
+    const unsigned stage = (it % STAGES) * BKV * RB;
+
+    // S = Q . K^T, fp32
+    float s[MT][NS][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[mt][n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      unsigned af[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        if constexpr (kQInRegs) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) af[mt][e] = qf[mt][kk][e];
+        } else {
+          ldmatrix_x4(af[mt], qa + 16 * mt * RB + 32 * kk);
+        }
+      }
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        unsigned bk[4];
+        ldmatrix_x4(bk, ka + stage + 16 * np * RB + 32 * kk);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma(s[mt][2 * np], af[mt], bk[0], bk[1]);
+          mma(s[mt][2 * np + 1], af[mt], bk[2], bk[3]);
+        }
+      }
+    }
+
+    // masks, only where the tile crosses the diagonal, the window's edge or
+    // the ragged tail
+    if (k0 + BKV > S || (a.causal && k0 + BKV - 1 > wq0) ||
+        (a.window && k0 <= wq0 + WR - 1 - a.window)) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int n = 0; n < NS; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kpos = k0 + 8 * n + c0 + (e & 1);
+            const int qpos = wq0 + 16 * mt + r0 + 8 * (e >> 1);
+            bool ok = kpos < S;
+            if (a.causal) ok = ok && kpos <= qpos;
+            if (a.window) ok = ok && kpos > qpos - a.window;
+            if (!ok) s[mt][n][e] = kNegInf;
+          }
+    }
+
+    // online softmax: rows r0 (e = 0, 1) and r0 + 8 (e = 2, 3) of each m
+    // tile; a row's max reduces over the 4 lanes that hold it
+    float corr[MT][2];
+    bool moved = false;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mx = kNegInf;
+#pragma unroll
+        for (int n = 0; n < NS; ++n)
+          mx = fmaxf(mx, fmaxf(s[mt][n][2 * h], s[mt][n][2 * h + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[mt][h], mx);
+        corr[mt][h] = exp2f((m[mt][h] - m_new) * sl2);
+        moved = moved || m_new != m[mt][h];
+        const float mb = m_new * sl2;
+        m[mt][h] = m_new;
+        l[mt][h] *= corr[mt][h];
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {
+          s[mt][n][2 * h] = exp2f(fmaf(s[mt][n][2 * h], sl2, -mb));
+          s[mt][n][2 * h + 1] = exp2f(fmaf(s[mt][n][2 * h + 1], sl2, -mb));
+          l[mt][h] += s[mt][n][2 * h] + s[mt][n][2 * h + 1];
+        }
+      }
+    // rescale O only when some row of the warp raised its max (corr is
+    // exactly 1 otherwise)
+    if (__any_sync(0xffffffffu, moved)) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int n = 0; n < NO; ++n) {
+          o[mt][n][0] *= corr[mt][0];
+          o[mt][n][1] *= corr[mt][0];
+          o[mt][n][2] *= corr[mt][1];
+          o[mt][n][3] *= corr[mt][1];
+        }
+    }
+
+    // O += P . V, P split into bf16 hi and lo parts straight from the score
+    // registers (the C layout of m16n8k16 is its A layout): two products
+    // per V fragment
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) {
+      unsigned ph[MT][4], pl[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        split_bf16(s[mt][2 * kk][0], s[mt][2 * kk][1], ph[mt][0], pl[mt][0]);
+        split_bf16(s[mt][2 * kk][2], s[mt][2 * kk][3], ph[mt][1], pl[mt][1]);
+        split_bf16(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1], ph[mt][2],
+                   pl[mt][2]);
+        split_bf16(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3], ph[mt][3],
+                   pl[mt][3]);
+      }
+#pragma unroll
+      for (int np = 0; np < NO / 2; ++np) {
+        unsigned bv[4];
+        ldmatrix_x4_trans(bv, va + stage + 16 * kk * RB + 32 * np);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma(o[mt][2 * np], ph[mt], bv[0], bv[1]);
+          mma(o[mt][2 * np + 1], ph[mt], bv[2], bv[3]);
+          mma(o[mt][2 * np], pl[mt], bv[0], bv[1]);
+          mma(o[mt][2 * np + 1], pl[mt], bv[2], bv[3]);
+        }
+      }
+    }
+  }
+
+  // epilogue: the row sums over the 4 lanes of a row, divide, round, store
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float lr = l[mt][h];
+      lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+      lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+      const int qpos = wq0 + 16 * mt + r0 + 8 * h;
+      if (qpos >= S) continue;
+      const float inv = 1.f / fmaxf(lr, 1e-30f);
+      bf16* orow = op + (long long)qpos * a.o_ss + c0;
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) =
+            __floats2bfloat162_rn(o[mt][n][2 * h] * inv,
+                                  o[mt][n][2 * h + 1] * inv);
+    }
+}
+
+template <int HD>
+cudaError_t launch(const FlashArgs& a, int G, int BK, cudaStream_t st) {
+  using C = Cfg<HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bf16_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)C::SMEM);
+  if (err != cudaSuccess) return err;
+  const int n_q = (a.S + kBQ - 1) / kBQ;
+  flash_bf16_mma_kernel<HD><<<dim3(n_q, G, BK), C::THREADS, C::SMEM, st>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
+template <int HD>
+cudaError_t launch_hd(const FlashArgs& a, int dtype, int G, int BK,
+                      cudaStream_t st) {
+  if (dtype == 0) return f32::launch<HD>(a, G, BK, st);
+  if (dtype == 1) return tc::launch<HD>(a, G, BK, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -328,8 +703,8 @@ const char* flash_attention_error_string(int err) {
 
 // q, o: (B, K, G, S, hd) and k, v: (B, K, S, hd) addressed through the 14
 // element strides in `st` (q b,k,g,s; k b,k,s; v b,k,s; o b,k,g,s); head_dim
-// contiguous. dtype 0 = float32, 1 = bfloat16. Launches on `stream` and
-// returns cudaGetLastError().
+// contiguous. dtype 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).
+// Launches on `stream` and returns cudaGetLastError().
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, const long long* st, int B, int K, int G,
                            int S, int hd, int causal, int window, float scale,
@@ -341,12 +716,16 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   a.v_sb = st[7]; a.v_sk = st[8]; a.v_ss = st[9];
   a.o_sb = st[10]; a.o_sk = st[11]; a.o_sg = st[12]; a.o_ss = st[13];
   a.K = K; a.S = S; a.causal = causal; a.window = window; a.scale = scale;
-  const int n_q = (S + kBQ - 1) / kBQ;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == 0) err = launch_t<float>(a, hd, n_q, G, B * K, s);
-  else if (dtype == 1) err = launch_t<__nv_bfloat16>(a, hd, n_q, G, B * K, s);
-  else err = cudaErrorInvalidValue;
+  switch (hd) {
+    case 16: err = launch_hd<16>(a, dtype, G, B * K, s); break;
+    case 64: err = launch_hd<64>(a, dtype, G, B * K, s); break;
+    case 112: err = launch_hd<112>(a, dtype, G, B * K, s); break;
+    case 128: err = launch_hd<128>(a, dtype, G, B * K, s); break;
+    case 256: err = launch_hd<256>(a, dtype, G, B * K, s); break;
+    default: err = cudaErrorInvalidValue;
+  }
   return static_cast<int>(err);
 }
 

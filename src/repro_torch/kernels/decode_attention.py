@@ -6,8 +6,10 @@ of the Pallas kernel ``repro/kernels/decode_attention.py::_decode_kernel``:
 every query head of a kv head attends over the cache slots
 ``[0, valid_len)``, with fp32 running max, sum and accumulator; slots at or
 past ``valid_len`` are neither read nor counted. It splits each
-(batch, kv head) row's live slots over a cluster of 8 blocks and combines
-their partial softmax states on chip, in the same launch.
+(batch, kv head) row's live slots over a cluster of up to 8 blocks
+(``decode_split`` picks how many, and how many slots each takes), stages
+each block's keys and values through a ring of shared-memory tiles, and
+combines the blocks' partial softmax states on chip, in the same launch.
 ``decode_attention_plain`` is the same function in plain PyTorch, after
 ``repro/kernels/ref.py::decode_attention_ref``.
 
@@ -26,13 +28,29 @@ take. Its ``launches`` attribute counts kernel launches (one per call).
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from .flash_attention import (DTYPE_CODES, HEAD_DIMS, NEG_INF,
                               check_operand)
 
-__all__ = ["decode_attention_folded", "decode_attention_plain"]
+__all__ = ["decode_attention_folded", "decode_attention_plain",
+           "decode_split"]
+
+#: blocks per (batch, kv head) row at most: the portable cluster size
+MAX_SPLIT = 8
+#: blocks a launch aims at: one and a half for each of the H100's 132 SMs
+#: (blocks of 8 warps, two fit an SM). Measured on an H100 over 1 to 8
+#: splits (``chip_smoke.py``'s time-attn): fewer, longer blocks beat more
+#: waves of short ones, 3 splits at qwen3-0.6b's 64 rows and 1 at
+#: zamba2-7b's 256
+TARGET_BLOCKS = 3 * 132 // 2
+#: query heads a block serves at most (more go to further blocks)
+MAX_GROUP = 4
+#: slots a block's range is a multiple of: a multiple of every shared-memory
+#: tile the kernel stages (64, 32 or 16 slots, by head_dim and dtype)
+GRANULE = 64
 
 
 def _split(q, k, v):
@@ -61,6 +79,21 @@ def _valid(valid_len, C: int) -> int:
     return n
 
 
+def decode_split(rows: int, valid: int, splits: Optional[int] = None):
+    """``(splits, chunk)`` for ``rows`` (batch, kv head, head group) rows of
+    ``valid`` live slots: block r of a row's ``splits`` takes slots
+    ``[r * chunk, min((r + 1) * chunk, valid))``, a whole number of
+    ``GRANULE``-slot granules. ``splits`` (unless given) keeps the grid
+    within ``TARGET_BLOCKS``, at most ``MAX_SPLIT`` and no more than the
+    row's granules; a block may still be empty (``r * chunk >= valid``)."""
+    n = -(-valid // GRANULE)
+    if splits is None:
+        splits = max(1, min(MAX_SPLIT, n, TARGET_BLOCKS // rows))
+    if not 1 <= splits <= MAX_SPLIT:
+        raise ValueError(f"splits must be in [1, {MAX_SPLIT}], got {splits}")
+    return splits, -(-n // splits) * GRANULE
+
+
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            valid_len) -> torch.Tensor:
     """The kernel's function in plain PyTorch: fp32 scores over every
@@ -77,20 +110,22 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def decode_attention_folded(q: torch.Tensor, k: torch.Tensor,
-                            v: torch.Tensor, valid_len) -> torch.Tensor:
+                            v: torch.Tensor, valid_len, *,
+                            splits: Optional[int] = None) -> torch.Tensor:
     """Decode attention over the folded (or row-split) layout: the plain
-    version on the CPU, the kernel on CUDA (or it raises)."""
+    version on the CPU, the kernel on CUDA (or it raises). ``splits``
+    overrides the kernel's blocks per row (``decode_split``)."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, valid_len)
     if q.device.type != "cuda":
         raise ValueError(f"no decode attention for tensors on {q.device}")
-    return _launch(q, k, v, valid_len)
+    return _launch(q, k, v, valid_len, splits)
 
 
 decode_attention_folded.launches = 0
 
 
-def _launch(q, k, v, valid_len):
+def _launch(q, k, v, valid_len, splits):
     q4, k4, v4 = _split(q, k, v)
     B, K, G, hd = q4.shape
     n = _valid(valid_len, k4.shape[2])
@@ -99,6 +134,8 @@ def _launch(q, k, v, valid_len):
                          f"{HEAD_DIMS}")
     if B * K > 65535:
         raise ValueError(f"grid too large: B*K {B * K}")
+    groups = -(-G // (G if G <= 2 else MAX_GROUP))  # the kernel's head groups
+    splits, chunk = decode_split(B * K * groups, n, splits)
     for name, t in (("q", q4), ("k", k4), ("v", v4)):
         check_operand(name, t, q4)
     o = torch.empty_like(q4)
@@ -110,7 +147,7 @@ def _launch(q, k, v, valid_len):
     decode_attention_folded.launches += 1
     err = lib.decode_attention_launch(
         q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o.data_ptr(), st, B, K,
-        G, hd, n, hd ** -0.5, DTYPE_CODES[q.dtype], stream)
+        G, hd, n, splits, chunk, hd ** -0.5, DTYPE_CODES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(
             "decode_attention kernel launch failed: "
@@ -128,7 +165,7 @@ def _lib():
         lib = load("decode_attention")
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.decode_attention_launch.argtypes = (
-            [vp] * 4 + [ctypes.POINTER(ctypes.c_longlong)] + [ci] * 5
+            [vp] * 4 + [ctypes.POINTER(ctypes.c_longlong)] + [ci] * 7
             + [ctypes.c_float, ci, vp])
         lib.decode_attention_launch.restype = ci
         lib.decode_attention_error_string.argtypes = [ci]

@@ -4,7 +4,11 @@ CUDA kernel's wrapper and its plain PyTorch version.
 The hand-written Hopper kernel (``csrc/flash_attention.cu``) is the port
 of the Pallas kernel ``repro/kernels/flash_attention.py::_flash_kernel``:
 an online softmax with fp32 running max, sum and accumulator over the kv
-tiles that meet each query tile's causal / window band.
+tiles that meet each query tile's causal / window band. It has two routes
+behind one entry point, by dtype: bfloat16 (the served models) on the
+tensor cores (``mma.sync`` with fp32 accumulators, the weights entering
+P·V as two bf16 parts so they keep fp32 precision), checked at 2e-2;
+float32 on the CUDA cores (scalar fp32 FMAs, no TF32), checked at 2e-5.
 ``flash_attention_plain`` is the same function in plain PyTorch, with the
 masks and fp32 math of ``repro/kernels/ref.py::flash_attention_ref``; the
 CPU path and the checks on the card use it.

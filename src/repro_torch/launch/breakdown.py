@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import time
 from pathlib import Path
@@ -39,11 +40,13 @@ from .serve import Server
 
 #: the served batch: 8 prompts of 2048 tokens, 32 new tokens each
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 2048, 32
-#: each kernel's device symbol and the dispatch that counts its launches
+#: each kernel's device symbols (a regular expression) and the dispatch that
+#: counts its launches; B3 has a bf16 tensor-core and a float32 kernel
 KERNELS = {
     "replay": ("schedule_replay_kernel", schedule_sim.schedule_replay),
     "traffic": ("traffic_replay_kernel", traffic_sim.traffic_replay),
-    "flash": ("flash_kernel", flash_attention.flash_attention_folded),
+    "flash": (r"flash_(bf16_mma|f32)_kernel",
+              flash_attention.flash_attention_folded),
     "decode": ("decode_kernel", decode_attention.decode_attention_folded),
     "ssd": ("ssd_kernel", ssd_scan.ssd_intra_folded),
 }
@@ -73,7 +76,8 @@ def profile(tag: str, solve: Callable[[], object],
     busy_ms = sum(ms for _, ms in kernels.values())
 
     def by_name(name):
-        hits = [(c, ms) for k, (c, ms) in kernels.items() if name in k]
+        hits = [(c, ms) for k, (c, ms) in kernels.items()
+                if re.search(name, k)]
         n, ms = sum(c for c, _ in hits), sum(ms for _, ms in hits)
         return ms, ms / n if n else None
 

@@ -8,6 +8,14 @@ Inputs are drawn with numpy and handed to both packages; bfloat16 inputs
 round the same float32 values in both. Tolerances are the reference's
 kernel tests': 2e-5 in float32 (sums in another order), 2e-2 in bfloat16
 (both sides round their float32 result to bfloat16).
+
+Two test-only emulations follow the CUDA kernels' own numerics, which the
+CPU cannot run: the tensor-core bfloat16 B3 (fp32 scores of bf16 inputs,
+the scale folded into exp2, P·V over the bf16 hi and lo parts of each
+weight, over the kernel's kv tiles) against the reference's Pallas
+kernel, and B4's split-and-combine (partial softmax states per block of
+``decode_split``, merged as the cluster merges them) against
+``decode_attention_plain``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +24,8 @@ import torch
 
 from repro.kernels import ops as ref_ops
 from repro.kernels import ref
+from repro.kernels.flash_attention import \
+    flash_attention_folded as ref_flash_folded
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
@@ -122,6 +132,75 @@ def test_operand_check_takes_the_model_layout_views():
         fa.check_operand("q", q.half(), q)
 
 
+def _b3_tensor_core_emulation(q, k, v, *, causal, window):
+    """What the bfloat16 B3 kernel computes, in float32 torch ops on the
+    CPU: q (BK, G, S, hd), k, v (BK, S, hd) bf16 -> bf16. Scores are fp32
+    sums of exact bf16 products; the scale, folded with log2(e), enters at
+    exp2 as in the kernel; each kv tile's weights enter P·V as two bf16
+    parts, hi = bf16(p) and lo = bf16(p - hi), and l sums the fp32 weights;
+    o = acc / max(l, 1e-30). Every kv tile is visited: a tile outside a
+    row's band adds exactly nothing (a wholly masked first tile's weights
+    are wiped by corr = 0), which is why the kernel may skip it."""
+    bk, g, s, hd = q.shape
+    bkv = 64 if hd <= 112 else 32                  # the kernel's kv tile
+    sl2 = torch.tensor(np.float32(hd ** -0.5) * np.float32(1.4426950408889634))
+    qf, kf, vf = q.float(), k.float(), v.float()
+    qpos = torch.arange(s)[:, None]
+    m = torch.full((bk, g, s), fa.NEG_INF)
+    l = torch.zeros((bk, g, s))
+    acc = torch.zeros((bk, g, s, hd))
+    for k0 in range(0, s, bkv):
+        kt, vt = kf[:, k0:k0 + bkv], vf[:, k0:k0 + bkv]
+        sc = torch.einsum("bgqd,bcd->bgqc", qf, kt)
+        kpos = torch.arange(k0, k0 + kt.shape[1])[None, :]
+        ok = torch.ones((s, kt.shape[1]), dtype=torch.bool)
+        if causal:
+            ok &= kpos <= qpos
+        if window:
+            ok &= kpos > qpos - window
+        sc = torch.where(ok, sc, fa.NEG_INF)
+        m_new = torch.maximum(m, sc.amax(-1))
+        corr = torch.exp2((m - m_new) * sl2)
+        p = torch.exp2(sc * sl2 - (m_new * sl2)[..., None])
+        hi = p.to(torch.bfloat16).float()
+        lo = (p - hi).to(torch.bfloat16).float()
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + (torch.einsum("bgqc,bcd->bgqd", hi, vt)
+                                       + torch.einsum("bgqc,bcd->bgqd", lo,
+                                                      vt))
+        m = m_new
+    return (acc / l.clamp_min(1e-30)[..., None]).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("b,s,kh,g,hd", [
+    (1, 64, 1, 1, 64),       # the reference's sweep
+    (2, 128, 2, 2, 64),
+    (1, 300, 1, 4, 64),
+    (2, 257, 2, 1, 128),     # 32-row kv tiles
+    (1, 512, 4, 2, 64),
+    (2, 200, 2, 1, 112),     # zamba2's head_dim: 7 k-steps, 14 n-tiles
+    (1, 100, 2, 3, 256),     # 16-row warps
+])
+@pytest.mark.parametrize("window", [0, 64])
+def test_tensor_core_flash_numerics_match_reference(b, s, kh, g, hd, window):
+    """The bf16 B3's rounding points stay within the bf16 tolerance of the
+    reference's Pallas kernel (interpret mode) on the same inputs."""
+    rng = np.random.default_rng(7 * b + s + hd + window)
+    x = [rng.standard_normal(sh).astype(np.float32) for sh in
+         ((b * kh, g, s, hd), (b * kh, s, hd), (b * kh, s, hd))]
+    q, k, v = (torch.from_numpy(t).to(torch.bfloat16) for t in x)
+    got = _b3_tensor_core_emulation(q, k, v, causal=True, window=window)
+    want = np.asarray(ref_flash_folded(
+        *(jnp.asarray(t, jnp.bfloat16) for t in x), causal=True,
+        window=window, interpret=True), np.float32)
+    tol = DTYPES["bfloat16"][2]
+    err = np.abs(got.float().numpy() - want)
+    margin = float((err / (tol + tol * np.abs(want))).max())
+    print(f"B3 bf16 emulation {(b, s, kh, g, hd)} window {window}: max_abs_err "
+          f"{err.max():.3g}, worst error / (tol + tol |ref|) {margin:.3f}")
+    assert np.isfinite(got.float().numpy()).all() and margin <= 1.0
+
+
 # ---------------------------------------------------------------------------
 # B4: flash decode
 # ---------------------------------------------------------------------------
@@ -189,3 +268,94 @@ def test_decode_attention_refuses_bad_valid_len(valid):
     k = torch.zeros(1, 40, 1, 16)
     with pytest.raises(ValueError):
         ops.decode_attention(q, k, k, valid)
+
+
+def _b4_split_emulation(q, k, v, valid, splits, chunk, tile):
+    """B4's split-and-combine in float32: block r of ``splits`` walks slots
+    [r * chunk, min((r + 1) * chunk, valid)) in ``tile``-slot tiles with an
+    online softmax (q scaled first, as the kernel stages it); the blocks'
+    (m, l, acc) merge with weights exp(m_r - max m), an empty block holding
+    (NEG_INF, 0, 0). q (BK, G, hd), k, v (BK, C, hd)."""
+    hd = q.shape[-1]
+    qs = q * np.float32(hd ** -0.5)
+    parts = []
+    for r in range(splits):
+        c0 = min(r * chunk, valid)
+        c1 = min(c0 + chunk, valid)
+        m = torch.full(q.shape[:2], fa.NEG_INF)
+        l = torch.zeros(q.shape[:2])
+        acc = torch.zeros(q.shape)
+        for base in range(c0, c1, tile):
+            kt, vt = k[:, base:min(base + tile, c1)], v[:, base:min(base + tile,
+                                                                    c1)]
+            sc = torch.einsum("bgd,bcd->bgc", qs, kt)
+            m_new = torch.maximum(m, sc.amax(-1))
+            corr = torch.exp(m - m_new)
+            p = torch.exp(sc - m_new[..., None])
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum("bgc,bcd->bgd", p, vt)
+            m = m_new
+        parts.append((m, l, acc))
+    mx = torch.stack([m for m, _, _ in parts]).amax(0)
+    f = [torch.exp(m - mx) for m, _, _ in parts]
+    num = sum(fi[..., None] * acc for fi, (_, _, acc) in zip(f, parts))
+    den = sum(fi * l for fi, (_, l, _) in zip(f, parts))
+    return num / den.clamp_min(1e-30)[..., None]
+
+
+@pytest.mark.parametrize("bk,c,g,hd,valid,splits,tile", [
+    (2, 2080, 2, 128, 2048, None, 32),   # qwen3's rows at the serving length
+    (2, 2080, 1, 112, 2048, None, 32),   # zamba2's head_dim
+    (1, 600, 1, 128, 520, None, 32),     # 8 blocks, the last ones empty
+    (2, 100, 3, 64, 1, 8, 64),           # valid 1 over 8 blocks: 7 empty
+    (1, 300, 2, 16, 77, 3, 64),
+    (1, 64, 4, 256, 64, None, 16),
+])
+def test_decode_split_and_combine_equals_plain(bk, c, g, hd, valid, splits,
+                                               tile):
+    """B4's partial states per block, merged as the cluster merges them,
+    equal the plain version in float32, empty blocks included (``tile``:
+    the kernel's float32 slot tile at that head_dim)."""
+    rng = np.random.default_rng(bk + c + valid)
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+               for sh in ((bk, g, hd), (bk, c, hd), (bk, c, hd)))
+    n, chunk = da.decode_split(bk, valid, splits)
+    got = _b4_split_emulation(q, k, v, valid, n, chunk, tile)
+    want = da.decode_attention_plain(q, k, v, valid)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("rows,valid", [
+    (64, 2048),                      # qwen3-0.6b serving
+    (256, 2048),                     # zamba2-7b serving
+    (64, 2080),                      # a full cache
+    (1, 520),
+    *[(r, v) for r in (1, 8, 64) for v in (1, 2, 7, 63, 64, 65, 300, 511,
+                                           513)],
+])
+def test_decode_split_covers_every_live_slot_once(rows, valid):
+    """Every live slot lands in exactly one block, every block starts on a
+    granule (so on a kernel tile), at most 8 blocks per row (one cluster),
+    and block 0 is never empty."""
+    splits, chunk = da.decode_split(rows, valid)
+    assert 1 <= splits <= da.MAX_SPLIT and chunk % da.GRANULE == 0
+    seen = np.zeros(valid, int)
+    for r in range(splits):
+        c0 = min(r * chunk, valid)
+        seen[c0:min(c0 + chunk, valid)] += 1
+    assert (seen == 1).all() and min(chunk, valid) >= 1
+
+
+def test_decode_split_takes_a_forced_count_and_refuses_a_bad_one():
+    assert da.decode_split(64, 2048, 8) == (8, 256)
+    assert da.decode_split(1, 1, 8) == (8, 64)    # 7 empty blocks
+    for bad in (0, 9):
+        with pytest.raises(ValueError):
+            da.decode_split(64, 2048, bad)
+
+
+def test_decode_split_at_the_serving_shapes():
+    """qwen3-0.6b's 64 rows take 3 blocks of 11 granules; zamba2-7b's 256
+    rows one block each (2048 live slots)."""
+    assert da.decode_split(64, 2048) == (3, 704)
+    assert da.decode_split(256, 2048) == (1, 2048)

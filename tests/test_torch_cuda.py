@@ -182,6 +182,11 @@ def _randn(shape, dtype, device, seed):
     (1, 130, 1, 2, 128, False, 0),     # bidirectional
     (2, 300, 4, 1, 112, True, 0),      # zamba2's head_dim
     (1, 200, 2, 2, 112, True, 64),
+    (8, 2048, 8, 2, 128, True, 0),     # qwen3-0.6b's serving prefill
+    (8, 2048, 32, 1, 112, True, 0),    # zamba2-7b's serving prefill
+    # rows 191.. of the second q tile see nothing of their first kv tile
+    (1, 512, 2, 2, 64, True, 64),
+    (1, 700, 1, 2, 128, False, 100),   # bidirectional with a window
 ])
 def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, b, s, kh, g,
                                             hd, causal, window):
@@ -211,8 +216,18 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, b, s, kh, g,
     (2, 2080, 8, 2, 128, 2048),        # qwen3's serving cache
     (1, 64, 2, 3, 16, 64),             # full cache, G not a power of two
     (1, 300, 1, 1, 256, 77),
-    (2, 2080, 4, 1, 112, 2049),        # zamba2's head_dim: 28 lanes of 4
+    (2, 2080, 4, 1, 112, 2049),        # zamba2's head_dim
     (1, 100, 2, 3, 112, 1),
+    # qwen3-0.6b's serving cache at valid 1, 7, one tile, one split of the
+    # serving length (256 of 2048 over 8 blocks) and the whole cache
+    (8, 2080, 8, 2, 128, 1),
+    (8, 2080, 8, 2, 128, 7),
+    (8, 2080, 8, 2, 128, 64),
+    (8, 2080, 8, 2, 128, 256),
+    (8, 2080, 8, 2, 128, 2080),
+    (8, 2080, 32, 1, 112, 2048),       # zamba2-7b's serving cache
+    (1, 600, 1, 1, 128, 520),          # 8 blocks, the last ones empty
+    (1, 600, 1, 6, 64, 599),           # G 6: two head groups of 4
 ])
 def test_decode_kernel_matches_plain_on_card(cuda_device, dtype, b, c, kh,
                                              g, hd, valid):
@@ -229,6 +244,27 @@ def test_decode_kernel_matches_plain_on_card(cuda_device, dtype, b, c, kh,
     assert da.decode_attention_folded.launches == before + 1
     want = da.decode_attention_plain(q, k.permute(0, 2, 1, 3),
                                      v.permute(0, 2, 1, 3), valid)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("valid,splits", [(1, 8), (7, 8), (200, 8),
+                                          (200, 1), (300, 5)])
+def test_decode_kernel_forced_splits_match_plain(cuda_device, dtype, valid,
+                                                 splits):
+    """B4 forced to ``splits`` blocks per row: blocks past valid_len are
+    empty and add nothing to the cluster's combine."""
+    q = _randn((2, 2, 3, 128), dtype, cuda_device, 7)
+    k = _randn((2, 300, 2, 128), dtype, cuda_device, 8)
+    v = _randn((2, 300, 2, 128), dtype, cuda_device, 9)
+    k[:, valid:] = 1e9
+    v[:, valid:] = -1e9
+    ks, vs = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+    got = da.decode_attention_folded(q, ks, vs, valid, splits=splits)
+    torch.cuda.synchronize()
+    want = da.decode_attention_plain(q, ks, vs, valid)
     tol = ATTN_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
