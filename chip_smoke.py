@@ -14,14 +14,18 @@ result line):
                tensors, for seeded random swarms. B1 (zero-load replay):
                resnet101 on the paper fleet (both fidelity modes), the
                paper's Fig. 8 problem (30 resnet101 copies, 10,140
-               layers), one fleet bucket of 8 zoo DNNs; ``feasible``
-               exact, costs rtol 1e-5. B2 (traffic replay), both modes:
+               layers), one fleet bucket of 8 zoo DNNs, a bucket whose
+               parents reach beyond the walk's ring of end times (both
+               modes, 129 particles); ``feasible`` exact, costs rtol 1e-5. B2 (traffic replay), both modes:
                the qwen3-0.6b traffic bucket, an alexnet + googlenet fleet
                bucket under each of the four arrival families (one app
                with no request at all), resnet101; ``static_ok`` and miss
                rates exact, costs, latency sums and latencies rtol 1e-5;
-  3. time    — each kernel and its plain version: B1 at the Fig. 8 shape,
-               B2 at the qwen3-0.6b traffic bucket and at resnet101;
+  3. time    — each kernel and its plain version: B1 at the qwen3-0.6b
+               plan bucket and the Fig. 8 shape (calls queued behind a device
+               sleep, five rounds, medians), beside its bytes bound and the
+               chain bound of its walk; B2 at the qwen3-0.6b traffic bucket
+               and at resnet101;
   4. plan    — the main path: ``plan_offload_batch`` for qwen3-0.6b's
                serving shapes, as ``python -m repro_torch.launch.plan``;
   5. traffic — the same plan under bursty traffic (``--traffic bursty``):
@@ -87,7 +91,8 @@ result line):
                against the prefill of the longer prompt (2e-3);
  16. time-ssd — B5 per launch at mamba2-2.7b's and zamba2-7b's serving
                shapes, timed as in 11 (no single PyTorch call computes it, so
-               no library yardstick), beside its plain version and bound.
+               no library yardstick), beside its plain version, the bound of
+               its 3xTF32 tensor-core route and the float32 CUDA-core bound.
 
 Kernel launch counters are zeroed just before each solve path and each
 counted serve call and read just after; every solve's plans are replayed
@@ -132,6 +137,19 @@ SLEEP_CYCLES = 50_000_000
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 #: B5 vs its plain version: the reference kernel test's float32 tolerance
 SSD_TOL = 1e-4
+#: H100 SXM dense TF32 tensor-core peak (NVIDIA data sheet): B5's route runs
+#: three TF32 products (3xTF32) for every float32 one
+TF32_OPS_PER_S = 494.7e12
+#: B1's walk, corrected mode (csrc/schedule_sim.cu): from one step's end to
+#: the next step's, the dependent chain is an add (the parent's end + tt),
+#: two maxes (the gate, then against the lease) and an add (+ exe); the
+#: previous end and the next lease sit in registers, and the ring's and the
+#: lease's shared-memory loads are issued a step ahead, off the chain. The
+#: latency of a dependent FP32 add or max is assumed ~4 cycles, the size
+#: that microbenchmarks of Hopper report (Luo et al., "Benchmarking and
+#: Dissecting the Nvidia Hopper GPU Architecture", 2024)
+FP32_OP_CYCLES = 4
+CHAIN_CYCLES = 4 * FP32_OP_CYCLES
 
 
 def _phase(name, fn, failures, *args):
@@ -165,27 +183,43 @@ def random_swarm(rng, prob, P, max_p):
     return X
 
 
-def bound_ms(pp, P, faithful):
-    """Least time for one replay of P particles on ``pp`` (one problem):
-    the larger of bytes moved over HBM bandwidth and f32 operations over
-    the non-tensor f32 peak, counted from this problem's real layers and
-    edges."""
-    L = int((pp.order >= 0).sum())
-    E = int((pp.parent_idx >= 0).sum())
-    S, A = pp.max_servers, int(pp.deadline.shape[-1])
-    max_p, max_in, max_out = pp.max_layers, pp.parent_idx.shape[-1], \
-        pp.child_idx.shape[-1]
-    nbytes = (P * max_p * 4                          # genes
-              + max_p * 4 * 4                        # order/compute/app/pin
-              + max_p * (max_in + max_out) * 8       # relatives, MBs
-              + A * 4 + S * 8 + S * S * 9            # deadline, servers
-              + P * 9)                               # outputs
+def bound_ms(ppb, P, faithful):
+    """Least time for one replay of P particles per problem of the stacked
+    ``ppb``: the larger of bytes moved over HBM bandwidth and f32
+    operations over the non-tensor f32 peak, counted from the problems'
+    real layers and edges."""
+    N, max_p = ppb.order.shape
+    L = int((ppb.order >= 0).sum())
+    E = int((ppb.parent_idx >= 0).sum())
+    S, A = ppb.max_servers, int(ppb.deadline.shape[-1])
+    max_in, max_out = ppb.parent_idx.shape[-1], ppb.child_idx.shape[-1]
+    nbytes = N * (P * max_p * 4                      # genes
+                  + max_p * 4 * 4                    # order/compute/app/pin
+                  + max_p * (max_in + max_out) * 8   # relatives, MBs
+                  + A * 4 + S * 8 + S * S * 9        # deadline, servers
+                  + P * 9)                           # outputs
     per_edge = 4 if faithful else 6                  # tt, max, [end+tt, gate],
     #                                                  tran*mb, sum
-    ops = P * (L * 9 + E * (per_edge + 2) + 3 * S + 2 * A + 1)
+    ops = P * (L * 9 + E * (per_edge + 2) + N * (3 * S + 2 * A + 1))
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def chain_bound_ms(ppb, sm_mhz):
+    """Least time of B1's walk as a chain: the longest problem's real steps
+    times ``CHAIN_CYCLES`` at the SM clock ``sm_mhz`` (the problems and
+    particles run side by side)."""
+    steps = int((ppb.order >= 0).sum(-1).max())
+    return 1e3 * steps * CHAIN_CYCLES / (sm_mhz * 1e6)
+
+
+def smi_field(field):
+    """One ``nvidia-smi --query-gpu`` field of card 0, as printed."""
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={field}",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.stdout.strip() else ""
 
 
 def traffic_bound_ms(ppb, tin, P, faithful):
@@ -336,6 +370,13 @@ def main() -> int:
             for pr in probs]), device=dev)
         return ppb, X
 
+    def fig8_bucket():
+        """The Fig. 8 problem with a seeded swarm of 100 particles."""
+        ppb = port.stack_problems([port.pad_problem(fig8_prob, device=dev)])
+        X = torch.as_tensor(random_swarm(rng, fig8_prob, 100,
+                                         fig8_prob.num_layers), device=dev)
+        return ppb, X[None]
+
     def compare(tag, ppb, X, faithful):
         got = b1(*kernel_args(ppb), X, faithful=faithful)
         torch.cuda.synchronize()
@@ -355,6 +396,28 @@ def main() -> int:
         assert same_feas, f"{tag}: feasible differs"
         assert max(rels) <= RTOL, f"{tag}: costs differ beyond rtol {RTOL}"
         assert all(torch.isfinite(t).all() for t in got[::2]), tag
+
+    def deep_bucket():
+        """Parents beyond B1's ring of end times: a 300-layer chain with skip
+        edges up to 250 steps back and a 150-layer random DAG (parents drawn
+        from every earlier layer), beside googlenet, in one bucket."""
+        n, m = 300, 150
+        edges = [(j, j + 1) for j in range(n - 1)] + [
+            (0, 250), (5, 105), (40, 73), (100, 299)]
+        redges = [(int(u), j) for j in range(1, m)
+                  for u in rng.choice(j, size=min(j, 3), replace=False)]
+        dags = [port.LayerDAG(
+            compute=rng.uniform(0.1, 3.0, k), edges=np.asarray(e, np.int32),
+            edge_mb=rng.uniform(0.05, 2.0, len(e)), app_id=app,
+            deadline=dl, pinned=pin)
+            for k, e, app, dl, pin in (
+                (n, edges, np.zeros(n, np.int32), np.array([1e4]),
+                 np.r_[0, np.full(n - 1, -1)].astype(np.int32)),
+                (m, redges, (np.arange(m) >= 70).astype(np.int32),
+                 np.array([1e3, 2e3]), np.full(m, -1, np.int32)))]
+        probs = [port.SimProblem.build(d, env) for d in
+                 dags + [port.zoo.build("googlenet", pin_server=1)]]
+        return probs, port.pack_problems(probs, device=dev)
 
     traffic_cfg = port.TrafficConfig(kind="bursty", rate=0.5)
 
@@ -498,11 +561,7 @@ def main() -> int:
         for faithful in (True, False):
             compare(f"resnet101 faithful={faithful}",
                     port.stack_problems([pp]), X[None], faithful)
-        pp8 = port.pad_problem(fig8_prob, device=dev)
-        X8 = torch.as_tensor(random_swarm(rng, fig8_prob, 100,
-                                          fig8_prob.num_layers), device=dev)
-        compare("fig8 corrected", port.stack_problems([pp8]), X8[None],
-                False)
+        compare("fig8 corrected", *fig8_bucket(), False)
         fleet = []
         for i, net in enumerate(port.zoo.NAMES * 2):
             d = port.zoo.build(net, pin_server=i)
@@ -515,6 +574,18 @@ def main() -> int:
             device=dev)
         for faithful in (True, False):
             compare(f"fleet bucket of 8 faithful={faithful}", ppb, Xb,
+                    faithful)
+        probs, ppb = deep_bucket()
+        meta = schedule_sim.step_tables(ppb.order, ppb.parent_idx,
+                                        ppb.app_id)
+        far = int((meta[..., 1:] > schedule_sim.RING).sum())
+        assert far > 0, "the deep bucket must read beyond the ring"
+        Xb = torch.as_tensor(np.stack([
+            random_swarm(rng, pr, 129, ppb.max_layers) for pr in probs]),
+            device=dev)
+        for faithful in (True, False):
+            compare(f"deep bucket, {far} parent reads beyond the ring of "
+                    f"{schedule_sim.RING}, faithful={faithful}", ppb, Xb,
                     faithful)
         check_traffic()
     _phase("check", check, failures)
@@ -535,27 +606,56 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(stop) / reps
 
+    def queued_ms(fn, reps):
+        """Device ms per call of ``fn`` over ``reps`` calls queued behind a
+        device sleep, after a warm-up: the host's cost of each call (the
+        wrapper's checks, ctypes) overlaps the sleep, not the timed
+        stretch. Also the host's ms per call, and whether every call was
+        queued before the sleep ended (else the time holds host gaps)."""
+        fn()
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host = 1e3 * (time.perf_counter() - t0)
+        ev[2].record()
+        torch.cuda.synchronize()
+        return (ev[1].elapsed_time(ev[2]) / reps, host / reps,
+                host < ev[0].elapsed_time(ev[1]))
+
     def time_kernel():
-        ppb, X = plan_bucket()
-        args = kernel_args(ppb)
-        kernel = cuda_ms(lambda: b1(*args, X, faithful=False), 50)
-        plain = cuda_ms(lambda: schedule_sim.schedule_replay_plain(
-            *args, X, faithful=False), 5)
-        print(f"[time] qwen3-0.6b plan bucket X {tuple(X.shape)} corrected: "
-              f"kernel {kernel:.4f} ms  plain {plain:.2f} ms", flush=True)
-        ppb = port.stack_problems([port.pad_problem(fig8_prob, device=dev)])
-        X = torch.as_tensor(random_swarm(rng, fig8_prob, 100,
-                                         fig8_prob.num_layers),
-                            device=dev)[None]
-        args = kernel_args(ppb)
-        kernel = cuda_ms(lambda: b1(*args, X, faithful=False), 20)
-        plain = cuda_ms(lambda: schedule_sim.schedule_replay_plain(
-            *args, X, faithful=False), 2)
-        bms, by = bound_ms(ppb, 100, faithful=False)
-        timing.update(ms=kernel, plain_ms=plain, bound_ms=bms, bound_by=by)
-        print(f"[time] fig8 corrected P=100 x {fig8_prob.num_layers} "
-              f"layers: kernel {kernel:.4f} ms  plain {plain:.2f} ms  "
-              f"bound {bms:.6f} ms ({by})", flush=True)
+        max_mhz = float(smi_field("clocks.max.sm"))
+        for tag, (ppb, X), reps in (
+                ("qwen3-0.6b plan bucket", plan_bucket(), (50, 3)),
+                ("fig8", fig8_bucket(), (20, 2))):
+            args = kernel_args(ppb)
+            k = [queued_ms(lambda: b1(*args, X, faithful=False), reps[0])
+                 for _ in range(5)]
+            ms = float(np.median([r[0] for r in k]))
+            plain = cuda_ms(lambda: schedule_sim.schedule_replay_plain(
+                *args, X, faithful=False), reps[1])
+            bms, by = bound_ms(ppb, X.shape[1], faithful=False)
+            chain = chain_bound_ms(ppb, max_mhz)
+            steps = int((ppb.order >= 0).sum(-1).max())
+            timing[f"b1 {tag}"] = dict(ms=ms, plain_ms=plain, bound_ms=bms,
+                                       bound_by=by, chain_ms=chain)
+            print(f"[time] B1 {tag} corrected X {tuple(X.shape)}, {steps} "
+                  f"steps: kernel ms per round "
+                  f"{[round(r[0], 5) for r in k]} (host ms per call "
+                  f"{float(np.median([r[1] for r in k])):.4f}), median "
+                  f"{ms:.4f} ms ({1e6 * ms / steps * max_mhz / 1e3:.1f} "
+                  f"cycles a step at {max_mhz:.0f} MHz, SM clock now "
+                  f"{smi_field('clocks.sm')} MHz)  plain {plain:.2f} ms  bound "
+                  f"{bms:.6f} ms ({by})  chain bound {chain:.4f} ms ({steps} "
+                  f"x {CHAIN_CYCLES} cycles: 4 dependent FP32 ops x "
+                  f"{FP32_OP_CYCLES}, at the {max_mhz:.0f} MHz maximum SM "
+                  f"clock); every call queued ahead of the device: "
+                  f"{all(r[2] for r in k)}", flush=True)
+        timing.update(timing["b1 fig8"])
         for tag, (ppb, X, tin), reps in (
                 ("resnet101", resnet_traffic(), (20, 2)),
                 ("qwen3-0.6b traffic bucket", traffic_bucket(), (50, 3))):
@@ -672,7 +772,8 @@ def main() -> int:
         greedy = port.greedy_offload(fig8_dag, fig8_env)
         g_wall = time.perf_counter() - t1
         print(f"[fig8] PSO-GA: cost {res.best_cost:.6g} feasible "
-              f"{res.feasible} iterations {res.iterations} in {wall:.2f} s "
+              f"{res.feasible} iterations {res.iterations} in "
+              f"{1e3 * wall:.1f} ms "
               f"({launches['fig8']} launches); greedy: cost "
               f"{greedy.best_cost:.6g} feasible {greedy.feasible} in "
               f"{g_wall:.2f} s", flush=True)
@@ -969,27 +1070,6 @@ def main() -> int:
     _phase("serve-check", serve_checks, failures)
 
     # 11. time-attn: B3 and B4 at the serving shapes ------------------------
-    def queued_ms(fn, reps):
-        """Device ms per call of ``fn`` over ``reps`` calls queued behind a
-        device sleep, after a warm-up: the host's cost of each call (the
-        wrapper's checks, ctypes) overlaps the sleep, not the timed
-        stretch. Also the host's ms per call, and whether every call was
-        queued before the sleep ended (else the time holds host gaps)."""
-        fn()
-        torch.cuda.synchronize()
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-        ev[0].record()
-        torch.cuda._sleep(SLEEP_CYCLES)
-        ev[1].record()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        host = 1e3 * (time.perf_counter() - t0)
-        ev[2].record()
-        torch.cuda.synchronize()
-        return (ev[1].elapsed_time(ev[2]) / reps, host / reps,
-                host < ev[0].elapsed_time(ev[1]))
-
     def in_turns(tag, kernel, library, plain, reps, plain_reps, rounds=5):
         """Kernel and library call timed in turns, ``rounds`` times each,
         then the plain version once; medians of the device times."""
@@ -1199,17 +1279,25 @@ def main() -> int:
 
     # 16. time-ssd: B5 at the serving shapes --------------------------------
     def ssd_bound(shape):
-        """Least time of one B5 launch: the causal band's operations (scores
-        C_i . B_j once per chunk, 2N each; per head a weight, 3 operations,
-        and P multiply-adds) over the fp32 peak, against x and out once, cum,
-        B and C once over HBM bandwidth."""
+        """Least time of one B5 launch, two ways. The float32 CUDA-core
+        bound: the causal band's operations (scores C_i . B_j once per
+        chunk, 2N each; per head a weight, 3 operations, and P multiply-adds)
+        over the fp32 peak, against x and out once, cum, B and C once over
+        HBM bandwidth. The bound of the kernel's route: three TF32 products
+        (3xTF32) for each of the band's multiply-adds at the dense TF32
+        tensor-core peak, against the same bytes."""
         bc, q, h, p, n = shape
         pairs = q * (q + 1) // 2
         ops_ = bc * pairs * (2 * n + h * (2 * p + 3))
+        mma = 3 * bc * pairs * (2 * n + 2 * h * p)
         nbytes = 4 * bc * q * (2 * h * p + h + 2 * n)
-        t_ops, t_bytes = ops_ / F32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
-        return (1e3 * max(t_ops, t_bytes),
-                "operations" if t_ops >= t_bytes else "bytes", ops_, nbytes)
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        out = {}
+        for name, t_ops in (("fp32", ops_ / F32_OPS_PER_S),
+                            ("route", mma / TF32_OPS_PER_S)):
+            out[name] = (1e3 * max(t_ops, t_bytes),
+                         "operations" if t_ops >= t_bytes else "bytes")
+        return out, ops_, mma, nbytes
 
     def time_ssd():
         for cfg in (mamba2, zamba2):
@@ -1218,18 +1306,23 @@ def main() -> int:
             k = [queued_ms(lambda: b5(*args), 20) for _ in range(5)]
             p = queued_ms(lambda: ssd_scan.ssd_intra_plain(*args), 3)
             ms = float(np.median([r[0] for r in k]))
-            bms, by, ops_, nbytes = ssd_bound(shape)
+            bounds, ops_, mma, nbytes = ssd_bound(shape)
+            (f_ms, f_by), (r_ms, r_by) = bounds["fp32"], bounds["route"]
             print(f"[time-ssd] B5 {cfg.name} {shape}: kernel ms per round "
                   f"{[round(r[0], 5) for r in k]} (host ms per call "
                   f"{float(np.median([r[1] for r in k])):.4f}), median "
-                  f"{ms:.4f} ms ({ops_ / ms / 1e9:.2f} TFLOP/s), plain "
-                  f"{p[0]:.3f} ms, library none, bound {bms:.4f} ms ({by}: "
-                  f"{ops_:.4g} operations, {nbytes:.4g} bytes); every call "
-                  f"queued ahead of the device: "
+                  f"{ms:.4f} ms ({ops_ / ms / 1e9:.2f} TFLOP/s of the band's "
+                  f"fp32 operations, {mma / ms / 1e9:.2f} TFLOP/s of 3xTF32 "
+                  f"products), plain {p[0]:.3f} ms, library none; bound of "
+                  f"the 3xTF32 route {r_ms:.4f} ms ({r_by}: {mma:.4g} TF32 "
+                  f"operations, {nbytes:.4g} bytes), fp32 CUDA-core bound "
+                  f"{f_ms:.4f} ms ({f_by}: {ops_:.4g} operations); every "
+                  f"call queued ahead of the device: "
                   f"{all(r[2] for r in k) and p[2]}", flush=True)
-            if cfg is mamba2:
-                timing["ssd"] = dict(ms=ms, plain_ms=p[0], library_ms=None,
-                                     bound_ms=bms, bound_by=by)
+            timing[f"ssd {cfg.name}"] = dict(ms=ms, plain_ms=p[0],
+                                             library_ms=None, bound_ms=r_ms,
+                                             bound_by=r_by)
+        timing["ssd"] = timing[f"ssd {mamba2.name}"]
     _phase("time-ssd", time_ssd, failures)
 
     jax_loaded = "jax" in sys.modules

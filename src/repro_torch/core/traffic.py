@@ -369,16 +369,16 @@ def traffic_inputs(pp: PaddedProblem, arr) -> TrafficInputs:
 
 def percentile_linear(x: torch.Tensor, q: float, dim: int) -> torch.Tensor:
     """``jnp.percentile(x, q, axis=dim)`` (linear interpolation) bit for
-    bit, in float32 as the reference computes it, not as
-    ``torch.quantile`` rounds: sort, then ``low·(1−h) + high·h`` at the
-    position ``q·(0.01·(n−1))``. The position and the sum follow what XLA
-    compiles ``jnp.percentile`` to on the CPU: ``q/100`` becomes ``q·0.01``
-    with the constant factors folded first, and the sum is one fused
+    bit as the reference's solver runs it, inside ``jit``: sort, then
+    ``low·(1−h) + high·h`` at the position ``(q·0.01)·(n−1)`` in float32.
+    Under ``jit`` XLA folds the literal ``q/100`` into ``q·0.01`` first
+    (an eager call rounds ``q·(0.01·(n−1))`` instead, which differs in
+    the last ulp for some n), and compiles the sum to one fused
     multiply-add, emulated here in float64 (the float32 product is exact
     there)."""
     f32 = np.float32
     n = x.shape[dim]
-    pos = f32(q) * (f32(0.01) * f32(n - 1))
+    pos = (f32(q) * f32(0.01)) * f32(n - 1)
     low, high = min(max(int(np.floor(pos)), 0), n - 1), \
         min(max(int(np.ceil(pos)), 0), n - 1)
     hw = pos - f32(low)

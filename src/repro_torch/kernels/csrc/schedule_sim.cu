@@ -7,235 +7,563 @@
 // particle of a swarm against one padded problem, in both fidelity modes, for
 // a fleet of N problems at once.
 //
-// Design:
-//   * Grid (ceil(P / kThreads), N): one thread replays one particle, one
-//     fleet problem per blockIdx.y. Tail threads are masked, not padded with
-//     copies of a real particle.
-//   * Per-particle server state lives in shared memory as [max_S][kThreads]
-//     floats (lease, t_on) and [max_apps][kThreads] (running app completion):
-//     thread t always hits bank t % 32, whichever server its gene picks, so
-//     the data-dependent lease[x[j]] accesses never conflict. The problem's
-//     (S, S) link tables are staged in shared memory once per block and read
-//     by direct indexed loads (the TPU kernel needed one-hot matrix products
-//     there because Mosaic handles gathers poorly).
-//   * Genes arrive layer-major, X[n][layer][particle], so a warp's gene loads
-//     coalesce. The DAG arrays (order, compute, parent/child ids and MBs,
-//     app ids, pins) are the same for every thread and are broadcast loads.
-//   * Per-layer end times live in a global scratch buffer of the same
-//     layer-major layout (a few MB at the paper's 10,140-layer size; it stays
-//     in L2). The faithful recurrence never reads end times, so that mode
-//     never writes them.
-//   * Every reduction happens inside the walk: app completion is a running
-//     max, t_on a running min, the transmission cost and the link/pin flags
-//     are registers. max and min do not depend on order, so `feasible` and the
-//     completion sum come out exactly as the reference computes them; only the
-//     float cost sums may change order.
+// What bounds it: not bytes and not arithmetic, but the serial chain of
+// max_p steps per particle (a step's start waits on the lease of its server
+// and, in corrected mode, on its parents' end times). The first version put
+// every global load of a step (order, compute, relatives, genes, end times)
+// on that chain, ~1,600 cycles a step, and ran a pop-100 swarm in one block.
+// This design takes everything that does not depend on the carry off it:
 //
-// What bounds it on the card: not bytes and not arithmetic, but the serial
-// dependency chain of max_p steps per thread (each step's start time waits
-// on the previous lease of its server). One block per problem also leaves
-// most of the 132 SMs idle until the fleet axis is wide. Making it fast
-// (splitting a swarm across more blocks, prefetching the next steps' genes)
-// is later work.
+//   * Two launches per call. step_kernel is the carry-free first pass of
+//     kernels/schedule_sim.py::phase1: for every (problem, step, particle) it
+//     writes the step's server, execution time, outgoing transfer time,
+//     transmission $ and either max_trans (faithful) or each parent slot's
+//     transfer time tt (corrected), step-major as planes[n][field][t][i], and
+//     ORs each particle's forbidden-link / pin flags per chunk of 128 steps.
+//     It runs over every SM (blocks of 8 warps x 32 particles x 128 steps).
+//     A separate kernel, not producer warps inside the walk's block: the
+//     pass is ~10,000 independent gathers per particle at Fig. 8 and wants
+//     the whole card, while the walk wants few, small blocks; and the planes
+//     (~31 MB at Fig. 8) stay in the 50 MB L2 between the two launches.
+//   * walk_kernel carries the recurrence, one warp per block, one particle
+//     per lane, so pop 100 spans 4 blocks on 4 SMs (the fleet axis adds
+//     more). It reads the planes through a cp.async ring of kT = 16-step
+//     tiles, kAhead = 3 tiles in flight, so the copies' latency stays off
+//     the chain. The per-step tables that every particle shares (valid bit,
+//     app id, "end is read beyond the ring" bit, each parent's step distance,
+//     and per tile "every step is real" and "reads beyond the ring") come
+//     through a second ring that runs kAhead tiles further ahead.
+//   * A single warp issues in order, so every shared-memory load consumed
+//     right away stalls it. The walk takes 8 steps' carry-free values into
+//     registers at a time, before any of their stores, and reads the next
+//     step's lease and its parents' ring slots before the current step's
+//     stores (forwarding the lease when both steps use the same server). A
+//     tile whose steps are all real, and that reads nothing beyond the ring,
+//     runs without a branch per step: ring slots are read whatever the
+//     distance and selected afterwards.
+//   * Parents' end times: the previous step's end sits in a register (most
+//     edges of the zoo DAGs are one step long); older ends live in a
+//     per-lane ring of the last kW = 64 ends in shared memory, indexed by
+//     step. The wrapper computes the distances once per problem
+//     (kernels/schedule_sim.py::step_tables). A step whose end is read more
+//     than kW steps later also stores it to far_end in global memory, and the
+//     walk copies those reads into shared memory (cp.async) with the tile
+//     kAhead tiles ahead: with kW >= (kAhead + 1) kT every such value was
+//     final before the copy is issued. Faithful mode reads no ends: no ring.
+//   * A step's chain is then the gate (an add and a max per parent), a max
+//     against the lease, the adds for the end and the new lease, and a
+//     store. The app's completion is a running max in a register while the
+//     app stays the same (the app is the same for every lane); in corrected
+//     mode a server's starts never decrease, so t_on is stored once, at its
+//     first use, tracked by a bit per server (S <= 64). Server state is
+//     [S][32 lanes], so lane l always hits bank l whatever server its gene
+//     picks.
+//
+// Numbers: every float sum keeps the plain version's order (steps, then
+// parents or children, then servers, then apps) and every product and
+// quotient is rounded on its own (--fmad=false), so totals, `feasible` and
+// completion sums equal kernels/schedule_sim.py::schedule_replay_plain's bit
+// for bit; max and min are order-free.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false -shared
-// -Xcompiler -fPIC (kernels/_build.py). --fmad=false keeps every multiply and
-// add rounded on its own, as the plain PyTorch version computes them.
+// -Xcompiler -fPIC (kernels/_build.py).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kLanes = 32;        // particles per walk block (one warp)
+constexpr int kT = 16;            // steps per tile of the walk's buffers
+constexpr int kAhead = 3;         // tiles whose copies are in flight
+constexpr int kPlaneStages = kAhead + 1;
+constexpr int kMetaStages = 2 * kAhead + 1;  // step tables run kAhead further
+constexpr int kW = 64;            // ring of parents' end times, in steps
+constexpr int kMaxIn = 8;         // parent slots the walk takes
+constexpr int kChunk = 128;       // steps per step_kernel block
+constexpr int kStepWarps = 8;     // step_kernel warps per block
+static_assert(kW >= (kAhead + 1) * kT,
+              "a far read must be final when it is copied, kAhead tiles ahead");
+static_assert((kW & (kW - 1)) == 0, "the ring is indexed by a mask");
 
+struct Args {
+  const int* X;             // (N, P, max_p) genes
+  const int* order;         // (N, max_p)
+  const float* compute;     // (N, max_p)
+  const int* parent_idx;    // (N, max_p, max_in)
+  const float* parent_mb;
+  const int* child_idx;     // (N, max_p, max_out)
+  const float* child_mb;
+  const float* deadline;    // (N, max_apps)
+  const int* pinned;        // (N, max_p)
+  const float* power;       // (N, S)
+  const float* cost_per_sec;
+  const float* inv_bw;      // (N, S, S)
+  const float* tran_cost;
+  const uint8_t* link_ok;
+  const int* meta;          // (N, max_p_pad, 1 + max_in) step tables
+  float* planes;            // (N, F, max_p_pad, P_pad)
+  uint8_t* flags;           // (N, n_chunks, P_pad)
+  float* far_end;           // (N, max_p_pad, P_pad), corrected mode
+  float* total;             // (N, P)
+  uint8_t* feasible;
+  float* tsum;
+  int P, P_pad, max_p, max_p_pad, max_in, max_out, S, max_apps, F, n_chunks;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// pass 1: the carry-free quantities of every (step, particle)
+// ---------------------------------------------------------------------------
 template <bool FAITHFUL>
-__global__ void __launch_bounds__(kThreads)
-schedule_replay_kernel(const int* __restrict__ X,
-                       const int* __restrict__ order,
-                       const float* __restrict__ compute,
-                       const int* __restrict__ parent_idx,
-                       const float* __restrict__ parent_mb,
-                       const int* __restrict__ child_idx,
-                       const float* __restrict__ child_mb,
-                       const int* __restrict__ app_id,
-                       const float* __restrict__ deadline,
-                       const int* __restrict__ pinned,
-                       const float* __restrict__ power,
-                       const float* __restrict__ cost_per_sec,
-                       const float* __restrict__ inv_bw,
-                       const float* __restrict__ tran_cost,
-                       const uint8_t* __restrict__ link_ok,
-                       float* __restrict__ end,
-                       float* __restrict__ total,
-                       uint8_t* __restrict__ feasible,
-                       float* __restrict__ tsum,
-                       int P, int P_pad, int max_p, int max_in, int max_out,
-                       int S, int max_apps) {
-  extern __shared__ float smem[];
-  float* lease = smem;                          // [S][kThreads]
-  float* t_on = lease + S * kThreads;           // [S][kThreads]
-  float* appc = t_on + S * kThreads;            // [max_apps][kThreads]
-  float* s_inv_bw = appc + max_apps * kThreads; // [S][S]
-  float* s_tran = s_inv_bw + S * S;             // [S][S]
-  float* s_power = s_tran + S * S;              // [S]
-  float* s_cost = s_power + S;                  // [S]
-  uint8_t* s_link = reinterpret_cast<uint8_t*>(s_cost + S);  // [S][S]
-
-  const int n = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int i = blockIdx.x * kThreads + tid;
-
+__global__ void __launch_bounds__(kStepWarps * 32) step_kernel(const Args a) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int i = blockIdx.x * kLanes + lane;
+  const int chunk = blockIdx.y, n = blockIdx.z;
+  const int S = a.S, max_in = a.max_in, max_out = a.max_out;
   const size_t SS = static_cast<size_t>(S) * S;
-  for (int k = tid; k < S * S; k += kThreads) {
-    s_inv_bw[k] = inv_bw[n * SS + k];
-    s_tran[k] = tran_cost[n * SS + k];
-    s_link[k] = link_ok[n * SS + k];
-  }
-  for (int k = tid; k < S; k += kThreads) {
-    s_power[k] = power[static_cast<size_t>(n) * S + k];
-    s_cost[k] = cost_per_sec[static_cast<size_t>(n) * S + k];
-  }
-  for (int s = 0; s < S; ++s) {
-    lease[s * kThreads + tid] = 0.0f;
-    t_on[s * kThreads + tid] = INFINITY;
-  }
-  for (int a = 0; a < max_apps; ++a) appc[a * kThreads + tid] = 0.0f;
-  __syncthreads();
-  if (i >= P) return;  // no barrier below this line
+  const float* inv_bw = a.inv_bw + n * SS;
+  const float* tran = a.tran_cost + n * SS;
+  const uint8_t* link = a.link_ok + n * SS;
+  const float* power = a.power + static_cast<size_t>(n) * S;
+  const size_t layer0 = static_cast<size_t>(n) * a.max_p;
+  const int* ord = a.order + layer0;
+  const float* comp = a.compute + layer0;
+  const int* pidx = a.parent_idx + layer0 * max_in;
+  const float* pmb = a.parent_mb + layer0 * max_in;
+  const int* cidx = a.child_idx + layer0 * max_out;
+  const float* cmb = a.child_mb + layer0 * max_out;
+  const int* pin = a.pinned + layer0;
+  // lanes past P replay gene 0 everywhere: harmless, and never written out
+  const bool live = i < a.P;
+  const int* x = a.X + (static_cast<size_t>(n) * a.P + (live ? i : 0)) * a.max_p;
+  const size_t plane = static_cast<size_t>(a.max_p_pad) * a.P_pad;
 
-  const size_t layer0 = static_cast<size_t>(n) * max_p;
-  const int* ord = order + layer0;
-  const float* comp = compute + layer0;
-  const int* pidx = parent_idx + layer0 * max_in;
-  const float* pmb = parent_mb + layer0 * max_in;
-  const int* cidx = child_idx + layer0 * max_out;
-  const float* cmb = child_mb + layer0 * max_out;
-  const int* app = app_id + layer0;
-  const int* pin = pinned + layer0;
-  const int* x = X + layer0 * P_pad + i;        // gene of layer j: x[j * P_pad]
-  float* e = end + layer0 * P_pad + i;          // end of layer j: e[j * P_pad]
-
-  float trans = 0.0f;
-  bool bad = false;
-  bool pin_bad = false;
-  for (int t = 0; t < max_p; ++t) {
+  unsigned flag = 0;                    // bit 0: forbidden link, bit 1: pin
+  for (int s = 0; s < kChunk / kStepWarps; ++s) {
+    const int t = chunk * kChunk + s * kStepWarps + w;
+    if (t >= a.max_p) break;
     const int j = ord[t];
-    if (j < 0) continue;                        // padded step: a no-op
-    const int srv = x[static_cast<size_t>(j) * P_pad];
-    const float exe = comp[j] / s_power[srv];
-    float max_trans = 0.0f;
-    float gate = 0.0f;
-    float tstep = 0.0f;
+    if (j < 0) continue;                // padded step: the walk skips it
+    const int srv = live ? __ldg(x + j) : 0;
+    const float exe = comp[j] / power[srv];
+    float* pl = a.planes + static_cast<size_t>(n) * a.F * plane +
+                static_cast<size_t>(t) * a.P_pad + i;
+    float max_trans = 0.0f, tstep = 0.0f;
     for (int k = 0; k < max_in; ++k) {
       const int pj = pidx[j * max_in + k];
-      if (pj < 0) continue;
-      const float mb = pmb[j * max_in + k];
-      const int psrv = x[static_cast<size_t>(pj) * P_pad];
-      const float tt = mb * s_inv_bw[psrv * S + srv];
-      max_trans = fmaxf(max_trans, tt);
-      if (!FAITHFUL) gate = fmaxf(gate, e[static_cast<size_t>(pj) * P_pad] + tt);
-      tstep = tstep + s_tran[psrv * S + srv] * mb;
-      bad |= (psrv != srv) && !s_link[psrv * S + srv];
+      float tt = 0.0f;
+      if (pj >= 0) {
+        const float mb = pmb[j * max_in + k];
+        const int psrv = live ? __ldg(x + pj) : 0;
+        tt = mb * __ldg(inv_bw + psrv * S + srv);
+        max_trans = fmaxf(max_trans, tt);
+        tstep = tstep + __ldg(tran + psrv * S + srv) * mb;
+        if (psrv != srv && !__ldg(link + psrv * S + srv)) flag |= 1u;
+      }
+      if (!FAITHFUL) pl[(4 + k) * plane] = tt;
     }
-    trans = trans + tstep;
     float out_t = 0.0f;
     for (int k = 0; k < max_out; ++k) {
       const int cj = cidx[j * max_out + k];
       if (cj < 0) continue;
-      const int csrv = x[static_cast<size_t>(cj) * P_pad];
-      out_t = out_t + cmb[j * max_out + k] * s_inv_bw[srv * S + csrv];
-      bad |= (csrv != srv) && !s_link[srv * S + csrv];
+      const int csrv = live ? __ldg(x + cj) : 0;
+      out_t = out_t + cmb[j * max_out + k] * __ldg(inv_bw + srv * S + csrv);
+      if (csrv != srv && !__ldg(link + srv * S + csrv)) flag |= 1u;
     }
-    const float lease_srv = lease[srv * kThreads + tid];
-    float start, new_lease;
-    if (FAITHFUL) {
-      start = lease_srv + max_trans;
-      new_lease = (lease_srv + exe) + out_t;
-    } else {
-      start = fmaxf(lease_srv, gate);
-      new_lease = (start + exe) + out_t;
-    }
-    const float t_end = start + exe;
-    lease[srv * kThreads + tid] = new_lease;
-    t_on[srv * kThreads + tid] = fminf(t_on[srv * kThreads + tid], start);
-    const int a = app[j];
-    appc[a * kThreads + tid] = fmaxf(appc[a * kThreads + tid], t_end);
-    if (!FAITHFUL) e[static_cast<size_t>(j) * P_pad] = t_end;
-    pin_bad |= (pin[j] >= 0) && (srv != pin[j]);
+    if (pin[j] >= 0 && srv != pin[j]) flag |= 2u;
+    pl[0] = __int_as_float(srv);
+    pl[plane] = exe;
+    pl[2 * plane] = out_t;
+    pl[3 * plane] = tstep;
+    if (FAITHFUL) pl[4 * plane] = max_trans;
   }
+  __shared__ unsigned s_flag[kStepWarps][32];
+  s_flag[w][lane] = flag;
+  __syncthreads();
+  if (w == 0) {
+    for (int v = 1; v < kStepWarps; ++v) flag |= s_flag[v][lane];
+    a.flags[(static_cast<size_t>(n) * a.n_chunks + chunk) * a.P_pad + i] =
+        static_cast<uint8_t>(flag);
+  }
+}
 
-  float comp_cost = 0.0f;
-  for (int s = 0; s < S; ++s) {
-    const float on = t_on[s * kThreads + tid];
-    if (on != INFINITY) comp_cost = comp_cost + s_cost[s] * (lease[s * kThreads + tid] - on);
+// ---------------------------------------------------------------------------
+// pass 2: the carried walk
+// ---------------------------------------------------------------------------
+__host__ __device__ constexpr size_t walk_smem_floats(int F, int max_in, int S,
+                                                      int max_apps,
+                                                      bool faithful) {
+  return static_cast<size_t>(kPlaneStages * F * kT * kLanes)      // planes
+         + (faithful ? 0 : kPlaneStages * kT * max_in * kLanes    // far reads
+                               + kW * kLanes)                     // ring
+         + static_cast<size_t>(2 * S + max_apps) * kLanes         // lease t_on appc
+         + kMetaStages * kT * (1 + max_in);                       // step tables
+}
+
+// MAXIN: the parent slots a step's registers hold (>= max_in); the walk
+// takes kB steps' carry-free values into registers at a time. TMASK
+// (corrected mode, S <= 64): t_on is stored once, at a server's first use.
+template <bool FAITHFUL, int MAXIN, bool TMASK>
+__global__ void __launch_bounds__(kLanes) walk_kernel(const Args a) {
+  constexpr int kB = MAXIN <= 4 ? 8 : 4;
+  static_assert(kT % kB == 0, "a tile holds whole batches");
+  extern __shared__ __align__(16) float smem[];
+  const int F = a.F, max_in = a.max_in, MS = 1 + max_in;
+  float* s_planes = smem;                                 // [stage][F][kT][32]
+  float* s_far = s_planes + kPlaneStages * F * kT * kLanes;  // [stage][kT][max_in][32]
+  float* s_ring = s_far + (FAITHFUL ? 0 : kPlaneStages * kT * max_in * kLanes);
+  float* s_lease = s_ring + (FAITHFUL ? 0 : kW * kLanes);  // [S][32]
+  float* s_t_on = s_lease + a.S * kLanes;                 // [S][32]
+  float* s_appc = s_t_on + a.S * kLanes;                  // [max_apps][32]
+  int* s_meta = reinterpret_cast<int*>(s_appc + a.max_apps * kLanes);  // [stage][kT][MS]
+
+  const int lane = threadIdx.x;
+  // this lane's column of the per-particle state
+  float* const ring = s_ring + lane;                      // [kW] by step
+  float* const lease = s_lease + lane;                    // [S] by server
+  float* const t_on = s_t_on + lane;
+  float* const appc = s_appc + lane;                      // [max_apps]
+  const int base = blockIdx.x * kLanes;                   // first particle
+  const int i = base + lane;
+  const int n = blockIdx.y;
+  const int ntiles = a.max_p_pad / kT;
+  const size_t plane = static_cast<size_t>(a.max_p_pad) * a.P_pad;
+  const float* g_planes = a.planes + static_cast<size_t>(n) * F * plane + base;
+  const int* g_meta = a.meta + static_cast<size_t>(n) * a.max_p_pad * MS;
+  float* g_far = a.far_end + static_cast<size_t>(n) * plane + base;
+
+  for (int s = 0; s < a.S; ++s) {
+    lease[s * kLanes] = 0.0f;
+    t_on[s * kLanes] = INFINITY;
   }
-  const float* dl = deadline + static_cast<size_t>(n) * max_apps;
+  for (int app = 0; app < a.max_apps; ++app) appc[app * kLanes] = 0.0f;
+  if (!FAITHFUL)
+    for (int r = 0; r < kW; ++r) ring[r * kLanes] = 0.0f;
+
+  // tile k of the planes: F x kT rows of 128 bytes
+  auto load_planes = [&](int k) {
+    float* dst = s_planes + (k % kPlaneStages) * F * kT * kLanes;
+    for (int c = lane; c < F * kT * 8; c += kLanes) {
+      const int f = c / (kT * 8), tl = (c / 8) % kT, q = c % 8;
+      cp_async16(dst + (f * kT + tl) * kLanes + 4 * q,
+                 g_planes + f * plane +
+                     static_cast<size_t>(k * kT + tl) * a.P_pad + 4 * q);
+    }
+  };
+  // tile k of the step tables: kT x MS ints
+  auto load_meta = [&](int k) {
+    int* dst = s_meta + (k % kMetaStages) * kT * MS;
+    const int* src = g_meta + static_cast<size_t>(k) * kT * MS;
+    for (int c = lane; c < kT * MS / 4; c += kLanes)
+      cp_async16(dst + 4 * c, src + 4 * c);
+  };
+  // tile k's parents beyond the ring, this lane's particle
+  auto load_far = [&](int k) {
+    const int* mt = s_meta + (k % kMetaStages) * kT * MS;
+    if (!(mt[0] & 4)) return;                 // the tile reads nothing far
+    float* dst = s_far + (k % kPlaneStages) * kT * max_in * kLanes + lane;
+    for (int tl = 0; tl < kT; ++tl)
+      for (int kk = 0; kk < max_in; ++kk) {
+        const int d = mt[tl * MS + 1 + kk];
+        if (d > kW)
+          cp_async4(dst + (tl * max_in + kk) * kLanes,
+                    g_far + static_cast<size_t>(k * kT + tl - d) * a.P_pad + lane);
+      }
+  };
+
+  // tiles below kAhead read nothing beyond the ring (d <= t < kAhead kT <= kW)
+  for (int k = 0; k < min(2 * kAhead, ntiles); ++k) load_meta(k);
+  for (int k = 0; k < min(kAhead, ntiles); ++k) load_planes(k);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncwarp();
+
+  float trans = 0.0f;
+  float prev_end = 0.0f;                      // end of the last real step
+  // the current app's completion lives in a register until the app changes
+  int cur_app = 0;
+  float app_max = 0.0f;
+  // corrected mode with S <= 64: t_on is written once, at a server's first
+  // use, tracked by a bit per server
+  constexpr bool mask_on = TMASK;
+  unsigned long long used = 0;
+  for (int k = 0; k < ntiles; ++k) {
+    cp_async_wait<kAhead - 1>();              // tile k's group is in
+    __syncwarp();                             // ... for every lane; k - 1 done
+    if (k + kAhead < ntiles) {
+      load_planes(k + kAhead);
+      if (!FAITHFUL) load_far(k + kAhead);
+    }
+    if (k + 2 * kAhead < ntiles) load_meta(k + 2 * kAhead);
+    cp_async_commit();                        // one group per tile, maybe empty
+
+    const float* pl = s_planes + (k % kPlaneStages) * F * kT * kLanes + lane;
+    const int* mt = s_meta + (k % kMetaStages) * kT * MS;
+    const float* fr = s_far + (k % kPlaneStages) * kT * max_in * kLanes + lane;
+    // A tile whose steps are all real walks without a check per step; only
+    // a tile that reads beyond the ring looks at its far reads.
+    const int tile_head = mt[0];
+    const bool far_tile = !FAITHFUL && (tile_head & 4);
+    auto run_tile = [&](auto all_live) {
+      constexpr bool kAllLive = decltype(all_live)::value;
+      for (int b0 = 0; b0 < kT; b0 += kB) {
+        // the batch's carry-free values, loaded before any of its stores
+        int head[kB], srv[kB], dist[kB][MAXIN];
+        float exe[kB], out_t[kB], tstep[kB], mx[kB], tt[kB][MAXIN];
+#pragma unroll
+        for (int u = 0; u < kB; ++u) {
+          const int tl = b0 + u;
+          head[u] = mt[tl * MS];
+          srv[u] = __float_as_int(pl[tl * kLanes]);
+          exe[u] = pl[(kT + tl) * kLanes];
+          out_t[u] = pl[(2 * kT + tl) * kLanes];
+          tstep[u] = pl[(3 * kT + tl) * kLanes];
+          if (FAITHFUL) {
+            mx[u] = pl[(4 * kT + tl) * kLanes];
+          } else {
+#pragma unroll
+            for (int kk = 0; kk < MAXIN; ++kk) {
+              dist[u][kk] = kk < max_in ? mt[tl * MS + 1 + kk] : 0;
+              tt[u][kk] = kk < max_in ? pl[((4 + kk) * kT + tl) * kLanes] : 0.0f;
+            }
+          }
+        }
+        // The next step's lease (forwarded when this step writes the same
+        // server) and its parents' ends two or more steps back are read
+        // before this step's stores; a parent one step back is prev_end.
+        // A ring slot is read whatever the distance (the address is always
+        // in range) and selected afterwards, so no step branches on it.
+        float cur_lease = 0.0f, cur_on = 0.0f, cur_e[MAXIN];
+        auto prepare = [&](int u, float& l, float& on, float (&e)[MAXIN]) {
+          const int t = k * kT + b0 + u;
+          l = lease[srv[u] * kLanes];
+          if (!mask_on) on = t_on[srv[u] * kLanes];
+          if (!FAITHFUL) {
+#pragma unroll
+            for (int kk = 0; kk < MAXIN; ++kk) {
+              const int d = dist[u][kk];
+              e[kk] = ring[((t - d) & (kW - 1)) * kLanes];
+              if (far_tile && d > kW) e[kk] = fr[((b0 + u) * max_in + kk) * kLanes];
+            }
+          }
+        };
+        if (kAllLive || (head[0] & 1)) prepare(0, cur_lease, cur_on, cur_e);
+#pragma unroll
+        for (int u = 0; u < kB; ++u) {
+          const bool live = kAllLive || (head[u] & 1);  // else padded: a no-op
+          const int t = k * kT + b0 + u;
+          float start = 0.0f, new_lease = 0.0f, t_end = 0.0f;
+          if (live) {
+            const int app = head[u] >> 8;     // the same for every lane
+            if (app != cur_app) {
+              appc[cur_app * kLanes] = app_max;
+              app_max = appc[app * kLanes];
+              cur_app = app;
+            }
+            if (FAITHFUL) {
+              start = cur_lease + mx[u];
+              t_end = start + exe[u];
+              new_lease = (cur_lease + exe[u]) + out_t[u];
+            } else {
+              float gate = 0.0f;
+#pragma unroll
+              for (int kk = 0; kk < MAXIN; ++kk) {
+                const int d = dist[u][kk];      // 0: no parent in this slot
+                const float e = fmaxf(gate, (d == 1 ? prev_end : cur_e[kk]) +
+                                                tt[u][kk]);
+                gate = d != 0 ? e : gate;
+              }
+              start = fmaxf(cur_lease, gate);
+              t_end = start + exe[u];
+              new_lease = t_end + out_t[u];
+            }
+            app_max = fmaxf(app_max, t_end);
+          }
+          float nxt_lease = 0.0f, nxt_on = 0.0f, nxt_e[MAXIN];
+          if (u + 1 < kB && (kAllLive || (head[u + 1] & 1))) {
+            prepare(u + 1, nxt_lease, nxt_on, nxt_e);
+            if (live && srv[u + 1] == srv[u]) {
+              nxt_lease = new_lease;
+              nxt_on = fminf(cur_on, start);
+            }
+          }
+          if (live) {
+            lease[srv[u] * kLanes] = new_lease;
+            if (mask_on) {
+              // corrected mode: a server's starts never decrease, so its
+              // first start is its t_on
+              const unsigned long long bit = 1ull << srv[u];
+              if (!(used & bit)) t_on[srv[u] * kLanes] = start;
+              used |= bit;
+            } else {
+              t_on[srv[u] * kLanes] = fminf(cur_on, start);
+            }
+            if (!FAITHFUL) {
+              ring[(t & (kW - 1)) * kLanes] = t_end;
+              if (head[u] & 2) g_far[static_cast<size_t>(t) * a.P_pad + lane] = t_end;
+              prev_end = t_end;
+            }
+            trans = trans + tstep[u];
+          }
+          cur_lease = nxt_lease;
+          cur_on = nxt_on;
+#pragma unroll
+          for (int kk = 0; kk < MAXIN; ++kk) cur_e[kk] = nxt_e[kk];
+        }
+      }
+    };
+    if (tile_head & 8)
+      run_tile(std::true_type{});
+    else
+      run_tile(std::false_type{});
+  }
+  appc[cur_app * kLanes] = app_max;
+  if (i >= a.P) return;
+
+  unsigned flag = 0;
+  for (int c = 0; c < a.n_chunks; ++c)
+    flag |= a.flags[(static_cast<size_t>(n) * a.n_chunks + c) * a.P_pad + i];
+  const float* cost = a.cost_per_sec + static_cast<size_t>(n) * a.S;
+  float comp_cost = 0.0f;
+  for (int s = 0; s < a.S; ++s) {
+    const float on = t_on[s * kLanes];
+    if (on != INFINITY)
+      comp_cost = comp_cost + cost[s] * (lease[s * kLanes] - on);
+  }
+  const float* dl = a.deadline + static_cast<size_t>(n) * a.max_apps;
   bool deadline_ok = true;
   float completion = 0.0f;
-  for (int a = 0; a < max_apps; ++a) {
-    const float c = appc[a * kThreads + tid];
-    deadline_ok &= c <= dl[a];
+  for (int app = 0; app < a.max_apps; ++app) {
+    const float c = appc[app * kLanes];
+    deadline_ok &= c <= dl[app];
     completion = completion + c;
   }
-  const size_t out = static_cast<size_t>(n) * P + i;
-  total[out] = comp_cost + trans;
-  feasible[out] = deadline_ok && !pin_bad && !bad;
-  tsum[out] = completion;
+  const size_t out = static_cast<size_t>(n) * a.P + i;
+  a.total[out] = comp_cost + trans;
+  a.feasible[out] = deadline_ok && flag == 0;
+  a.tsum[out] = completion;
+}
+
+template <bool FAITHFUL, int MAXIN, bool TMASK>
+cudaError_t launch_walk(const Args& a, int N, cudaStream_t st) {
+  const size_t smem = sizeof(float) * walk_smem_floats(a.F, a.max_in, a.S,
+                                                       a.max_apps, FAITHFUL);
+  cudaError_t err = cudaFuncSetAttribute(
+      walk_kernel<FAITHFUL, MAXIN, TMASK>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  walk_kernel<FAITHFUL, MAXIN, TMASK>
+      <<<dim3(a.P_pad / kLanes, N), kLanes, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <bool FAITHFUL, int MAXIN>
+cudaError_t launch_walk(const Args& a, int N, cudaStream_t st) {
+  if (!FAITHFUL && a.S <= 64) return launch_walk<FAITHFUL, MAXIN, true>(a, N, st);
+  return launch_walk<FAITHFUL, MAXIN, false>(a, N, st);
+}
+
+template <bool FAITHFUL>
+cudaError_t launch(const Args& a, int N, cudaStream_t st) {
+  if (a.n_chunks > 0) {
+    step_kernel<FAITHFUL><<<dim3(a.P_pad / kLanes, a.n_chunks, N),
+                            kStepWarps * 32, 0, st>>>(a);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (a.max_in <= 1) return launch_walk<FAITHFUL, 1>(a, N, st);
+  if (a.max_in <= 2) return launch_walk<FAITHFUL, 2>(a, N, st);
+  if (a.max_in <= 4) return launch_walk<FAITHFUL, 4>(a, N, st);
+  return launch_walk<FAITHFUL, kMaxIn>(a, N, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-size_t schedule_replay_smem_bytes(int S, int max_apps) {
-  return sizeof(float) * (static_cast<size_t>(2 * S + max_apps) * kThreads
-                          + 2 * static_cast<size_t>(S) * S + 2 * S)
-         + static_cast<size_t>(S) * S;
+// The walk's geometry, for the wrapper's buffers and step tables.
+int schedule_replay_tile() { return kT; }
+int schedule_replay_ring() { return kW; }
+int schedule_replay_ahead() { return kAhead; }
+int schedule_replay_chunk() { return kChunk; }
+
+// Planes per step: srv, exe, out_t, tstep, then max_trans (faithful) or one
+// transfer time per parent slot (corrected).
+int schedule_replay_fields(int max_in, int faithful) {
+  return faithful ? 5 : 4 + max_in;
+}
+
+size_t schedule_replay_smem_bytes(int S, int max_apps, int max_in,
+                                  int faithful) {
+  return sizeof(float) *
+         walk_smem_floats(schedule_replay_fields(max_in, faithful), max_in, S,
+                          max_apps, faithful != 0);
 }
 
 const char* schedule_replay_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Launches the replay on `stream` and returns cudaGetLastError(). Every
-// pointer is device memory laid out as documented in kernels/schedule_sim.py.
+// Launches both passes on `stream` and returns the first CUDA error (0 if
+// none). Every pointer is device memory laid out as documented in
+// kernels/schedule_sim.py; max_p_pad is a multiple of the tile, P_pad of 32.
 int schedule_replay_launch(const int* X, const int* order, const float* compute,
                            const int* parent_idx, const float* parent_mb,
                            const int* child_idx, const float* child_mb,
-                           const int* app_id, const float* deadline,
-                           const int* pinned, const float* power,
-                           const float* cost_per_sec, const float* inv_bw,
-                           const float* tran_cost, const uint8_t* link_ok,
-                           float* end, float* total, uint8_t* feasible,
-                           float* tsum, int N, int P, int P_pad, int max_p,
+                           const float* deadline, const int* pinned,
+                           const float* power, const float* cost_per_sec,
+                           const float* inv_bw, const float* tran_cost,
+                           const uint8_t* link_ok, const int* meta,
+                           float* planes, uint8_t* flags, float* far_end,
+                           float* total, uint8_t* feasible, float* tsum, int N,
+                           int P, int P_pad, int max_p, int max_p_pad,
                            int max_in, int max_out, int S, int max_apps,
                            int faithful, void* stream) {
-  const size_t smem = schedule_replay_smem_bytes(S, max_apps);
-  const dim3 grid((P + kThreads - 1) / kThreads, N);
+  if (N < 1 || N > 65535 || P < 1 || P_pad % kLanes || P_pad < P ||
+      max_p_pad % kT || max_p_pad < max_p || S < 1 || max_apps < 1 ||
+      max_in < 0 || max_in > kMaxIn || max_out < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a;
+  a.X = X; a.order = order; a.compute = compute;
+  a.parent_idx = parent_idx; a.parent_mb = parent_mb;
+  a.child_idx = child_idx; a.child_mb = child_mb;
+  a.deadline = deadline; a.pinned = pinned; a.power = power;
+  a.cost_per_sec = cost_per_sec; a.inv_bw = inv_bw; a.tran_cost = tran_cost;
+  a.link_ok = link_ok; a.meta = meta; a.planes = planes; a.flags = flags;
+  a.far_end = far_end; a.total = total; a.feasible = feasible; a.tsum = tsum;
+  a.P = P; a.P_pad = P_pad; a.max_p = max_p; a.max_p_pad = max_p_pad;
+  a.max_in = max_in; a.max_out = max_out; a.S = S; a.max_apps = max_apps;
+  a.F = schedule_replay_fields(max_in, faithful);
+  a.n_chunks = (max_p + kChunk - 1) / kChunk;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (faithful) {
-    err = cudaFuncSetAttribute(schedule_replay_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    schedule_replay_kernel<true><<<grid, kThreads, smem, st>>>(
-        X, order, compute, parent_idx, parent_mb, child_idx, child_mb, app_id,
-        deadline, pinned, power, cost_per_sec, inv_bw, tran_cost, link_ok, end,
-        total, feasible, tsum, P, P_pad, max_p, max_in, max_out, S, max_apps);
-  } else {
-    err = cudaFuncSetAttribute(schedule_replay_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    schedule_replay_kernel<false><<<grid, kThreads, smem, st>>>(
-        X, order, compute, parent_idx, parent_mb, child_idx, child_mb, app_id,
-        deadline, pinned, power, cost_per_sec, inv_bw, tran_cost, link_ok, end,
-        total, feasible, tsum, P, P_pad, max_p, max_in, max_out, S, max_apps);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err = faithful ? launch<true>(a, N, st)
+                                   : launch<false>(a, N, st);
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

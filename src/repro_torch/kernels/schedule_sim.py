@@ -4,10 +4,17 @@ PyTorch version.
 The PSO-GA fitness hot path scores every particle (server-assignment
 vector) of a swarm against a padded problem once per iteration. The
 hand-written Hopper kernel (``csrc/schedule_sim.cu``, the port of the
-Pallas kernel ``repro/kernels/schedule_sim.py::_schedule_kernel``) walks
-the layers of every particle in one launch; ``schedule_replay_plain`` is
-the same arithmetic as a plain PyTorch loop over layers with the particle
-axis inside each op, used on the CPU and to check the kernel on the card.
+Pallas kernel ``repro/kernels/schedule_sim.py::_schedule_kernel``) makes
+two CUDA launches per call: a carry-free pass over every (step, particle)
+(``phase1`` below), then a walk that carries only the server leases and,
+in corrected mode, a ring of the last ``RING`` end times per particle.
+``step_tables`` builds what the walk shares across particles: each step's
+app, each parent's step distance and which ends are read beyond the
+ring. ``schedule_replay_plain`` is the same arithmetic as a plain PyTorch
+loop over layers with the particle axis inside each op, used on the CPU
+and to check the kernel on the card; ``replay_ring_plain`` runs the
+walk's ring and far-read addressing in plain PyTorch, with any ring, tile
+and copy distance, for the CPU tests.
 
 Both take the padded-problem layout of ``core.simulator.PaddedProblem``
 with a leading fleet axis N on every array:
@@ -28,7 +35,8 @@ deadlines, pins and forbidden links.
 
 ``schedule_replay`` picks by the tensors' device: plain on the CPU, the
 kernel on CUDA (or it raises); there is no fallback between the two. Its
-``launches`` attribute counts kernel launches.
+``launches`` attribute counts calls that launch the kernel (each is one
+replay of the swarm, two CUDA launches).
 
 Every float sum in the plain version runs in the kernel's order (over
 steps, then parents or children, then servers, then apps), so padded
@@ -39,15 +47,22 @@ invariant under any legal padding, and the kernel (built with
 from __future__ import annotations
 
 import ctypes
+from collections import OrderedDict
 from typing import NamedTuple, Tuple
 
 import torch
 
 __all__ = ["schedule_replay", "schedule_replay_plain", "replay_plain",
-           "ReplayState", "Phase1", "phase1", "MAX_SMEM_BYTES"]
+           "replay_ring_plain", "step_tables", "ReplayState", "Phase1",
+           "phase1", "MAX_SMEM_BYTES", "RING", "TILE", "AHEAD"]
 
 #: dynamic shared memory one H100 block can opt in to (227 KB)
 MAX_SMEM_BYTES = 232_448
+#: the walk's ring of end times, its tile of steps, and how many tiles
+#: ahead it copies (``csrc`` kW, kT, kAhead)
+RING, TILE, AHEAD = 64, 16, 3
+#: the most parent slots a step may have on the kernel route (``csrc`` kMaxIn)
+MAX_IN = 8
 
 
 class ReplayState(NamedTuple):
@@ -222,6 +237,154 @@ def schedule_replay_plain(order, compute, parent_idx, parent_mb, child_idx,
             _seq_sum(st.app_completion))
 
 
+def step_tables(order: torch.Tensor, parent_idx: torch.Tensor,
+                app_id: torch.Tensor, *, ring: int = RING, tile: int = TILE
+                ) -> torch.Tensor:
+    """What the kernel's walk shares across particles, per step:
+    ``(N, max_p_pad, 1 + max_in)`` int32, the step axis padded with
+    no-op steps to a multiple of ``tile``. Entry 0 packs bit 0 "a real
+    step", bit 1 "its end is read more than ``ring`` steps later" and the
+    step's app id from bit 8; on a tile's first step also bit 2 "some step
+    of this tile reads a parent more than ``ring`` steps back" and bit 3
+    "every step of this tile is real". Entries 1.. hold each parent slot's
+    step distance (0 for no parent)."""
+    N, max_p = order.shape
+    max_in = parent_idx.shape[-1]
+    dev = order.device
+    valid = order >= 0
+    jsafe = torch.where(valid, order, 0).long()
+    t = torch.arange(max_p, device=dev)
+    pos = torch.zeros((N, max_p + 1), dtype=torch.long, device=dev).scatter_(
+        1, torch.where(valid, order.long(), max_p), t.expand(N, max_p))
+    pars = parent_idx.long().gather(1, jsafe[..., None].expand(N, max_p,
+                                                               max_in))
+    pm = (pars >= 0) & valid[..., None]
+    ppos = pos.gather(1, torch.where(pm, pars, max_p).reshape(N, -1)
+                      ).reshape(N, max_p, max_in)
+    dist = torch.where(pm, t[None, :, None] - ppos, 0)
+    far = dist > ring
+    far_write = torch.zeros((N, max_p + 1), dtype=torch.long,
+                            device=dev).scatter_(
+        1, torch.where(far, ppos, max_p).reshape(N, -1), 1)[:, :max_p]
+    app = app_id.long().gather(1, jsafe)
+    head = torch.where(valid, 1 | (far_write << 1) | (app << 8), 0)
+    pad = -max_p % tile
+    tiles = torch.nn.functional.pad(torch.stack(
+        [far.any(-1), valid], -1), (0, 0, 0, pad)).reshape(N, -1, tile, 2)
+    first = ((tiles[..., 0].any(-1).long() << 2)
+             | (tiles[..., 1].all(-1).long() << 3))          # (N, tiles)
+    meta = torch.nn.functional.pad(
+        torch.cat([head[..., None], dist], -1), (0, 0, 0, pad))
+    meta[:, ::tile, 0] |= first
+    return meta.to(torch.int32).contiguous()
+
+
+def replay_ring_plain(order, compute, parent_idx, parent_mb, child_idx,
+                      child_mb, app_id, deadline, pinned, power,
+                      cost_per_sec, inv_bw, tran_cost, link_ok, X, *,
+                      faithful: bool = True, ring: int = RING,
+                      tile: int = TILE, ahead: int = AHEAD
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kernel's walk in plain PyTorch, to test its addressing on the
+    CPU with any ``ring``, ``tile`` and copy distance ``ahead`` (``ring >=
+    (ahead + 1) tile``, as the kernel requires): the carry-free ``phase1``
+    planes, the ``step_tables``, and a loop over tiles of steps that reads
+    each parent's end from the previous step's end (distance 1), a ring of
+    the last ``ring`` ends or, beyond it, from a buffer copied ``ahead``
+    tiles early out of the ends that ``far_write`` steps store. Ends not
+    yet stored read as NaN, so a copy made before its value is final shows
+    in the result. Same outputs as ``schedule_replay_plain``."""
+    if ring < (ahead + 1) * tile:
+        raise ValueError(f"ring {ring} must hold {ahead + 1} tiles of "
+                         f"{tile} steps")
+    X = X.to(torch.int32)
+    N, P, max_p = X.shape
+    S = power.shape[-1]
+    max_in = parent_idx.shape[-1]
+    max_apps = deadline.shape[-1]
+    dev = X.device
+    valid = order >= 0
+    ph = phase1(torch.where(valid, order, 0).long(), valid, compute,
+                parent_idx, parent_mb, child_idx, child_mb, pinned, power,
+                inv_bw, tran_cost, link_ok, X)
+    meta = step_tables(order, parent_idx, app_id, ring=ring, tile=tile)
+    head, dist = meta[..., 0], meta[..., 1:].long()
+    live, far_write, app = (head & 1) > 0, (head & 2) > 0, (head >> 8).long()
+    steps = meta.shape[1]
+
+    def col(idx):                         # (N,) -> (N, P, 1) gather index
+        return idx[:, None, None].expand(N, P, 1)
+
+    def fetch(k):                         # tile k's reads beyond the ring
+        buf = torch.zeros((N, P, tile, max_in), device=dev)
+        for tl in range(tile):
+            t = k * tile + tl
+            for kk in range(max_in):
+                d = dist[:, t, kk]
+                got = far_end.gather(2, col((t - d).clamp(min=0)))[..., 0]
+                buf[:, :, tl, kk] = torch.where((d > ring)[:, None], got, 0.0)
+        return buf
+
+    lease = torch.zeros((N, P, S), device=dev)
+    t_on = torch.full((N, P, S), float("inf"), device=dev)
+    appc = torch.zeros((N, P, max_apps), device=dev)
+    ends = torch.zeros((N, P, ring), device=dev)
+    prev_end = torch.zeros((N, P, 1), device=dev)
+    far_end = torch.full((N, P, steps), float("nan"), device=dev)
+    far_buf = {}
+    trans = torch.zeros((N, P), device=dev)
+    for k in range(steps // tile):
+        if k == 0 and not faithful:
+            for j in range(min(ahead, steps // tile)):
+                far_buf[j] = fetch(j)
+        if not faithful and (k + ahead) * tile < steps:
+            far_buf[k + ahead] = fetch(k + ahead)
+        for tl in range(min(tile, max_p - k * tile)):
+            t = k * tile + tl
+            v = live[:, t, None, None]
+            s_t = ph.srv[:, :, t, None]
+            exe = ph.exe[:, :, t, None]
+            out_t = ph.out_t[:, :, t, None]
+            lease_srv = lease.gather(2, s_t)
+            if faithful:
+                start = lease_srv + ph.max_trans[:, :, t, None]
+                new_lease = (lease_srv + exe) + out_t
+            else:
+                gate = torch.zeros((N, P, 1), device=dev)
+                for kk in range(max_in):
+                    d = dist[:, t, kk][:, None, None]
+                    e = torch.where(
+                        d == 1, prev_end, torch.where(
+                            d <= ring,
+                            ends.gather(2, col((t - dist[:, t, kk]) % ring)),
+                            far_buf[k][:, :, tl, kk, None]))
+                    gate = torch.where(d > 0, torch.maximum(
+                        gate, e + ph.tt[:, :, t, kk, None]), gate)
+                start = torch.maximum(lease_srv, gate)
+                new_lease = (start + exe) + out_t
+            t_end = start + exe
+            lease.scatter_(2, s_t, torch.where(v, new_lease, lease_srv))
+            on = t_on.gather(2, s_t)
+            t_on.scatter_(2, s_t, torch.where(v, torch.minimum(on, start), on))
+            a_t = col(app[:, t])
+            ac = appc.gather(2, a_t)
+            appc.scatter_(2, a_t, torch.where(v, torch.maximum(ac, t_end), ac))
+            if not faithful:
+                e_t = t_end[..., 0]
+                ends[:, :, t % ring] = torch.where(v[..., 0], e_t,
+                                                   ends[:, :, t % ring])
+                far_end[:, :, t] = torch.where(
+                    v[..., 0] & far_write[:, t, None], e_t, far_end[:, :, t])
+                prev_end = torch.where(v, t_end, prev_end)
+            trans = torch.where(v[..., 0], trans + ph.tstep[:, :, t], trans)
+    used = ~torch.isinf(t_on)
+    comp = _seq_sum(torch.where(
+        used, cost_per_sec[:, None, :] * (lease - torch.where(used, t_on, 0.0)),
+        0.0))
+    feasible = (appc <= deadline[:, None, :]).all(-1) & ph.pin_ok & ~ph.bad
+    return comp + trans, feasible, _seq_sum(appc)
+
+
 def schedule_replay(order, compute, parent_idx, parent_mb, child_idx,
                     child_mb, app_id, deadline, pinned, power, cost_per_sec,
                     inv_bw, tran_cost, link_ok, X, *, faithful: bool = True
@@ -258,6 +421,29 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
 
 
 _LIB = None
+#: step tables of the problems replayed lately, with the tensors they came
+#: from (held, so their memory is not reused while cached) and their
+#: version counters (an in-place change misses)
+_TABLES: "OrderedDict[tuple, tuple]" = OrderedDict()
+_TABLES_KEPT = 16
+
+
+def _tables(order, parent_idx, app_id):
+    """``step_tables`` for the kernel, computed once per problem."""
+    srcs = (order, parent_idx, app_id)
+    key = tuple((t.data_ptr(), tuple(t.shape), t.stride(), str(t.device))
+                for t in srcs)
+    versions = tuple(t._version for t in srcs)
+    hit = _TABLES.get(key)
+    if hit is not None and hit[1] == versions:
+        _TABLES.move_to_end(key)
+        return hit[2]
+    meta = step_tables(order, parent_idx, app_id)
+    _TABLES[key] = (srcs, versions, meta)
+    _TABLES.move_to_end(key)
+    while len(_TABLES) > _TABLES_KEPT:
+        _TABLES.popitem(last=False)
+    return meta
 
 
 def _lib():
@@ -266,12 +452,19 @@ def _lib():
         from ._build import load
         lib = load("schedule_sim")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.schedule_replay_launch.argtypes = [vp] * 19 + [ci] * 9 + [vp]
+        lib.schedule_replay_launch.argtypes = [vp] * 21 + [ci] * 10 + [vp]
         lib.schedule_replay_launch.restype = ci
-        lib.schedule_replay_smem_bytes.argtypes = [ci, ci]
+        lib.schedule_replay_smem_bytes.argtypes = [ci] * 4
         lib.schedule_replay_smem_bytes.restype = ctypes.c_size_t
+        lib.schedule_replay_fields.argtypes = [ci, ci]
         lib.schedule_replay_error_string.argtypes = [ci]
         lib.schedule_replay_error_string.restype = ctypes.c_char_p
+        geometry = (lib.schedule_replay_ring(), lib.schedule_replay_tile(),
+                    lib.schedule_replay_ahead())
+        if geometry != (RING, TILE, AHEAD):
+            raise RuntimeError(f"schedule_sim.cu walks a ring, tile and "
+                               f"copy distance of {geometry}, the wrapper "
+                               f"expects {(RING, TILE, AHEAD)}")
         _LIB = lib
     return _LIB
 
@@ -309,25 +502,33 @@ def _launch(order, compute, parent_idx, parent_mb, child_idx, child_mb,
     tsum = torch.empty((N, P), dtype=f32, device=dev)
     if N == 0 or P == 0:
         return total, feas, tsum
+    if max_in > MAX_IN:
+        raise ValueError(f"{max_in} parent slots; the kernel takes at most "
+                         f"{MAX_IN}")
     lib = _lib()
-    smem = lib.schedule_replay_smem_bytes(S, max_apps)
+    smem = lib.schedule_replay_smem_bytes(S, max_apps, max_in, int(faithful))
     if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"{S} servers and {max_apps} apps need {smem} bytes "
-                         f"of shared memory; a block has {MAX_SMEM_BYTES}")
-    # genes layer-major, particles padded to whole warps: coalesced loads
-    P_pad = -(-P // 32) * 32
-    Xt = torch.zeros((N, max_p, P_pad), dtype=i32, device=dev)
-    Xt[:, :, :P] = X.transpose(1, 2)
-    end = torch.empty((N, max_p, P_pad) if not faithful else (1,),
-                      dtype=f32, device=dev)
+        raise ValueError(f"{S} servers, {max_apps} apps and {max_in} parent "
+                         f"slots need {smem} bytes of shared memory; a block "
+                         f"has {MAX_SMEM_BYTES}")
+    meta = _tables(order, parent_idx, app_id)
+    max_p_pad = meta.shape[1]
+    P_pad = -(-P // 32) * 32             # whole warps: 128-byte plane rows
+    n_chunks = -(-max_p // lib.schedule_replay_chunk())
+    planes = torch.empty((N, lib.schedule_replay_fields(max_in, int(faithful)),
+                          max_p_pad, P_pad), dtype=f32, device=dev)
+    flags = torch.empty((N, n_chunks, P_pad), dtype=torch.uint8, device=dev)
+    far_end = torch.empty((1,) if faithful else (N, max_p_pad, P_pad),
+                          dtype=f32, device=dev)
     ptrs = [t.data_ptr() for t in (
-        Xt, order, compute, parent_idx, parent_mb, child_idx, child_mb,
-        app_id, deadline, pinned, power, cost_per_sec, inv_bw, tran_cost,
-        link_ok.view(torch.uint8), end, total, feas, tsum)]
+        X, order, compute, parent_idx, parent_mb, child_idx, child_mb,
+        deadline, pinned, power, cost_per_sec, inv_bw, tran_cost,
+        link_ok.view(torch.uint8), meta, planes, flags, far_end, total, feas,
+        tsum)]
     stream = torch.cuda.current_stream(dev).cuda_stream
     schedule_replay.launches += 1
     err = lib.schedule_replay_launch(
-        *ptrs, N, P, P_pad, max_p, max_in, max_out, S, max_apps,
+        *ptrs, N, P, P_pad, max_p, max_p_pad, max_in, max_out, S, max_apps,
         int(faithful), stream)
     if err != 0:
         raise RuntimeError(

@@ -8,7 +8,11 @@ For every chunk, row ``i`` and head ``h``::
 The hand-written Hopper kernel (``csrc/ssd_scan.cu``) is the port of the
 Pallas kernel ``repro/kernels/ssd_scan.py::_ssd_kernel``. It computes each
 chunk's scores ``C . B^T`` once for a group of heads and only at or below
-the diagonal, where the TPU grid recomputes the whole square for every head.
+the diagonal, where the TPU grid recomputes the whole square for every head,
+and runs both products on the tensor cores in 3xTF32 (each float32 operand
+split into TF32 hi and lo parts, three products per pair), which keeps the
+float32 tolerance; ``tests/test_torch_ssd.py`` emulates its rounding on the
+CPU.
 ``ssd_intra_plain`` is the same function in plain PyTorch, after
 ``repro/kernels/ref.py::ssd_intra_ref``: a lower-triangular ``where`` (never
 a multiplication by a mask: above the diagonal ``exp`` may be inf), then

@@ -73,6 +73,76 @@ def test_kernel_matches_plain_on_card(cuda_device, faithful):
     torch.testing.assert_close(got[2], want[2], rtol=RTOL, atol=0)
 
 
+def _deep_bucket(device):
+    """Three problems of different true sizes whose parents reach beyond
+    the walk's ring of end times: a 300-layer chain with skip edges up to
+    250 steps back, a 150-layer random DAG (parents drawn from every
+    earlier layer) with two apps, and googlenet; one padded bucket."""
+    from repro_torch.core import LayerDAG
+    rng = np.random.default_rng(21)
+    n = 300
+    edges = [(j, j + 1) for j in range(n - 1)] + [
+        (u, u + d) for u, d in ((0, 250), (5, 100), (40, 33), (100, 199))]
+    chain = LayerDAG(compute=rng.uniform(0.1, 3.0, n),
+                     edges=np.asarray(edges, np.int32),
+                     edge_mb=rng.uniform(0.05, 2.0, len(edges)),
+                     app_id=np.zeros(n, np.int32), deadline=np.array([1e4]),
+                     pinned=np.r_[0, np.full(n - 1, -1)].astype(np.int32))
+    m = 150
+    redges = [(int(u), j) for j in range(1, m)
+              for u in rng.choice(j, size=min(j, 3), replace=False)]
+    rand = LayerDAG(compute=rng.uniform(0.1, 3.0, m),
+                    edges=np.asarray(redges, np.int32),
+                    edge_mb=rng.uniform(0.05, 2.0, len(redges)),
+                    app_id=(np.arange(m) >= 70).astype(np.int32),
+                    deadline=np.array([1e3, 2e3]),
+                    pinned=np.full(m, -1, np.int32))
+    env = paper_environment()
+    probs = [SimProblem.build(d, env)
+             for d in (chain, rand, zoo.build("googlenet", pin_server=1))]
+    sizes = [pad_problem(pr, device=device) for pr in probs]
+    ppb = stack_problems([pad_problem(
+        pr, max_p=n, max_S=32, max_apps=2,
+        max_in=max(s.parent_idx.shape[-1] for s in sizes),
+        max_out=max(s.child_idx.shape[-1] for s in sizes), device=device)
+        for pr in probs])
+    return probs, ppb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("faithful", [True, False])
+@pytest.mark.parametrize("P", [100, 129])
+def test_kernel_matches_plain_beyond_the_ring(cuda_device, P, faithful):
+    """Parents beyond the ring (the far route) in a stacked bucket of three
+    problems of different sizes, P = 100 and 129 (neither a multiple of
+    the 32-particle block): feasible exact, totals and completion sums to
+    rtol 1e-5, one counted call."""
+    rng = np.random.default_rng(P)
+    probs, ppb = _deep_bucket(cuda_device)
+    args = kernel_args(ppb)
+    meta = schedule_sim.step_tables(args[0], args[2], args[6])
+    assert bool((meta[..., 1:] > schedule_sim.RING).any())
+    Xb = np.zeros((3, P, ppb.max_layers), np.int32)
+    for n, pr in enumerate(probs):
+        Xb[n, :, :pr.num_layers] = rng.integers(
+            0, pr.num_servers, size=(P, pr.num_layers))
+        # one server throughout (an edge server for googlenet, the pinned
+        # end device for the others): feasible
+        Xb[n, :P // 2, :pr.num_layers] = 15 if n == 2 else 0
+        pins = np.flatnonzero(pr.pinned >= 0)
+        Xb[n][:, pins] = pr.pinned[pins]
+    X = torch.as_tensor(Xb, device=cuda_device)
+    before = schedule_sim.schedule_replay.launches
+    got = schedule_sim.schedule_replay(*args, X, faithful=faithful)
+    torch.cuda.synchronize()
+    assert schedule_sim.schedule_replay.launches == before + 1
+    want = schedule_sim.schedule_replay_plain(*args, X, faithful=faithful)
+    assert torch.equal(got[1], want[1])
+    assert got[1].any() and not got[1].all()
+    torch.testing.assert_close(got[0], want[0], rtol=RTOL, atol=0)
+    torch.testing.assert_close(got[2], want[2], rtol=RTOL, atol=0)
+
+
 @pytest.mark.cuda
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     _, ppb = _fleet(cuda_device)
@@ -347,6 +417,29 @@ def test_ssd_kernel_matches_plain_on_card(cuda_device, shape):
     assert ssd_scan.ssd_intra_folded.launches == before + 1
     want = ssd_scan.ssd_intra_plain(*args)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (8, 256, 80, 64, 128),             # mamba2-2.7b's heads and state
+    (8, 256, 112, 64, 64),             # zamba2-7b's
+    (4, 232, 80, 64, 128),             # a ragged last chunk
+    (4, 200, 112, 64, 64),
+])
+def test_ssd_kernel_at_the_model_widths_with_column_slices(cuda_device,
+                                                           shape):
+    """B5 at the served models' head counts and states, full and ragged
+    chunks, B and C read as column slices of one fused row (as the model's
+    xBC projection hands them over): within 1e-4 + 1e-4 |plain|."""
+    x, cum, B, C = _ssd_inputs(shape, cuda_device, shape[1] + shape[2])
+    n = B.shape[-1]
+    wide = torch.cat([B[..., :12], B, C], -1)
+    Bs, Cs = wide[..., 12:12 + n], wide[..., 12 + n:]
+    assert Bs.stride(-2) == 2 * n + 12
+    got = ssd_scan.ssd_intra_folded(x, cum, Bs, Cs)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ssd_scan.ssd_intra_plain(x, cum, B, C),
+                               rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.cuda

@@ -2,7 +2,9 @@
 port's layout wrapper on CPU tensors, against the reference's Pallas kernel
 (interpret mode, as ``tests/test_kernels.py`` runs it) and its
 ``ref.ssd_intra_ref`` oracle, over the reference's own sweep; causality, the
-masked entries above the diagonal, and the wrapper's refusals.
+masked entries above the diagonal, and the wrapper's refusals; and an
+emulation of the CUDA kernel's 3xTF32 tensor-core rounding (the CPU cannot
+run the kernel) against the Pallas kernel.
 
 Inputs are drawn with numpy as the reference test draws them and handed to
 both packages. Tolerance 1e-4 (rtol and atol), float32: the reference
@@ -124,3 +126,85 @@ def test_alignment_check_refuses_what_the_kernel_cannot_load():
         ssd_scan.check_aligned("Bc", torch.zeros(4, 16, 18)[..., 2:10])
     with pytest.raises(ValueError, match="contiguous"):
         ssd_scan.check_aligned("Cc", torch.zeros(4, 8, 16).transpose(1, 2))
+
+
+# ---------------------------------------------------------------------------
+# the kernel's 3xTF32 tensor-core route, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+def _tf32(a: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32``: float32 rounded to 10 mantissa bits, to
+    nearest with ties away from zero (13 low bits cleared)."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(a):
+    hi = _tf32(a)
+    return hi, _tf32(a - hi)
+
+
+def _mm3(a, b):
+    """a @ b as the kernel's mma3: the small terms lo·hi + hi·lo and the
+    large one hi·hi summed apart, then added; every product of two TF32
+    values is exact in float32, the sums are float32."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _b5_tensor_core_emulation(xc, cum, Bc, Cc):
+    """What the kernel computes, on the folded layout in float32: scores
+    C·Bᵀ in 3xTF32; W = scores · 2^((cum_i − cum_j) · log2 e) in float32
+    with j > i set to 0 before the exp is taken (the kernel's ex2.approx
+    differs from this exact exp2 by ~2^-22 relative); W·x in 3xTF32."""
+    q = xc.shape[1]
+    scores = _mm3(Cc, Bc.transpose(1, 2))                  # (bc, i, j)
+    tril = torch.ones((q, q), dtype=torch.bool).tril()[None, :, :, None]
+    li, lj = cum[:, :, None, :], cum[:, None, :, :]        # (bc, i/j, h)
+    gap = torch.where(tril, li - lj, 0.0) * np.float32(1.4426950408889634)
+    w = torch.where(tril, scores[..., None] * torch.exp2(gap), 0.0)
+    w = w.permute(0, 3, 1, 2)                              # (bc, h, i, j)
+    return _mm3(w, xc.permute(0, 2, 1, 3)).permute(0, 2, 1, 3)
+
+
+def test_tf32_rounding_keeps_ten_bits_ties_away():
+    x = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -11,
+                      -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12, 3.0e-39])
+    want = torch.tensor([1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -9,
+                         -(1.0 + 2.0 ** -10), 1.0, 0.0])
+    got = _tf32(x)
+    assert torch.equal(got[:5], want[:5])
+    hi, lo = _split(torch.tensor([np.float32(np.pi)]))
+    assert abs(float(hi + lo) - np.float32(np.pi)) < 2.0 ** -21
+
+
+@pytest.mark.parametrize("bc,q,h,p,n,steep", [
+    (2, 256, 3, 64, 128, False),     # mamba2-2.7b's chunk, head_dim, state
+    (2, 256, 3, 64, 64, False),      # zamba2-7b's state
+    (3, 232, 2, 64, 128, False),     # a ragged last chunk (1000 = 3·256 + 232)
+    (1, 100, 3, 16, 8, True),        # cum_i − cum_j reaches +500 above
+])
+def test_tensor_core_ssd_numerics_match_reference(bc, q, h, p, n, steep):
+    """The kernel's 3xTF32 rounding points stay within 1e-4 + 1e-4 |ref|
+    of the reference's Pallas kernel (interpret mode) on the same inputs,
+    with nothing inf or NaN where exp overflows above the diagonal."""
+    xc, cum, B, C = (a[:, 0] for a in _inputs(bc, 1, q, h, p, n, q + n))
+    if steep:
+        cum = np.broadcast_to(np.linspace(0.0, -500.0, q, dtype=np.float32)
+                              [None, :, None], (bc, q, h)).copy()
+    got = _b5_tensor_core_emulation(*_t(xc, cum, B, C)).numpy()
+    want = np.asarray(ref_ops.ssd_intra(
+        *(a[:, None] for a in (xc, cum, B, C))))[:, 0]
+    err = np.abs(got - want)
+    margin = float((err / (TOL + TOL * np.abs(want))).max())
+    print(f"B5 3xTF32 emulation {(bc, q, h, p, n)} steep={steep}: "
+          f"max_abs_err {err.max():.3g}, worst error / (tol + tol |ref|) "
+          f"{margin:.4f}")
+    assert np.isfinite(got).all() and margin <= 1.0
+    # one TF32 rounding per operand, no split, would not hold 1e-4 here
+    if not steep:
+        one = (_tf32(torch.from_numpy(C)) @ _tf32(torch.from_numpy(B))
+               .transpose(1, 2)).numpy()
+        full = np.einsum("bin,bjn->bij", C.astype(np.float64),
+                         B.astype(np.float64))
+        assert np.abs(one - full).max() > TOL * (1 + np.abs(full).max())

@@ -81,13 +81,19 @@ def test_traffic_config_draws_and_validation():
 # the traffic fitness key
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("M", [1, 2, 3, 4, 16])
+_JIT_P95 = jax.jit(lambda x: jnp.percentile(x, 95.0, axis=0))
+
+
+@pytest.mark.parametrize("M", range(1, 65))
 def test_p95_equals_jnp_percentile_bit_for_bit(M):
+    """The port's p95 against the reference's as its solver runs it,
+    inside ``jit`` (an eager ``jnp.percentile`` rounds the position
+    differently for some M, e.g. 6, 10, 16, 32 and 48)."""
     rng = np.random.default_rng(M)
     n_req = rng.integers(1, 40, size=(1, 4096))
     x = ((rng.integers(0, 41, size=(M, 4096)) % (n_req + 1))
          / n_req).astype(np.float32)
-    want = np.asarray(jnp.percentile(jnp.asarray(x), 95.0, axis=0))
+    want = np.asarray(_JIT_P95(jnp.asarray(x)))
     got = np_of(port.percentile_linear(torch.tensor(x), 95.0, dim=0))
     np.testing.assert_array_equal(got, want)
 
@@ -265,15 +271,18 @@ def test_plan_offload_batch_traffic_report_equals_reference_stats():
         assert plan.backend == "cpu"
 
 
-def test_swarm_step_under_traffic_fed_reference_draws():
+@pytest.mark.parametrize("n_seeds", [2, 16])
+def test_swarm_step_under_traffic_fed_reference_draws(n_seeds):
     """``swarm_step(arrivals=)`` fed the reference's draws gives the
-    reference traffic step's swarm, pBests and gBest, gene for gene."""
+    reference traffic step's swarm, pBests and gBest, gene for gene. At
+    16 draws the p95's interpolation point is one that an eager
+    ``jnp.percentile`` rounds differently from the jitted step."""
     dag, env = _deadlined(ref, "alexnet", 1.5)
     prob = ref.SimProblem.build(dag, env)
     cfg_ref = ref.PSOGAConfig(pop_size=8, max_iters=20, miss_budget=0.2)
     pp_ref = ref.pad_problem(prob, max_p=16)
     arr = ref.sample_arrivals("flash-crowd", 1, rate=0.5, horizon=20.0,
-                              max_requests=3, n_seeds=2, seed=1).t
+                              max_requests=3, n_seeds=n_seeds, seed=1).t
     rng = np.random.default_rng(0)
     X0 = link_aware_swarm(rng, prob, 8, 16)
     pp = to_port(pp_ref)
