@@ -19,13 +19,17 @@ result line):
                modes, 129 particles); ``feasible`` exact, costs rtol 1e-5. B2 (traffic replay), both modes:
                the qwen3-0.6b traffic bucket, an alexnet + googlenet fleet
                bucket under each of the four arrival families (one app
-               with no request at all), resnet101; ``static_ok`` and miss
-               rates exact, costs, latency sums and latencies rtol 1e-5;
+               with no request at all) and under arrivals tied across its
+               apps, resnet101, and the deep bucket under bursty draws
+               (parent reads beyond B2's ring asserted); ``static_ok`` and
+               miss rates exact, costs, latency sums and latencies rtol
+               1e-5, bit equality printed;
   3. time    — each kernel and its plain version: B1 at the qwen3-0.6b
                plan bucket and the Fig. 8 shape (calls queued behind a device
                sleep, five rounds, medians), beside its bytes bound and the
-               chain bound of its walk; B2 at the qwen3-0.6b traffic bucket
-               and at resnet101;
+               chain bound of its walk; B2 the same way at the qwen3-0.6b
+               traffic bucket and at resnet101 (chain bound: the longest
+               lane's steps);
   4. plan    — the main path: ``plan_offload_batch`` for qwen3-0.6b's
                serving shapes, as ``python -m repro_torch.launch.plan``;
   5. traffic — the same plan under bursty traffic (``--traffic bursty``):
@@ -465,6 +469,7 @@ def main() -> int:
         rels = [float(((g - w).abs() / w.abs().clamp_min(1e-30)).max())
                 for g, w in pairs]
         rec["traffic_max_abs_err"] = max(rec["traffic_max_abs_err"], *errs)
+        bits = all(torch.equal(g, w) for g, w in pairs)
         lat_err = f"{errs[2]:.3g}" if grid else "(no grid)"
         print(f"[check] B2 {tag}: X {tuple(X.shape)} M {M} R {R} steps "
               f"{tin.n_valid.min().item()}..{tin.n_valid.max().item()} "
@@ -472,7 +477,7 @@ def main() -> int:
               f"equal={same_ok} miss>0 {int((want[1] > 0).sum())}/"
               f"{want[1].numel()} equal={same_miss} max_abs_err total "
               f"{errs[0]:.3g} lat_sum {errs[1]:.3g} latency {lat_err} "
-              f"max_rel_err {max(rels):.3g}", flush=True)
+              f"max_rel_err {max(rels):.3g} bit_equal={bits}", flush=True)
         assert same_ok, f"{tag}: static_ok differs"
         assert same_miss, f"{tag}: miss_rate differs"
         assert max(rels) <= RTOL, f"{tag}: beyond rtol {RTOL}"
@@ -542,9 +547,37 @@ def main() -> int:
             for faithful in (True, False):
                 tcompare(f"alexnet+googlenet bucket {kind} "
                          f"faithful={faithful}", ppb, Xb, tin, faithful)
+        # arrivals tied across the two apps of each problem
+        arrs = [np.repeat(port.sample_arrivals(
+            "bursty", 1, rate=0.5, n_seeds=3, seed=SEED + 7 + i).t, 2, 1)
+            for i in range(2)]
+        tin = port.traffic_inputs(ppb, port.pack_arrivals(arrs, 2))
+        for faithful in (True, False):
+            tcompare(f"alexnet+googlenet bucket, arrivals tied across apps, "
+                     f"faithful={faithful}", ppb, Xb, tin, faithful)
         ppb, X, tin = resnet_traffic()
         for faithful in (True, False):
             tcompare(f"resnet101 faithful={faithful}", ppb, X, tin, faithful)
+        # parents beyond B2's ring of end times (and, across the random
+        # DAG's two apps, parents whose requests have not arrived yet)
+        probs, ppb = deep_bucket()
+        A = int(ppb.deadline.shape[-1])
+        tin = port.traffic_inputs(ppb, port.pack_arrivals([
+            port.sample_arrivals("bursty", pr.num_apps, rate=0.5, n_seeds=3,
+                                 seed=SEED + 11 + i).t
+            for i, pr in enumerate(probs)], A))
+        meta = traffic_sim.traffic_step_tables(
+            ppb.order, ppb.parent_idx, ppb.app_id, tin.slot_m, tin.n_valid,
+            tin.arr2.shape[-1])
+        far = int((meta[..., 2:] > traffic_sim.RING).sum())
+        assert far > 0, "the deep bucket must read beyond B2's ring"
+        Xb = torch.as_tensor(np.stack([
+            random_swarm(rng, pr, 129, ppb.max_layers) for pr in probs]),
+            device=dev)
+        for faithful in (True, False):
+            tcompare(f"deep bucket, {far} parent reads beyond the ring of "
+                     f"{traffic_sim.RING}, faithful={faithful}", ppb, Xb, tin,
+                     faithful)
 
     def check():
         ppb, X = plan_bucket()
@@ -660,17 +693,28 @@ def main() -> int:
                 ("resnet101", resnet_traffic(), (20, 2)),
                 ("qwen3-0.6b traffic bucket", traffic_bucket(), (50, 3))):
             args = kernel_args(ppb)
-            kernel = cuda_ms(lambda: b2(*args, X, *tin, faithful=False),
-                             reps[0])
+            k = [queued_ms(lambda: b2(*args, X, *tin, faithful=False),
+                           reps[0]) for _ in range(5)]
+            ms = float(np.median([r[0] for r in k]))
             plain = cuda_ms(lambda: traffic_sim.traffic_replay_plain(
                 *args, X, *tin, faithful=False), reps[1])
             bms, by = traffic_bound_ms(ppb, tin, X.shape[1], faithful=False)
-            timing[f"traffic {tag}"] = dict(ms=kernel, plain_ms=plain,
-                                            bound_ms=bms, bound_by=by)
+            steps = int(tin.n_valid.max())           # the longest lane
+            chain = 1e3 * steps * CHAIN_CYCLES / (max_mhz * 1e6)
+            timing[f"traffic {tag}"] = dict(ms=ms, plain_ms=plain,
+                                            bound_ms=bms, bound_by=by,
+                                            chain_ms=chain)
             print(f"[time] B2 {tag} corrected X {tuple(X.shape)} M "
-                  f"{tin.n_valid.shape[1]} steps {int(tin.n_valid.sum())}: "
-                  f"kernel {kernel:.4f} ms  plain {plain:.2f} ms  bound "
-                  f"{bms:.6f} ms ({by})", flush=True)
+                  f"{tin.n_valid.shape[1]}, steps {int(tin.n_valid.sum())} "
+                  f"(longest lane {steps}): kernel ms per round "
+                  f"{[round(r[0], 5) for r in k]} (host ms per call "
+                  f"{float(np.median([r[1] for r in k])):.4f}), median "
+                  f"{ms:.4f} ms ({1e6 * ms / steps * max_mhz / 1e3:.1f} "
+                  f"cycles a step of the longest lane at {max_mhz:.0f} MHz)  "
+                  f"plain {plain:.2f} ms  bound {bms:.6f} ms ({by})  chain "
+                  f"bound {chain:.4f} ms ({steps} x {CHAIN_CYCLES} cycles); "
+                  f"every call queued ahead of the device: "
+                  f"{all(r[2] for r in k)}", flush=True)
     _phase("time", time_kernel, failures)
 
     def replay_ok(tag, dag, env_, res, faithful):

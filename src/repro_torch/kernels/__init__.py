@@ -17,7 +17,9 @@ version:
     (``csrc/ssd_scan.cu``; port of ``repro/kernels/ssd_scan.py``)
 
 ``_build.SOURCES`` lists every ``csrc/<name>.cu``; each is wrapped by the
-module ``<name>.py``. ``ops`` holds the attention and SSD kernels'
+module ``<name>.py``. ``csrc/replay_common.cuh`` holds what the two replay
+kernels share: the carry-free first pass, the walk's geometry and the
+``cp.async`` helpers. ``ops`` holds the attention and SSD kernels'
 wrappers in the model's layout.
 
 Each module's dispatch (``schedule_replay``, ``traffic_replay``,

@@ -3,8 +3,9 @@ with a plain C interface, loaded with ``ctypes``.
 
 Each source under ``kernels/csrc/`` compiles on its own into
 ``kernels/build/<name>-<hash>.so`` the first time a kernel is launched in a
-process; the hash covers the source and the flags, so an edited source never
-loads a stale library. Nothing here runs at import time, so the CPU tests
+process; the hash covers the source, the headers it may include
+(``csrc/*.cuh``) and the flags, so an edited source or header never loads
+a stale library. Nothing here runs at import time, so the CPU tests
 import every module without a toolkit.
 """
 from __future__ import annotations
@@ -53,8 +54,13 @@ def find_nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
+    """The library of ``csrc/<name>.cu``, named by a hash of that source,
+    every shared header ``csrc/*.cuh`` and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(p.name.encode() + p.read_bytes()
+                       for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 

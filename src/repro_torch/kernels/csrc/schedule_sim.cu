@@ -14,19 +14,20 @@
 // on that chain, ~1,600 cycles a step, and ran a pop-100 swarm in one block.
 // This design takes everything that does not depend on the carry off it:
 //
-//   * Two launches per call. step_kernel is the carry-free first pass of
-//     kernels/schedule_sim.py::phase1: for every (problem, step, particle) it
-//     writes the step's server, execution time, outgoing transfer time,
-//     transmission $ and either max_trans (faithful) or each parent slot's
-//     transfer time tt (corrected), step-major as planes[n][field][t][i], and
-//     ORs each particle's forbidden-link / pin flags per chunk of 128 steps.
+//   * Two launches per call. schedule_step_kernel is the carry-free first
+//     pass of kernels/schedule_sim.py::phase1 (pass_body, shared with B2 in
+//     replay_common.cuh): for every (problem, step, particle) it writes the
+//     step's server, execution time, outgoing transfer time, transmission $
+//     and either max_trans (faithful) or each parent slot's transfer time tt
+//     (corrected), step-major as planes[n][field][t][i], and ORs each
+//     particle's forbidden-link / pin flags per chunk of 128 steps.
 //     It runs over every SM (blocks of 8 warps x 32 particles x 128 steps).
 //     A separate kernel, not producer warps inside the walk's block: the
 //     pass is ~10,000 independent gathers per particle at Fig. 8 and wants
 //     the whole card, while the walk wants few, small blocks; and the planes
 //     (~31 MB at Fig. 8) stay in the 50 MB L2 between the two launches.
-//   * walk_kernel carries the recurrence, one warp per block, one particle
-//     per lane, so pop 100 spans 4 blocks on 4 SMs (the fleet axis adds
+//   * schedule_walk_kernel carries the recurrence, one warp per block, one
+//     particle per lane, so pop 100 spans 4 blocks on 4 SMs (the fleet adds
 //     more). It reads the planes through a cp.async ring of kT = 16-step
 //     tiles, kAhead = 3 tiles in flight, so the copies' latency stays off
 //     the chain. The per-step tables that every particle shares (valid bit,
@@ -68,148 +69,31 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false -shared
 // -Xcompiler -fPIC (kernels/_build.py).
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
 #include <type_traits>
+
+#include "replay_common.cuh"
 
 namespace {
 
-constexpr int kLanes = 32;        // particles per walk block (one warp)
-constexpr int kT = 16;            // steps per tile of the walk's buffers
-constexpr int kAhead = 3;         // tiles whose copies are in flight
-constexpr int kPlaneStages = kAhead + 1;
-constexpr int kMetaStages = 2 * kAhead + 1;  // step tables run kAhead further
-constexpr int kW = 64;            // ring of parents' end times, in steps
-constexpr int kMaxIn = 8;         // parent slots the walk takes
-constexpr int kChunk = 128;       // steps per step_kernel block
-constexpr int kStepWarps = 8;     // step_kernel warps per block
-static_assert(kW >= (kAhead + 1) * kT,
-              "a far read must be final when it is copied, kAhead tiles ahead");
-static_assert((kW & (kW - 1)) == 0, "the ring is indexed by a mask");
-
-struct Args {
-  const int* X;             // (N, P, max_p) genes
-  const int* order;         // (N, max_p)
-  const float* compute;     // (N, max_p)
-  const int* parent_idx;    // (N, max_p, max_in)
-  const float* parent_mb;
-  const int* child_idx;     // (N, max_p, max_out)
-  const float* child_mb;
+// B1's arguments: the carry-free pass's (rows = max_p_pad), then the walk's.
+struct Args : PassArgs {
   const float* deadline;    // (N, max_apps)
-  const int* pinned;        // (N, max_p)
-  const float* power;       // (N, S)
-  const float* cost_per_sec;
-  const float* inv_bw;      // (N, S, S)
-  const float* tran_cost;
-  const uint8_t* link_ok;
+  const float* cost_per_sec;  // (N, S)
   const int* meta;          // (N, max_p_pad, 1 + max_in) step tables
-  float* planes;            // (N, F, max_p_pad, P_pad)
-  uint8_t* flags;           // (N, n_chunks, P_pad)
   float* far_end;           // (N, max_p_pad, P_pad), corrected mode
   float* total;             // (N, P)
   uint8_t* feasible;
   float* tsum;
-  int P, P_pad, max_p, max_p_pad, max_in, max_out, S, max_apps, F, n_chunks;
+  int max_p_pad, max_apps;
 };
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// wait until at most N of this thread's committed groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // ---------------------------------------------------------------------------
 // pass 1: the carry-free quantities of every (step, particle)
 // ---------------------------------------------------------------------------
 template <bool FAITHFUL>
-__global__ void __launch_bounds__(kStepWarps * 32) step_kernel(const Args a) {
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int i = blockIdx.x * kLanes + lane;
-  const int chunk = blockIdx.y, n = blockIdx.z;
-  const int S = a.S, max_in = a.max_in, max_out = a.max_out;
-  const size_t SS = static_cast<size_t>(S) * S;
-  const float* inv_bw = a.inv_bw + n * SS;
-  const float* tran = a.tran_cost + n * SS;
-  const uint8_t* link = a.link_ok + n * SS;
-  const float* power = a.power + static_cast<size_t>(n) * S;
-  const size_t layer0 = static_cast<size_t>(n) * a.max_p;
-  const int* ord = a.order + layer0;
-  const float* comp = a.compute + layer0;
-  const int* pidx = a.parent_idx + layer0 * max_in;
-  const float* pmb = a.parent_mb + layer0 * max_in;
-  const int* cidx = a.child_idx + layer0 * max_out;
-  const float* cmb = a.child_mb + layer0 * max_out;
-  const int* pin = a.pinned + layer0;
-  // lanes past P replay gene 0 everywhere: harmless, and never written out
-  const bool live = i < a.P;
-  const int* x = a.X + (static_cast<size_t>(n) * a.P + (live ? i : 0)) * a.max_p;
-  const size_t plane = static_cast<size_t>(a.max_p_pad) * a.P_pad;
-
-  unsigned flag = 0;                    // bit 0: forbidden link, bit 1: pin
-  for (int s = 0; s < kChunk / kStepWarps; ++s) {
-    const int t = chunk * kChunk + s * kStepWarps + w;
-    if (t >= a.max_p) break;
-    const int j = ord[t];
-    if (j < 0) continue;                // padded step: the walk skips it
-    const int srv = live ? __ldg(x + j) : 0;
-    const float exe = comp[j] / power[srv];
-    float* pl = a.planes + static_cast<size_t>(n) * a.F * plane +
-                static_cast<size_t>(t) * a.P_pad + i;
-    float max_trans = 0.0f, tstep = 0.0f;
-    for (int k = 0; k < max_in; ++k) {
-      const int pj = pidx[j * max_in + k];
-      float tt = 0.0f;
-      if (pj >= 0) {
-        const float mb = pmb[j * max_in + k];
-        const int psrv = live ? __ldg(x + pj) : 0;
-        tt = mb * __ldg(inv_bw + psrv * S + srv);
-        max_trans = fmaxf(max_trans, tt);
-        tstep = tstep + __ldg(tran + psrv * S + srv) * mb;
-        if (psrv != srv && !__ldg(link + psrv * S + srv)) flag |= 1u;
-      }
-      if (!FAITHFUL) pl[(4 + k) * plane] = tt;
-    }
-    float out_t = 0.0f;
-    for (int k = 0; k < max_out; ++k) {
-      const int cj = cidx[j * max_out + k];
-      if (cj < 0) continue;
-      const int csrv = live ? __ldg(x + cj) : 0;
-      out_t = out_t + cmb[j * max_out + k] * __ldg(inv_bw + srv * S + csrv);
-      if (csrv != srv && !__ldg(link + srv * S + csrv)) flag |= 1u;
-    }
-    if (pin[j] >= 0 && srv != pin[j]) flag |= 2u;
-    pl[0] = __int_as_float(srv);
-    pl[plane] = exe;
-    pl[2 * plane] = out_t;
-    pl[3 * plane] = tstep;
-    if (FAITHFUL) pl[4 * plane] = max_trans;
-  }
-  __shared__ unsigned s_flag[kStepWarps][32];
-  s_flag[w][lane] = flag;
-  __syncthreads();
-  if (w == 0) {
-    for (int v = 1; v < kStepWarps; ++v) flag |= s_flag[v][lane];
-    a.flags[(static_cast<size_t>(n) * a.n_chunks + chunk) * a.P_pad + i] =
-        static_cast<uint8_t>(flag);
-  }
+__global__ void __launch_bounds__(kStepWarps * 32)
+schedule_step_kernel(const PassArgs a) {
+  pass_body<FAITHFUL>(a);
 }
 
 // ---------------------------------------------------------------------------
@@ -229,7 +113,7 @@ __host__ __device__ constexpr size_t walk_smem_floats(int F, int max_in, int S,
 // takes kB steps' carry-free values into registers at a time. TMASK
 // (corrected mode, S <= 64): t_on is stored once, at a server's first use.
 template <bool FAITHFUL, int MAXIN, bool TMASK>
-__global__ void __launch_bounds__(kLanes) walk_kernel(const Args a) {
+__global__ void __launch_bounds__(kLanes) schedule_walk_kernel(const Args a) {
   constexpr int kB = MAXIN <= 4 ? 8 : 4;
   static_assert(kT % kB == 0, "a tile holds whole batches");
   extern __shared__ __align__(16) float smem[];
@@ -474,10 +358,10 @@ cudaError_t launch_walk(const Args& a, int N, cudaStream_t st) {
   const size_t smem = sizeof(float) * walk_smem_floats(a.F, a.max_in, a.S,
                                                        a.max_apps, FAITHFUL);
   cudaError_t err = cudaFuncSetAttribute(
-      walk_kernel<FAITHFUL, MAXIN, TMASK>,
+      schedule_walk_kernel<FAITHFUL, MAXIN, TMASK>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  walk_kernel<FAITHFUL, MAXIN, TMASK>
+  schedule_walk_kernel<FAITHFUL, MAXIN, TMASK>
       <<<dim3(a.P_pad / kLanes, N), kLanes, smem, st>>>(a);
   return cudaGetLastError();
 }
@@ -491,8 +375,8 @@ cudaError_t launch_walk(const Args& a, int N, cudaStream_t st) {
 template <bool FAITHFUL>
 cudaError_t launch(const Args& a, int N, cudaStream_t st) {
   if (a.n_chunks > 0) {
-    step_kernel<FAITHFUL><<<dim3(a.P_pad / kLanes, a.n_chunks, N),
-                            kStepWarps * 32, 0, st>>>(a);
+    schedule_step_kernel<FAITHFUL><<<pass_grid(a, N), kStepWarps * 32, 0,
+                                     st>>>(a);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -515,7 +399,7 @@ int schedule_replay_chunk() { return kChunk; }
 // Planes per step: srv, exe, out_t, tstep, then max_trans (faithful) or one
 // transfer time per parent slot (corrected).
 int schedule_replay_fields(int max_in, int faithful) {
-  return faithful ? 5 : 4 + max_in;
+  return pass_fields(max_in, faithful != 0);
 }
 
 size_t schedule_replay_smem_bytes(int S, int max_apps, int max_in,
@@ -557,7 +441,8 @@ int schedule_replay_launch(const int* X, const int* order, const float* compute,
   a.link_ok = link_ok; a.meta = meta; a.planes = planes; a.flags = flags;
   a.far_end = far_end; a.total = total; a.feasible = feasible; a.tsum = tsum;
   a.P = P; a.P_pad = P_pad; a.max_p = max_p; a.max_p_pad = max_p_pad;
-  a.max_in = max_in; a.max_out = max_out; a.S = S; a.max_apps = max_apps;
+  a.rows = max_p_pad; a.max_in = max_in; a.max_out = max_out; a.S = S;
+  a.max_apps = max_apps;
   a.F = schedule_replay_fields(max_in, faithful);
   a.n_chunks = (max_p + kChunk - 1) / kChunk;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

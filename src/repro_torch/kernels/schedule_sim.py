@@ -421,29 +421,35 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
 
 
 _LIB = None
-#: step tables of the problems replayed lately, with the tensors they came
-#: from (held, so their memory is not reused while cached) and their
-#: version counters (an in-place change misses)
+#: step tables of the problems (and merged orders) replayed lately, with the
+#: tensors they came from (held, so their memory is not reused while cached)
+#: and their version counters (an in-place change misses)
 _TABLES: "OrderedDict[tuple, tuple]" = OrderedDict()
 _TABLES_KEPT = 16
 
 
-def _tables(order, parent_idx, app_id):
-    """``step_tables`` for the kernel, computed once per problem."""
-    srcs = (order, parent_idx, app_id)
-    key = tuple((t.data_ptr(), tuple(t.shape), t.stride(), str(t.device))
-                for t in srcs)
+def _memo_tables(tag: str, srcs, build):
+    """``build()``, computed once per ``tag`` and set of source tensors
+    ``srcs`` (kept for the last ``_TABLES_KEPT`` of them)."""
+    key = (tag,) + tuple((t.data_ptr(), tuple(t.shape), t.stride(),
+                          str(t.device)) for t in srcs)
     versions = tuple(t._version for t in srcs)
     hit = _TABLES.get(key)
     if hit is not None and hit[1] == versions:
         _TABLES.move_to_end(key)
         return hit[2]
-    meta = step_tables(order, parent_idx, app_id)
+    meta = build()
     _TABLES[key] = (srcs, versions, meta)
     _TABLES.move_to_end(key)
     while len(_TABLES) > _TABLES_KEPT:
         _TABLES.popitem(last=False)
     return meta
+
+
+def _tables(order, parent_idx, app_id):
+    """``step_tables`` for the kernel, computed once per problem."""
+    return _memo_tables("schedule", (order, parent_idx, app_id),
+                        lambda: step_tables(order, parent_idx, app_id))
 
 
 def _lib():

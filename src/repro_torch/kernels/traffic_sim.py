@@ -4,11 +4,19 @@ PyTorch version.
 A traffic-aware PSO-GA solve scores every particle of every iteration
 under R request copies of the schedule for each of M Monte-Carlo arrival
 draws. The hand-written Hopper kernel (``csrc/traffic_sim.cu``, the port of
-the Pallas kernel ``repro/kernels/traffic_sim.py::_traffic_kernel``) walks
-the merged event order of every (problem, draw, particle) in one launch;
+the Pallas kernel ``repro/kernels/traffic_sim.py::_traffic_kernel``) makes
+two CUDA launches per call: the carry-free pass that the zero-load replay
+runs too (``schedule_sim.phase1`` by topo position, once per problem and
+particle), then a walk of every (problem, draw)'s merged order that
+gathers each step's row at its layer's topo position and carries the
+server leases, the request completions and, in corrected mode, a ring of
+the last ``RING`` end times per particle. ``traffic_step_tables`` builds
+what the walk shares across particles, once per solve.
 ``traffic_replay_plain`` is the same walk as plain PyTorch ops with the
 particle axis inside each op, used on the CPU and to check the kernel on
-the card.
+the card; ``traffic_ring_plain`` runs the walk's tables, ring and far-read
+addressing in plain PyTorch, with any ring, tile and copy distance, for
+the CPU tests.
 
 Both take the zero-load replay's 14 problem arrays and genes (see
 ``kernels/schedule_sim.py``, leading fleet axis N) plus the merged order,
@@ -16,7 +24,8 @@ built once per solve by ``core.traffic.traffic_inputs``:
 
   * ``slot_m (N, M, T)`` i32, ``T = R * max_p``: the merged steps of each
     draw, step = ``r * max_p + layer id``; the first ``n_valid`` are real
-    (sorted by arrival, then slot), the rest are never read;
+    (sorted by arrival, then request slot, then topo position), the rest
+    are never read;
   * ``arr_m (N, M, T)`` f32 arrival time of each step's request;
   * ``n_valid (N, M)`` i32 real steps of each draw;
   * ``arr2 (N, M, max_apps, R)`` f32 request arrivals, 0 where not real;
@@ -31,8 +40,9 @@ arrival, 0 for slots that are not real) or None when none was passed.
 
 ``traffic_replay`` picks by the tensors' device: plain on the CPU, the
 kernel on CUDA (or it raises); there is no fallback between the two. Its
-``launches`` attribute counts kernel launches. Every float sum of the plain
-version runs in the kernel's order, so the two agree to the rounding.
+``launches`` attribute counts calls that launch the kernel (each is one
+replay, two CUDA launches). Every float sum of the plain version runs in
+the kernel's order, so the two agree bit for bit.
 """
 from __future__ import annotations
 
@@ -40,10 +50,13 @@ import ctypes
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
-from .schedule_sim import MAX_SMEM_BYTES, _check, _seq_sum, phase1
+from .schedule_sim import (AHEAD, MAX_IN, MAX_SMEM_BYTES, RING, TILE, _check,
+                           _memo_tables, _seq_sum, phase1)
 
-__all__ = ["traffic_replay", "traffic_replay_plain"]
+__all__ = ["traffic_replay", "traffic_replay_plain", "traffic_ring_plain",
+           "traffic_step_tables"]
 
 
 def _cat(t: torch.Tensor, fill, dim: int) -> torch.Tensor:
@@ -61,6 +74,25 @@ def _draws(slot_m: torch.Tensor) -> int:
         raise ValueError(f"slot_m must be (N, M, T) with M >= 1 arrival "
                          f"draws; got {tuple(slot_m.shape)}")
     return slot_m.shape[1]
+
+
+def _epilogue(lease, t_on, appc, trans, cost_per_sec, deadline, arr2,
+              req_valid, latency):
+    """Sums over servers, then over apps x requests, in the kernel's order:
+    ``lease, t_on (N, M, P, S)``, ``appc (N, M, P, max_apps R)``."""
+    N, M, A, R = arr2.shape
+    used = ~torch.isinf(t_on)
+    comp = _seq_sum(torch.where(
+        used, cost_per_sec[:, None, None, :]
+        * (lease - torch.where(used, t_on, 0.0)), 0.0))
+    rv = req_valid.reshape(N, M, 1, A * R)
+    lat = torch.where(rv, appc - arr2.reshape(N, M, 1, A * R), 0.0)
+    dl = deadline.repeat_interleave(R, -1)[:, None, None, :]
+    misses = _seq_sum((rv & (lat > dl)).to(torch.float32))
+    n_req = rv.to(torch.float32).sum(-1).clamp_min(1.0)
+    if latency is not None:
+        latency.copy_(lat.reshape(latency.shape))
+    return comp + trans, misses / n_req, _seq_sum(lat), latency
 
 
 def traffic_replay_plain(order, compute, parent_idx, parent_mb, child_idx,
@@ -154,22 +186,198 @@ def traffic_replay_plain(order, compute, parent_idx, parent_mb, child_idx,
                 N, M, P, 1), t_end)
         trans = trans + g(ts)[..., 0]
 
-    # ---- epilogue: servers, then apps x requests, in the kernel's order ----
-    t_on, lease = t_on[..., :S], lease[..., :S]
-    used = ~torch.isinf(t_on)
-    comp = _seq_sum(torch.where(
-        used, cost_per_sec[:, None, None, :]
-        * (lease - torch.where(used, t_on, 0.0)), 0.0))
-    rv = req_valid.reshape(N, M, 1, A * R)
-    lat = torch.where(rv, appc[..., :A * R] - arr2.reshape(N, M, 1, A * R),
-                      0.0)
-    dl = deadline.repeat_interleave(R, -1)[:, None, None, :]
-    misses = _seq_sum((rv & (lat > dl)).to(f32))
-    n_req = rv.to(f32).sum(-1).clamp_min(1.0)
-    if latency is not None:
-        latency.copy_(lat.reshape(N, M, P, A, R))
-    return (comp + trans, misses / n_req, _seq_sum(lat),
-            ph.pin_ok & ~ph.bad, latency)
+    total, miss, lat_sum, latency = _epilogue(
+        lease[..., :S], t_on[..., :S], appc[..., :A * R], trans,
+        cost_per_sec, deadline, arr2, req_valid, latency)
+    return total, miss, lat_sum, ph.pin_ok & ~ph.bad, latency
+
+
+def traffic_step_tables(order: torch.Tensor, parent_idx: torch.Tensor,
+                        app_id: torch.Tensor, slot_m: torch.Tensor,
+                        n_valid: torch.Tensor, R: int, *, ring: int = RING,
+                        tile: int = TILE) -> torch.Tensor:
+    """What the kernel's walk shares across the particles of each (problem,
+    draw) lane, per merged step: ``(N, M, T_pad, 2 + max_in)`` int32, the
+    step axis ``T = R * max_p`` padded with no-op steps to a multiple of
+    ``tile``. Entry 0 packs bit 0 "a real step" (one of the first
+    ``n_valid``), bit 1 "its end is read more than ``ring`` steps later"
+    and, from bit 8, the completion column ``app * R + r`` of the step's
+    (app, request); on a tile's first step also bit 2 "some step of this
+    tile reads a parent more than ``ring`` steps back" and bit 3 "every
+    step of this tile is real". Entry 1 is the topo position of the step's
+    layer (the plane row the walk reads; 0 on a no-op step). Entries 2..
+    hold each parent slot's distance in merged steps: the step minus the
+    step of the same request's parent layer; 0 for no parent, and -1 for a
+    parent whose step has not come in this draw (an edge between apps whose
+    requests arrive apart): its end reads 0, as the plain version's end
+    buffer holds it until that step."""
+    N, max_p = order.shape
+    M, T = slot_m.shape[1:]
+    if T != R * max_p:
+        raise ValueError(f"slot_m has {T} steps a draw; {R} requests of "
+                         f"{max_p} layers make {R * max_p}")
+    max_in = parent_idx.shape[-1]
+    dev = order.device
+    i64 = torch.long
+    t = torch.arange(T, device=dev)
+    real = t < n_valid.to(i64)[..., None]                    # (N, M, T)
+    slot = torch.where(real, slot_m.to(i64), 0)
+    r = slot // max_p
+    j = slot - r * max_p
+
+    def by_layer(table, idx):                    # (N, K) at (N, M, T) ids
+        return table.gather(1, idx.reshape(N, -1)).reshape(idx.shape)
+
+    valid = order >= 0
+    pos = torch.zeros((N, max_p + 1), dtype=i64, device=dev).scatter_(
+        1, torch.where(valid, order.to(i64), max_p),
+        torch.arange(max_p, device=dev).expand(N, max_p))
+    q = torch.where(real, by_layer(pos, j), 0)
+    c = by_layer(app_id.to(i64), j) * R + r
+    # the merged step of every slot of the lane (-1: not a real step)
+    at = torch.full((N, M, T + 1), -1, dtype=i64, device=dev).scatter_(
+        2, torch.where(real, slot, T), t.expand(N, M, T))
+    pars = parent_idx.to(i64).gather(1, j.reshape(N, -1, 1).expand(
+        -1, -1, max_in)).reshape(N, M, T, max_in)
+    pm = (pars >= 0) & real[..., None]
+    ppos = at.gather(2, torch.where(pm, r[..., None] * max_p + pars,
+                                    T).reshape(N, M, -1)).reshape(pars.shape)
+    before = (ppos >= 0) & (ppos < t[:, None])
+    dist = torch.where(pm, torch.where(before, t[:, None] - ppos, -1), 0)
+    far = dist > ring
+    far_write = torch.zeros((N, M, T + 1), dtype=i64, device=dev).scatter_(
+        2, torch.where(far, ppos, T).reshape(N, M, -1), 1)[..., :T]
+    head = torch.where(real, 1 | (far_write << 1) | (c << 8), 0)
+    pad = -T % tile
+    tiles = F.pad(torch.stack([far.any(-1), real], -1),
+                  (0, 0, 0, pad)).reshape(N, M, -1, tile, 2)
+    first = ((tiles[..., 0].any(-1).to(i64) << 2)
+             | (tiles[..., 1].all(-1).to(i64) << 3))          # (N, M, tiles)
+    meta = F.pad(torch.cat([head[..., None], q[..., None], dist], -1),
+                 (0, 0, 0, pad))
+    meta[:, :, ::tile, 0] |= first
+    return meta.to(torch.int32).contiguous()
+
+
+def traffic_ring_plain(order, compute, parent_idx, parent_mb, child_idx,
+                       child_mb, app_id, deadline, pinned, power,
+                       cost_per_sec, inv_bw, tran_cost, link_ok, X, slot_m,
+                       arr_m, n_valid, arr2, req_valid, *,
+                       faithful: bool = True,
+                       latency: Optional[torch.Tensor] = None,
+                       ring: int = RING, tile: int = TILE, ahead: int = AHEAD):
+    """The kernel's walk in plain PyTorch, to test its addressing on the
+    CPU with any ``ring``, ``tile`` and copy distance ``ahead`` (``ring >=
+    (ahead + 1) tile``, as the kernel requires): the carry-free ``phase1``
+    planes by topo position, read at each merged step's row ``q`` of the
+    ``traffic_step_tables``, and a loop over tiles of steps that reads each
+    parent's end from the previous step's end (distance 1), a ring of the
+    last ``ring`` ends or, beyond it, from a buffer copied ``ahead`` tiles
+    early out of the ends that ``far_write`` steps store. Ends not yet
+    stored read as NaN, so a copy made before its value is final shows in
+    the result. Same arguments and outputs as ``traffic_replay_plain``."""
+    if ring < (ahead + 1) * tile:
+        raise ValueError(f"ring {ring} must hold {ahead + 1} tiles of "
+                         f"{tile} steps")
+    X = X.to(torch.int32)
+    N, P, max_p = X.shape
+    M = _draws(slot_m)
+    A, R = arr2.shape[-2:]
+    S = power.shape[-1]
+    max_in = parent_idx.shape[-1]
+    dev = X.device
+    valid = order >= 0
+    ph = phase1(torch.where(valid, order, 0).long(), valid, compute,
+                parent_idx, parent_mb, child_idx, child_mb, pinned, power,
+                inv_bw, tran_cost, link_ok, X)
+    meta = traffic_step_tables(order, parent_idx, app_id, slot_m, n_valid, R,
+                               ring=ring, tile=tile)
+    head, dist = meta[..., 0], meta[..., 2:].long()
+    live, far_write = (head & 1) > 0, (head & 2) > 0
+    col, q = (head >> 8).long(), meta[..., 1].long()
+    steps = meta.shape[2]
+    arr = F.pad(arr_m, (0, steps - slot_m.shape[2]))
+
+    def rows(plane):            # (N, P, max_p, ...) -> (N, M, P, steps, ...)
+        extra = plane.shape[3:]
+        idx = q[:, :, None, :].reshape(N, M, 1, steps, *(1,) * len(extra))
+        return plane[:, None].expand(N, M, P, max_p, *extra).gather(
+            3, idx.expand(N, M, P, steps, *extra))
+
+    srv, exe, out_t, tstep, mx, tt = (rows(p) for p in (
+        ph.srv, ph.exe, ph.out_t, ph.tstep, ph.max_trans, ph.tt))
+
+    def lanecol(idx):                    # (N, M) -> (N, M, P, 1) gather index
+        return idx[:, :, None, None].expand(N, M, P, 1)
+
+    def fetch(k):                        # tile k's reads beyond the ring
+        buf = torch.zeros((N, M, P, tile, max_in), device=dev)
+        for tl in range(tile):
+            t = k * tile + tl
+            for kk in range(max_in):
+                d = dist[:, :, t, kk]
+                got = far_end.gather(3, lanecol((t - d).clamp(min=0)))[..., 0]
+                buf[..., tl, kk] = torch.where((d > ring)[..., None], got, 0.0)
+        return buf
+
+    lease = torch.zeros((N, M, P, S), device=dev)
+    t_on = torch.full((N, M, P, S), float("inf"), device=dev)
+    appc = torch.zeros((N, M, P, A * R), device=dev)
+    ends = torch.zeros((N, M, P, ring), device=dev)
+    prev_end = torch.zeros((N, M, P, 1), device=dev)
+    far_end = torch.full((N, M, P, steps), float("nan"), device=dev)
+    far_buf = {}
+    trans = torch.zeros((N, M, P), device=dev)
+    ntiles = steps // tile
+    for k in range(ntiles):
+        if not faithful:             # tiles below ``ahead`` read nothing far
+            for kt in (range(ahead + 1) if k == 0 else (k + ahead,)):
+                if kt < ntiles:
+                    far_buf[kt] = fetch(kt)
+        for tl in range(tile):
+            t = k * tile + tl
+            v = live[:, :, t, None, None]
+            s_t = srv[..., t, None]
+            exe_t, out_tt = exe[..., t, None], out_t[..., t, None]
+            a = arr[:, :, t, None, None]
+            lease_srv = lease.gather(3, s_t)
+            if faithful:
+                b = torch.maximum(lease_srv, a)
+                start = b + mx[..., t, None]
+                new_lease = (b + exe_t) + out_tt
+            else:
+                gate = torch.zeros((N, M, P, 1), device=dev)
+                for kk in range(max_in):
+                    d = dist[:, :, t, kk][..., None, None]
+                    e = torch.where(
+                        d == 1, prev_end, torch.where(
+                            d <= ring,
+                            ends.gather(3, lanecol((t - dist[:, :, t, kk])
+                                                   % ring)),
+                            far_buf[k][..., tl, kk, None]))
+                    e = torch.where(d < 0, 0.0, e)
+                    gate = torch.where(d > 0, torch.maximum(
+                        gate, e + tt[..., t, kk, None]), gate)
+                start = torch.maximum(lease_srv, torch.maximum(gate, a))
+                new_lease = (start + exe_t) + out_tt
+            t_end = start + exe_t
+            lease.scatter_(3, s_t, torch.where(v, new_lease, lease_srv))
+            on = t_on.gather(3, s_t)
+            t_on.scatter_(3, s_t, torch.where(v, torch.minimum(on, start), on))
+            c_t = lanecol(col[:, :, t])
+            ac = appc.gather(3, c_t)
+            appc.scatter_(3, c_t, torch.where(v, torch.maximum(ac, t_end), ac))
+            if not faithful:
+                e_t, v_t = t_end[..., 0], v[..., 0]
+                ends[..., t % ring] = torch.where(v_t, e_t, ends[..., t % ring])
+                far_end[..., t] = torch.where(
+                    v_t & far_write[:, :, t, None], e_t, far_end[..., t])
+                prev_end = torch.where(v, t_end, prev_end)
+            trans = torch.where(v[..., 0], trans + tstep[..., t], trans)
+    total, miss, lat_sum, latency = _epilogue(
+        lease, t_on, appc, trans, cost_per_sec, deadline, arr2, req_valid,
+        latency)
+    return total, miss, lat_sum, ph.pin_ok & ~ph.bad, latency
 
 
 def traffic_replay(order, compute, parent_idx, parent_mb, child_idx,
@@ -198,18 +406,34 @@ traffic_replay.launches = 0
 _LIB = None
 
 
+def _tables(order, parent_idx, app_id, slot_m, n_valid, R):
+    """``traffic_step_tables`` for the kernel, computed once per merged
+    order (a solve builds its ``TrafficInputs`` once)."""
+    return _memo_tables(
+        "traffic", (order, parent_idx, app_id, slot_m, n_valid),
+        lambda: traffic_step_tables(order, parent_idx, app_id, slot_m,
+                                    n_valid, R))
+
+
 def _lib():
     global _LIB
     if _LIB is None:
         from ._build import load
         lib = load("traffic_sim")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.traffic_replay_launch.argtypes = [vp] * 26 + [ci] * 11 + [vp]
+        lib.traffic_replay_launch.argtypes = [vp] * 27 + [ci] * 12 + [vp]
         lib.traffic_replay_launch.restype = ci
-        lib.traffic_replay_smem_bytes.argtypes = [ci, ci, ci]
+        lib.traffic_replay_smem_bytes.argtypes = [ci] * 5
         lib.traffic_replay_smem_bytes.restype = ctypes.c_size_t
+        lib.traffic_replay_fields.argtypes = [ci, ci]
         lib.traffic_replay_error_string.argtypes = [ci]
         lib.traffic_replay_error_string.restype = ctypes.c_char_p
+        geometry = (lib.traffic_replay_ring(), lib.traffic_replay_tile(),
+                    lib.traffic_replay_ahead())
+        if geometry != (RING, TILE, AHEAD):
+            raise RuntimeError(f"traffic_sim.cu walks a ring, tile and copy "
+                               f"distance of {geometry}, the wrapper "
+                               f"expects {(RING, TILE, AHEAD)}")
         _LIB = lib
     return _LIB
 
@@ -260,29 +484,35 @@ def _launch(order, compute, parent_idx, parent_mb, child_idx, child_mb,
     static_ok = torch.empty((N, P), dtype=torch.bool, device=dev)
     if N == 0 or P == 0:
         return total, miss, lat_sum, static_ok, latency
+    if max_in > MAX_IN:
+        raise ValueError(f"{max_in} parent slots; the kernel takes at most "
+                         f"{MAX_IN}")
     lib = _lib()
-    smem = lib.traffic_replay_smem_bytes(S, A, R)
+    smem = lib.traffic_replay_smem_bytes(S, A, R, max_in, int(faithful))
     if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"{S} servers and {A} apps x {R} requests need "
-                         f"{smem} bytes of shared memory; a block has "
-                         f"{MAX_SMEM_BYTES}")
-    # genes layer-major, particles padded to whole warps: coalesced loads
-    P_pad = -(-P // 32) * 32
-    Xt = torch.zeros((N, max_p, P_pad), dtype=i32, device=dev)
-    Xt[:, :, :P] = X.transpose(1, 2)
-    end = torch.zeros((N, M, T, P_pad) if not faithful else (1,),
-                      dtype=f32, device=dev)
+        raise ValueError(f"{S} servers, {A} apps x {R} requests and {max_in} "
+                         f"parent slots need {smem} bytes of shared memory; "
+                         f"a block has {MAX_SMEM_BYTES}")
+    meta = _tables(order, parent_idx, app_id, slot_m, n_valid, R)
+    T_pad = meta.shape[2]
+    P_pad = -(-P // 32) * 32             # whole warps: 128-byte plane rows
+    n_chunks = -(-max_p // lib.traffic_replay_chunk())
+    planes = torch.empty((N, lib.traffic_replay_fields(max_in, int(faithful)),
+                          max_p, P_pad), dtype=f32, device=dev)
+    flags = torch.empty((N, n_chunks, P_pad), dtype=torch.uint8, device=dev)
+    far_end = torch.empty((1,) if faithful else (N, M, T_pad, P_pad),
+                          dtype=f32, device=dev)
     ptrs = [t.data_ptr() for t in (
-        Xt, order, compute, parent_idx, parent_mb, child_idx, child_mb,
-        app_id, deadline, pinned, power, cost_per_sec, inv_bw, tran_cost,
-        link_ok.view(torch.uint8), slot_m, arr_m, n_valid, arr2,
-        req_valid.view(torch.uint8), end, total, miss, lat_sum,
-        static_ok.view(torch.uint8))]
+        X, order, compute, parent_idx, parent_mb, child_idx, child_mb,
+        deadline, pinned, power, cost_per_sec, inv_bw, tran_cost,
+        link_ok.view(torch.uint8), meta, arr_m, n_valid, arr2,
+        req_valid.view(torch.uint8), planes, flags, far_end, total, miss,
+        lat_sum, static_ok.view(torch.uint8))]
     ptrs.append(None if latency is None else latency.data_ptr())
     stream = torch.cuda.current_stream(dev).cuda_stream
     traffic_replay.launches += 1
     err = lib.traffic_replay_launch(
-        *ptrs, N, M, P, P_pad, max_p, max_in, max_out, S, A, R,
+        *ptrs, N, M, P, P_pad, max_p, T_pad, max_in, max_out, S, A, R,
         int(faithful), stream)
     if err != 0:
         raise RuntimeError(

@@ -41,10 +41,11 @@ from .serve import Server
 #: the served batch: 8 prompts of 2048 tokens, 32 new tokens each
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 2048, 32
 #: each kernel's device symbols (a regular expression) and the dispatch that
-#: counts its launches; B3 has a bf16 tensor-core and a float32 kernel
+#: counts its launches; a B1 or B2 call is two kernels (the carry-free pass
+#: and the walk), B3 has a bf16 tensor-core and a float32 kernel
 KERNELS = {
-    "replay": ("schedule_replay_kernel", schedule_sim.schedule_replay),
-    "traffic": ("traffic_replay_kernel", traffic_sim.traffic_replay),
+    "replay": (r"schedule_(step|walk)_kernel", schedule_sim.schedule_replay),
+    "traffic": (r"traffic_(step|walk)_kernel", traffic_sim.traffic_replay),
     "flash": (r"flash_(bf16_mma|f32)_kernel",
               flash_attention.flash_attention_folded),
     "decode": ("decode_kernel", decode_attention.decode_attention_folded),
@@ -76,10 +77,7 @@ def profile(tag: str, solve: Callable[[], object],
     busy_ms = sum(ms for _, ms in kernels.values())
 
     def by_name(name):
-        hits = [(c, ms) for k, (c, ms) in kernels.items()
-                if re.search(name, k)]
-        n, ms = sum(c for c, _ in hits), sum(ms for _, ms in hits)
-        return ms, ms / n if n else None
+        return sum(ms for k, (_, ms) in kernels.items() if re.search(name, k))
 
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
     if trace_dir is not None:
@@ -88,9 +86,10 @@ def profile(tag: str, solve: Callable[[], object],
     out = {"run": tag, "wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
            "idle_share": 1.0 - busy_ms / (wall * 1e3)}
     for key, (symbol, dispatch) in KERNELS.items():
-        ms, per = by_name(symbol)
-        out.update({f"{key}_kernel_ms": ms, f"{key}_ms_per_launch": per,
-                    f"{key}_launches": dispatch.launches})
+        ms, n = by_name(symbol), dispatch.launches
+        out.update({f"{key}_kernel_ms": ms,        # per counted call
+                    f"{key}_ms_per_launch": ms / n if n else None,
+                    f"{key}_launches": n})
     out.update(device_kernels=len(kernels),
                top=[{"kernel": k[:80], "count": c, "ms": ms}
                     for k, (c, ms) in top])

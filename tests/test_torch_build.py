@@ -1,0 +1,38 @@
+"""``kernels/_build.py`` names each kernel library by a hash of its source,
+every shared header under ``csrc/`` and the nvcc flags, so an edited source
+or header never loads a stale library. Runs without a toolkit."""
+import pytest
+
+from repro_torch.kernels import _build
+
+
+@pytest.fixture
+def csrc(tmp_path, monkeypatch):
+    (tmp_path / "a.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / "b.cu").write_text("// no header\n")
+    (tmp_path / "common.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    return tmp_path
+
+
+@pytest.mark.parametrize("edit", ["header", "new header", "source"])
+def test_an_edit_changes_the_library_path(csrc, edit):
+    before = _build._lib_path("a")
+    assert _build._lib_path("a") == before
+    if edit == "header":
+        (csrc / "common.cuh").write_text("// v2\n")
+    elif edit == "new header":
+        (csrc / "other.cuh").write_text("")
+    else:
+        (csrc / "a.cu").write_text('#include "common.cuh"\n// v2\n')
+    after = _build._lib_path("a")
+    assert after != before
+    assert after.parent == before.parent and after.name.startswith("a-")
+
+
+def test_the_replay_kernels_share_their_header():
+    """B1 and B2 include ``replay_common.cuh``, which the hash covers."""
+    for name in ("schedule_sim", "traffic_sim"):
+        text = (_build.CSRC / f"{name}.cu").read_text()
+        assert '#include "replay_common.cuh"' in text
+    assert (_build.CSRC / "replay_common.cuh").is_file()

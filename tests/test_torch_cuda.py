@@ -14,10 +14,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import (SimProblem, heft_makespan, merge_dags,
-                              pack_arrivals, pad_problem, paper_environment,
-                              sample_arrivals, stack_problems, traffic_inputs,
-                              zoo)
+from repro_torch.core import (SimProblem, TrafficConfig, heft_makespan,
+                              merge_dags, pack_arrivals, pad_problem,
+                              paper_environment, sample_arrivals,
+                              stack_problems, traffic_inputs, zoo)
 from repro_torch.core.simulator import kernel_args
 from repro_torch.configs import get
 from repro_torch.kernels import decode_attention as da
@@ -199,21 +199,9 @@ def test_traffic_kernel_matches_plain_on_card(cuda_device, faithful):
         pins = np.flatnonzero(pr.pinned >= 0)
         Xb[n][:, pins] = pr.pinned[pins]
     X = torch.as_tensor(Xb, device=cuda_device)
-    shape = (2, 3, 130, 3, 8)
-    lat_k = torch.empty(shape, device=cuda_device)
-    lat_p = torch.empty(shape, device=cuda_device)
-    before = traffic_sim.traffic_replay.launches
-    got = traffic_sim.traffic_replay(*kernel_args(ppb), X, *tin,
-                                     faithful=faithful, latency=lat_k)
-    torch.cuda.synchronize()
-    assert traffic_sim.traffic_replay.launches == before + 1
-    want = traffic_sim.traffic_replay_plain(*kernel_args(ppb), X, *tin,
-                                            faithful=faithful, latency=lat_p)
-    assert torch.equal(got[3], want[3]) and got[3].any()
-    assert torch.equal(got[1], want[1])
-    for k in (0, 2, 4):
-        torch.testing.assert_close(got[k], want[k], rtol=RTOL, atol=0)
-    assert (lat_k[0, 0, :, 1] == 0).all()          # the all-+inf app
+    got = _traffic_against_plain(kernel_args(ppb), X, tin, faithful)
+    assert got[3].any()
+    assert (got[4][0, 0, :, 1] == 0).all()         # the all-+inf app
     assert (got[1] > 0).any() and (got[1] < 1).any()
 
 
@@ -235,6 +223,137 @@ def test_traffic_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="M >= 1"):
         traffic_sim.traffic_replay(*kernel_args(ppb), X,
                                    *(t[:, :0] for t in tin))
+
+
+def _deep_traffic(device, M=3, R=8):
+    """``_deep_bucket`` under bursty draws: the merged orders read parents
+    beyond the walk's ring, and the random DAG's edges between its two
+    apps join requests that arrive apart (parents that have not run)."""
+    probs, ppb = _deep_bucket(device)
+    arrs = [sample_arrivals("bursty", pr.num_apps, rate=0.5, horizon=30.0,
+                            max_requests=R, n_seeds=M, seed=40 + i).t
+            for i, pr in enumerate(probs)]
+    return probs, ppb, traffic_inputs(ppb, pack_arrivals(arrs, 2))
+
+
+def _traffic_swarm(rng, probs, P, max_p, device, home):
+    """Random genes; the first half on server ``home[n]`` throughout, then
+    every pin honoured."""
+    Xb = np.zeros((len(probs), P, max_p), np.int32)
+    for n, pr in enumerate(probs):
+        Xb[n, :, :pr.num_layers] = rng.integers(
+            0, pr.num_servers, size=(P, pr.num_layers))
+        Xb[n, :P // 2, :pr.num_layers] = home[n]
+        pins = np.flatnonzero(pr.pinned >= 0)
+        Xb[n][:, pins] = pr.pinned[pins]
+    return torch.as_tensor(Xb, device=device)
+
+
+def _traffic_against_plain(args, X, tin, faithful, grid=True):
+    """B2 and its plain version on the same CUDA tensors: one counted
+    call; static_ok and miss rates exact, the rest to rtol 1e-5."""
+    N, P = X.shape[:2]
+    M, A, R = tin.arr2.shape[1:]
+    lat_k, lat_p = (torch.full((N, M, P, A, R), float("nan"),
+                               device=X.device) if grid else None
+                    for _ in range(2))
+    before = traffic_sim.traffic_replay.launches
+    got = traffic_sim.traffic_replay(*args, X, *tin, faithful=faithful,
+                                     latency=lat_k)
+    torch.cuda.synchronize()
+    assert traffic_sim.traffic_replay.launches == before + 1
+    want = traffic_sim.traffic_replay_plain(*args, X, *tin,
+                                            faithful=faithful, latency=lat_p)
+    assert torch.equal(got[3], want[3])
+    assert torch.equal(got[1], want[1])
+    for k in ((0, 2, 4) if grid else (0, 2)):
+        torch.testing.assert_close(got[k], want[k], rtol=RTOL, atol=0)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("faithful", [True, False])
+@pytest.mark.parametrize("P", [100, 129])
+def test_traffic_kernel_matches_plain_beyond_the_ring(cuda_device, P,
+                                                      faithful):
+    """B2 on the deep bucket (300-, 150- and 83-layer problems) under
+    M = 3 bursty draws of R = 8 requests: parent reads beyond the ring of
+    end times, parents not yet run, P not a multiple of the warp."""
+    probs, ppb, tin = _deep_traffic(cuda_device)
+    args = kernel_args(ppb)
+    meta = traffic_sim.traffic_step_tables(args[0], args[2], args[6],
+                                           tin.slot_m, tin.n_valid, 8)
+    assert bool((meta[..., 2:] > traffic_sim.RING).any())
+    assert bool((meta[..., 2:] == -1).any())
+    X = _traffic_swarm(np.random.default_rng(P), probs, P, ppb.max_layers,
+                       cuda_device, home=(0, 0, 15))
+    got = _traffic_against_plain(args, X, tin, faithful)
+    assert got[3].any() and (got[1] > 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("faithful", [True, False])
+def test_traffic_kernel_at_the_held_out_shape(cuda_device, faithful):
+    """A held-out report's launch: one plan (P = 1), M = 16 evaluation
+    draws, the latency grid."""
+    probs, ppb, _ = _traffic_bucket(cuda_device)
+    pp = pad_problem(probs[1], device=cuda_device)
+    arr = TrafficConfig(kind="bursty").eval_arrivals(probs[1].num_apps,
+                                                     seed=5)
+    tin = traffic_inputs(pp, arr)
+    X = _traffic_swarm(np.random.default_rng(3), probs[1:], 1,
+                       pp.max_layers, cuda_device, home=(15,))
+    assert tin.n_valid.shape == (1, 16)
+    _traffic_against_plain(kernel_args(pp), X, tin, faithful)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("faithful", [True, False])
+def test_traffic_kernel_with_an_empty_draw(cuda_device, faithful):
+    """A (problem, draw) lane with no request at all (n_valid = 0) beside
+    full ones: zero cost, latency and miss rate, as the plain version."""
+    probs, ppb, arr = _traffic_bucket(cuda_device)
+    arr = arr.copy()
+    arr[1, 2] = np.inf
+    tin = traffic_inputs(ppb, arr)
+    assert int(tin.n_valid[1, 2]) == 0 and int(tin.n_valid.min()) == 0
+    X = _traffic_swarm(np.random.default_rng(4), probs, 40, 256,
+                       cuda_device, home=(15, 15))
+    got = _traffic_against_plain(kernel_args(ppb), X, tin, faithful)
+    assert (got[0][1, 2] == 0).all() and (got[4][1, 2] == 0).all()
+
+
+@pytest.mark.cuda
+def test_replay_kernels_check_the_pins_of_padded_genes(cuda_device):
+    """A pin on a padded layer (no padded problem has one) is checked
+    gene by gene, as the plain versions' ``pin_ok``: B1 and B2 agree."""
+    probs, ppb, arr = _traffic_bucket(cuda_device)
+    args = list(kernel_args(ppb))
+    pinned = args[8].clone()
+    pinned[0, 250] = 3
+    args[8] = pinned
+    X = _traffic_swarm(np.random.default_rng(5), probs, 40, 256,
+                       cuda_device, home=(15, 15))
+    X[0, ::2, 250] = 3
+    got = _traffic_against_plain(args, X, traffic_inputs(ppb, arr), False)
+    assert got[3][0].any() and not got[3][0, 1::2].any()
+    for faithful in (True, False):
+        g = schedule_sim.schedule_replay(*args, X, faithful=faithful)
+        w = schedule_sim.schedule_replay_plain(*args, X, faithful=faithful)
+        assert torch.equal(g[1], w[1])
+
+
+@pytest.mark.cuda
+def test_traffic_wrapper_refuses_a_geometry_mismatch(cuda_device,
+                                                     monkeypatch):
+    """The wrapper's ring, tile and copy distance must be the kernel's."""
+    _, ppb, arr = _traffic_bucket(cuda_device)
+    X = torch.zeros((2, 8, 256), dtype=torch.int32, device=cuda_device)
+    monkeypatch.setattr(traffic_sim, "_LIB", None)
+    monkeypatch.setattr(traffic_sim, "RING", 2 * traffic_sim.RING)
+    with pytest.raises(RuntimeError, match="ring, tile and copy distance"):
+        traffic_sim.traffic_replay(*kernel_args(ppb), X,
+                                   *traffic_inputs(ppb, arr))
 
 
 def _randn(shape, dtype, device, seed):

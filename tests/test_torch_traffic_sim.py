@@ -306,3 +306,183 @@ def test_traffic_inputs_reject_arrivals_of_another_shape():
         port.traffic_inputs(ppt, arr[None, :-1])
     with pytest.raises(ValueError, match="max_apps"):
         port.traffic_inputs(ppt, arr)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's walk: per-draw step tables and ring addressing, on the CPU
+# ---------------------------------------------------------------------------
+
+def _ring_case(name):
+    """``(kernel_args, X, TrafficInputs)`` of one stacked bucket:
+
+    * ``seeded``: seed 1's padded problem and draw (every axis padded);
+    * ``fleet``: the all-+inf-app fleet bucket of two problems, M = 2;
+    * ``ties``: two apps of one problem, draw 0 ``zero_contention_arrivals``
+      (every request at t = 0), draw 1 both apps' requests at the same
+      times (ties across apps and within one), draw 2 no request at all
+      (n_valid = 0);
+    * ``skip``: a 50-layer chain with skip edges up to 49 layers back and
+      two apps, under bursty draws: most parents lie beyond a short ring.
+    """
+    from test_torch_schedule_sim import _skip_dag
+    rng = np.random.default_rng(23)
+    if name == "seeded":
+        _, pp, arr, X = _problem_and_arrivals(1)
+        ppt = to_port(pp)
+        return kernel_args(ppt), torch.tensor(X)[None], \
+            port.traffic_inputs(ppt, arr[None])
+    if name == "fleet":
+        probs, arrs = [], []
+        for k in range(2):
+            dag = ref.merge_dags([random_dag(rng, 5), random_dag(rng, 4 + k)])
+            probs.append(port.SimProblem(**vars(ref.SimProblem.build(
+                dag, random_env(rng, 3 + k)))))
+            a = np.sort(rng.uniform(0.0, 8.0, size=(2, 2, 3)), axis=-1)
+            a[0, 1] = np.inf
+            arrs.append(a)
+        ppb = port.pack_problems(probs, device=CPU)
+        arr = port.pack_arrivals(arrs, int(ppb.deadline.shape[-1]))
+    else:
+        if name == "ties":
+            dag = ref.merge_dags([random_dag(rng, 7), random_dag(rng, 6)])
+            arr = np.full((3, 2, 3), np.inf)
+            arr[0, :, :1] = port.zero_contention_arrivals(2)[0]
+            arr[1] = [[1.0, 1.0, 2.5], [1.0, 2.5, 2.5]]
+        else:
+            dag = _skip_dag()
+            arr = port.sample_arrivals("bursty", 2, rate=0.5, horizon=15.0,
+                                       max_requests=3, n_seeds=2,
+                                       seed=3).t
+        probs = [port.SimProblem(**vars(ref.SimProblem.build(
+            dag, random_env(rng, 4))))]
+        ppb = port.pack_problems(probs, device=CPU)
+        arr = port.pack_arrivals([arr], int(ppb.deadline.shape[-1]))
+    X = np.zeros((len(probs), 7, ppb.max_layers), np.int32)
+    for n, pr in enumerate(probs):
+        X[n, :, :pr.num_layers] = rng.integers(0, pr.num_servers,
+                                               size=(7, pr.num_layers))
+        pins = np.flatnonzero(pr.pinned >= 0)
+        X[n, :3][:, pins] = pr.pinned[pins]
+    return kernel_args(ppb), torch.tensor(X), port.traffic_inputs(ppb, arr)
+
+
+def _tables_by_loop(order, pidx, app, slot_m, n_valid, R, ring, tile):
+    """``traffic_step_tables`` of one lane, step by step in Python."""
+    max_p = len(order)
+    T = len(slot_m)
+    T_pad = -(-T // tile) * tile
+    pos = {int(j): t for t, j in enumerate(order) if j >= 0}
+    at = {int(s): t for t, s in enumerate(slot_m[:n_valid])}
+    want = np.zeros((T_pad, 2 + pidx.shape[1]), np.int64)
+    read_far = set()
+    for t in range(n_valid):
+        r, j = divmod(int(slot_m[t]), max_p)
+        want[t, 1] = pos[j]
+        for k, pj in enumerate(pidx[j]):
+            if pj >= 0:
+                tp = at.get(r * max_p + int(pj), n_valid)
+                want[t, 2 + k] = t - tp if tp < t else -1
+                if want[t, 2 + k] > ring:
+                    read_far.add(tp)
+    for t in range(n_valid):
+        r, j = divmod(int(slot_m[t]), max_p)
+        want[t, 0] = 1 | 2 * (t in read_far) | ((int(app[j]) * R + r) << 8)
+    for t0 in range(0, T_pad, tile):
+        rows = want[t0:t0 + tile]
+        want[t0, 0] |= 4 * bool((rows[:, 2:] > ring).any()) \
+            | 8 * bool((rows[:, 0] & 1).all())
+    return want
+
+
+@pytest.mark.parametrize("ring,tile", [(2, 1), (4, 2), (traffic_sim.RING,
+                                                        traffic_sim.TILE)])
+@pytest.mark.parametrize("name", ["fleet", "ties", "skip"])
+def test_traffic_step_tables_against_a_loop(name, ring, tile):
+    """Per (problem, draw) lane: each merged step's topo position, real
+    bit, completion column, "read beyond the ring" bit and each parent's
+    distance in merged steps, and each tile's bits, against a direct walk
+    of the lane's merged order; the step axis is padded to whole tiles."""
+    args, _, tin = _ring_case(name)
+    order, pidx, app = args[0], args[2], args[6]
+    A, R = tin.arr2.shape[-2:]
+    meta = np_of(traffic_sim.traffic_step_tables(
+        order, pidx, app, tin.slot_m, tin.n_valid, R, ring=ring, tile=tile))
+    N, M, T = tin.slot_m.shape
+    assert meta.shape == (N, M, -(-T // tile) * tile, 2 + pidx.shape[-1])
+    for n in range(N):
+        for m in range(M):
+            want = _tables_by_loop(
+                np_of(order[n]), np_of(pidx[n]), np_of(app[n]),
+                np_of(tin.slot_m[n, m]), int(tin.n_valid[n, m]), R, ring,
+                tile)
+            np.testing.assert_array_equal(meta[n, m], want,
+                                          err_msg=f"lane {n}, {m}")
+    if name == "skip":          # skip edges 49 layers long, and longer
+        assert meta[..., 2:].max() >= 49   # where the apps' requests mix
+        assert ((meta[..., 2:] > ring).any()) == (ring < meta[..., 2:].max())
+    if name == "ties":
+        assert int(tin.n_valid[0, 2]) == 0 and not (meta[0, 2, :, 0] & 1).any()
+
+
+def test_traffic_step_tables_mark_parents_not_yet_run():
+    """The skip DAG's edges from app 0 into app 1 join requests that
+    arrive apart: a parent whose step comes later in the draw, or not at
+    all, has distance -1 (its end reads 0, as the plain version's end
+    buffer holds it until that step); every other parent comes first."""
+    args, _, tin = _ring_case("skip")
+    R = tin.arr2.shape[-1]
+    meta = traffic_sim.traffic_step_tables(args[0], args[2], args[6],
+                                           tin.slot_m, tin.n_valid, R)
+    dist = meta[..., 2:]
+    assert (dist == -1).any() and (dist >= -1).all()
+    steps = torch.arange(meta.shape[2])[:, None]
+    assert (dist <= steps).all()
+
+
+@pytest.mark.parametrize("faithful", [True, False])
+@pytest.mark.parametrize("ring,tile,ahead", [
+    (2, 1, 1), (4, 1, 3), (8, 2, 3), (8, 4, 1),
+    (traffic_sim.RING, traffic_sim.TILE, traffic_sim.AHEAD)])
+@pytest.mark.parametrize("name", ["seeded", "fleet", "ties", "skip"])
+def test_traffic_ring_walk_equals_plain_bit_for_bit(name, ring, tile, ahead,
+                                                    faithful):
+    """The walk's tables, ring and far-read addressing
+    (``traffic_ring_plain``, far reads copied ``ahead`` tiles early, ends
+    not yet stored read as NaN) give every output of
+    ``traffic_replay_plain`` bit for bit, the latency grid included, on
+    padded problems, a fleet bucket with an all-+inf app, tied arrivals
+    and an empty draw, and skip edges far beyond a short ring."""
+    args, X, tin = _ring_case(name)
+    N, P = X.shape[:2]
+    M, A, R = tin.arr2.shape[1:]
+    lat_r = torch.full((N, M, P, A, R), float("nan"))
+    lat_p = torch.full((N, M, P, A, R), float("nan"))
+    got = traffic_sim.traffic_ring_plain(*args, X, *tin, faithful=faithful,
+                                         latency=lat_r, ring=ring, tile=tile,
+                                         ahead=ahead)
+    want = traffic_sim.traffic_replay_plain(*args, X, *tin,
+                                            faithful=faithful, latency=lat_p)
+    for k, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(a, b), k
+    assert torch.isfinite(got[0]).all() and got[3].any()
+    if name == "ties":                     # the empty draw reports nothing
+        assert (got[0][0, 2] == 0).all() and (got[1][0, 2] == 0).all()
+        assert (lat_r[0, 2] == 0).all()
+
+
+def test_traffic_ring_walk_refuses_a_ring_shorter_than_its_copies_reach():
+    args, X, tin = _ring_case("ties")
+    with pytest.raises(ValueError, match="must hold 4 tiles"):
+        traffic_sim.traffic_ring_plain(*args, X, *tin, faithful=False,
+                                       ring=8, tile=3, ahead=3)
+
+
+def test_padded_layers_carry_no_pin():
+    """The kernels check pins gene by gene, padded genes included, as the
+    plain version's ``pin_ok``; a padded problem's padded layers are never
+    pinned, so no padded gene can fail a pin."""
+    args, _, _ = _ring_case("fleet")
+    order, pinned = args[0], args[8]
+    n_real = (order >= 0).sum(-1, keepdim=True)
+    padded = torch.arange(order.shape[1]) >= n_real
+    assert padded.any() and (pinned[padded] == -1).all()
