@@ -45,7 +45,23 @@ result line):
                solves' own buckets and draws and at every held-out replay,
                and the traffic-aware plan's held-out p95 miss rate is no
                worse than the zero-load plan's;
-  8. check-attn — B3 (flash prefill) and B4 (flash decode) against their
+  8. baselines — the paper's comparators on the Fig. 8 problem: ``run_ga``
+               (pop 100, <= 1000 generations, stall 50), ``run_pso_linear``
+               and ``pre_pso`` (the paper's PSO settings), each plan replayed
+               by ``simulate_np`` and its B1 launches held to its iterations;
+               B1 against its plain version on a swarm holding the three
+               plans; then ``run_ga`` under bursty 0.5/s traffic on the
+               traffic-fleet problems (B2; the key against the plain traffic
+               replay, B2 against its plain version at the GA's shape);
+  9. replan  — ``replan_fleet`` on qwen3-0.6b's three planned serving
+               shapes: a zero-drift round keeps every plan bit for bit;
+               4-round congestion and node-loss traces (B1), then load-surge
+               under bursty traffic (B2); per round the plans changed, fleet
+               cost, moved layers, wall and launches; accepted plans strictly
+               beat their incumbents and avoid churned servers, final plans
+               replay through ``simulate_np``, and B1 (B2) hold against their
+               plain versions at the last round's buckets;
+ 10. check-attn — B3 (flash prefill) and B4 (flash decode) against their
                plain versions on CUDA tensors, float32 to 2e-5 and bfloat16
                to 2e-2: qwen3-0.6b's serving shapes (batch 8, prompt 2048,
                cache 2080; causal and a 512 window; valid_len 1, 7, 1000,
@@ -54,25 +70,25 @@ result line):
                wholly masked for some rows, a decode split with empty blocks,
                and ragged shapes of the CPU sweep (head_dim 16 to 256, 112
                among them);
-  9. serve   — the LM main path: ``repro_torch.launch.serve.Server`` with
+ 11. serve   — the LM main path: ``repro_torch.launch.serve.Server`` with
                qwen3-0.6b at full width and depth (28 layers, bfloat16,
                seeded weights on the card), batch 8, prompt 2048, 32 new
                tokens, no EOS; a first call, then a counted one that must
                launch B3 28 times and B4 28 x 31 times and give the same
                tokens; prints prefill ms and decode tokens/s;
- 10. serve-check — qwen3-0.6b at full width, 2 layers: prefill of 1000
+ 12. serve-check — qwen3-0.6b at full width, 2 layers: prefill of 1000
                tokens and 4 greedy decode steps through the kernels against
                the same tokens through the plain versions on the card; in
                float32 (the CUDA-core B3 route) logits to 1e-4, equal tokens,
                and decode logits against the prefill logits of the longer
                prompt (teacher-forced, 2e-3); in bfloat16 (the tensor-core B3
                route) logits to 2e-2 + 2e-2 |plain|, token equality printed;
- 11. time-attn — B3 and B4 per launch at qwen3-0.6b's and zamba2-7b's
+ 13. time-attn — B3 and B4 per launch at qwen3-0.6b's and zamba2-7b's
                serving shapes (CUDA events over calls queued behind a device
                sleep, five rounds in turns with one
                ``scaled_dot_product_attention`` call as the yardstick,
                medians), beside their plain versions and bounds;
- 12. check-ssd — B5 (the SSD intra-chunk form) against its plain version
+ 14. check-ssd — B5 (the SSD intra-chunk form) against its plain version
                on CUDA tensors, every element within 1e-4 + 1e-4 |plain|:
                the reference's sweep shapes, chunks of 17 and 37 rows,
                mamba2-2.7b's serving shape (64 chunks of 256, 80 heads of 64,
@@ -80,21 +96,21 @@ result line):
                column slices, the inputs of a real full-width ``mamba_seq``
                prefill, a log-decay steep enough that exp overflows above the
                diagonal, and causality (future inputs leave past rows equal);
- 13. serve-ssm — ``Server`` with mamba2-2.7b at full width and depth (64
+ 15. serve-ssm — ``Server`` with mamba2-2.7b at full width and depth (64
                layers, bfloat16, seeded weights on the card), batch 8,
                prompt 2048, 32 new tokens, no EOS; the counted call must
                launch B5 64 times and B3 and B4 never, and give the first
                call's tokens; prints prefill ms, decode tokens/s, peak memory;
- 14. serve-hybrid — the same with zamba2-7b (81 Mamba2 blocks, 13 shared
+ 16. serve-hybrid — the same with zamba2-7b (81 Mamba2 blocks, 13 shared
                attention sites): B5 81 times, B3 13 and B4 13 x 31 times;
- 15. serve-check-ssm — mamba2-2.7b at full width with 2 layers and
+ 17. serve-check-ssm — mamba2-2.7b at full width with 2 layers and
                zamba2-7b with 7 (one group and one tail block), float32:
                prefill of 1000 tokens (a ragged last chunk) and 4 greedy
                steps through the kernels and through the plain versions on
                the card (logits to 1e-4, equal tokens), and decode logits
                against the prefill of the longer prompt (2e-3);
- 16. time-ssd — B5 per launch at mamba2-2.7b's and zamba2-7b's serving
-               shapes, timed as in 11 (no single PyTorch call computes it, so
+ 18. time-ssd — B5 per launch at mamba2-2.7b's and zamba2-7b's serving
+               shapes, timed as in 13 (no single PyTorch call computes it, so
                no library yardstick), beside its plain version, the bound of
                its 3xTF32 tensor-core route and the float32 CUDA-core bound.
 
@@ -484,25 +500,28 @@ def main() -> int:
         assert all(torch.isfinite(g).all() for g, _ in pairs), tag
         return want
 
-    def check_solve_buckets(tag, probs, arrivals, P, winners, faithful):
-        """B2 against its plain version at a traffic solve's own launches:
-        ``pack_fleet``'s buckets of ``probs`` under the solver draws
-        ``arrivals``, P particles, no latency grid. The swarm holds each
-        problem's plans from ``winners`` (lists of ``PSOGAResult``) after
-        two anchors, then seeded random particles."""
+    def check_solve_buckets(tag, probs, arrivals, P, plans, faithful):
+        """B2 (or, without ``arrivals``, B1) against its plain version at a
+        solve's own launches: ``pack_fleet``'s buckets of ``probs`` under
+        the solver draws ``arrivals``, P particles, no latency grid. The
+        swarm holds each problem's plans from ``plans`` (lists of one plan
+        per problem) after two anchors, then seeded random particles."""
         fleet = port.pack_fleet(probs, device=dev)
         for b in fleet.buckets:
-            tin = port.traffic_inputs(b.ppb, port.pack_arrivals(
-                [arrivals[i] for i in b.idx], fleet.max_apps))
             X = np.stack([random_swarm(rng, probs[i], P, b.max_p)
                           for i in b.idx])
             for j, i in enumerate(b.idx):
-                for k, res in enumerate(winners):
-                    X[j, 2 + k, :probs[i].num_layers] = res[i].best_x
-            tcompare(f"{tag} solve bucket max_p {b.max_p} "
-                     f"problems {b.idx.tolist()}", b.ppb,
-                     torch.as_tensor(X, device=dev), tin, faithful,
-                     grid=False)
+                for k, plan in enumerate(plans):
+                    X[j, 2 + k, :probs[i].num_layers] = plan[i]
+            X = torch.as_tensor(X, device=dev)
+            where = (f"{tag} solve bucket max_p {b.max_p} problems "
+                     f"{b.idx.tolist()}")
+            if arrivals is None:
+                compare(where, b.ppb, X, faithful)
+                continue
+            tin = port.traffic_inputs(b.ppb, port.pack_arrivals(
+                [arrivals[i] for i in b.idx], fleet.max_apps))
+            tcompare(where, b.ppb, X, tin, faithful, grid=False)
 
     def check_heldout(tag, prob, x, ev, faithful, reported):
         """B2 against its plain version at a held-out replay's launch (one
@@ -794,7 +813,7 @@ def main() -> int:
             "traffic", probs,
             [traffic_cfg.solver_arrivals(p.dag.num_apps, seed=SEED + 31 * i)
              for i, p in enumerate(plans)],
-            DEFAULT_PSO.pop_size, [[p.result for p in plans]],
+            DEFAULT_PSO.pop_size, [[p.result.best_x for p in plans]],
             DEFAULT_PSO.faithful_sim)
         for i, (shape, p, pr) in enumerate(zip(shapes, plans, probs)):
             check_heldout(f"traffic {shape.name}", pr, p.result.best_x,
@@ -864,7 +883,10 @@ def main() -> int:
             assert n_b2 > 0
             # B2 at the traffic-aware solve's own launches
             check_solve_buckets(f"traffic-fleet {kind}", probs, solver_arr,
-                                cfg.pop_size, [zero, aware], cfg.faithful_sim)
+                                cfg.pop_size,
+                                [[r.best_x for r in res] for res in (zero,
+                                                                     aware)],
+                                cfg.faithful_sim)
             for i, prob in enumerate(probs):
                 ev = tc.eval_arrivals(1, seed=SEED + 31 * i)
                 st = {name: port.traffic_stats(port.traffic_replay(
@@ -893,7 +915,184 @@ def main() -> int:
                     (kind, i, st)
     _phase("traffic-fleet", traffic_fleet, failures)
 
-    # 8. check-attn: B3 and B4 against their plain versions ----------------
+    def own_swarm(prob, P, winners):
+        """A seeded swarm of P particles at ``prob``'s own size (the shape
+        ``run_ga`` / ``run_pso_linear`` / ``pre_pso`` solve at), holding
+        the solvers' winning plans after two anchors; leading axis 1."""
+        X = random_swarm(rng, prob, P, prob.num_layers)
+        for k, res in enumerate(winners):
+            X[2 + k] = res.best_x
+        return torch.as_tensor(X[None], device=dev)
+
+    # 8. baselines: the paper's comparators at the Fig. 8 size -------------
+    def baselines():
+        ga_cfg = port.GAConfig()              # pop 100, <= 1000, stall 50
+        t0 = time.perf_counter()
+        small, _ = port.preprocess(fig8_dag)
+        print(f"[baselines] Alg. 1 preprocessing on the host (prePSO's "
+              f"first step): {fig8_prob.num_layers} -> {small.num_layers} "
+              f"layers in {1e3 * (time.perf_counter() - t0):.1f} ms",
+              flush=True)
+        winners = []
+        for name, fn, cfg in (("GA", port.run_ga, ga_cfg),
+                              ("PSO (linear inertia)", port.run_pso_linear,
+                               PAPER_PSO),
+                              ("prePSO", port.pre_pso, PAPER_PSO)):
+            b1.launches = 0
+            b2.launches = 0
+            t0 = time.perf_counter()
+            res = fn(fig8_dag, fig8_env, cfg, seed=SEED)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n1, n2 = b1.launches, b2.launches
+            ok = port.simulate_np(fig8_prob, res.best_x,
+                                  faithful=cfg.faithful_sim)
+            print(f"[baselines] {name}: cost {res.best_cost:.6g} feasible "
+                  f"{res.feasible} iterations {res.iterations} in "
+                  f"{1e3 * wall:.1f} ms, schedule_replay launches {n1}, "
+                  f"traffic_replay launches {n2}; simulate_np cost "
+                  f"{float(ok.total_cost):.6g} feasible {bool(ok.feasible)}",
+                  flush=True)
+            replay_ok(f"baselines {name}", fig8_dag, fig8_env, res,
+                      cfg.faithful_sim)
+            # the first scoring, one per step (the loop checks its stop
+            # rule every SYNC_EVERY steps), and the epilogue's one-row
+            # replay; prePSO solves the compressed DAG the same way
+            assert res.iterations + 2 <= n1 \
+                <= res.iterations + 2 + SYNC_EVERY, (name, n1)
+            assert n2 == 0, name
+            winners.append(res)
+        # B1 against its plain version at the solves' own shape
+        compare("baselines: fig8 swarm holding the GA, PSO and prePSO plans",
+                port.stack_problems([port.pad_problem(fig8_prob,
+                                                      device=dev)]),
+                own_swarm(fig8_prob, ga_cfg.pop_size, winners),
+                ga_cfg.faithful_sim)
+        # the GA under the traffic key: B2 on the traffic-fleet problems
+        tc = port.TrafficConfig(kind="bursty", rate=0.5,
+                                miss_budget=ga_cfg.miss_budget)
+        for i, net in enumerate(("alexnet", "googlenet")):
+            d = port.zoo.build(net, pin_server=i)
+            h, _ = port.heft_makespan(d, env)
+            d = d.with_deadline(np.array([1.5 * h]))
+            prob = port.SimProblem.build(d, env)
+            arr = tc.solver_arrivals(1, seed=SEED + 31 * i)
+            b1.launches = 0
+            b2.launches = 0
+            t0 = time.perf_counter()
+            res = port.run_ga(d, env, ga_cfg, seed=SEED, arrivals=arr)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n1, n2 = b1.launches, b2.launches
+            key = float(port.make_swarm_fitness(
+                port.pad_problem(prob, device="cpu"), ga_cfg.faithful_sim,
+                arrivals=arr, miss_budget=ga_cfg.miss_budget)(
+                torch.as_tensor(res.best_x[None]))[0])
+            print(f"[baselines] GA under bursty 0.5/s, {net}: key "
+                  f"{res.best_fitness:.8g} (plain replay {key:.8g}) "
+                  f"iterations {res.iterations} in {1e3 * wall:.1f} ms, "
+                  f"traffic_replay launches {n2}, schedule_replay launches "
+                  f"{n1}", flush=True)
+            np.testing.assert_allclose(res.best_fitness, key, rtol=RTOL,
+                                       err_msg=net)
+            assert n2 > 0 and res.iterations + 1 <= n2 \
+                <= res.iterations + SYNC_EVERY, (net, n2)
+            assert n1 == 1, (net, n1)          # the epilogue's replay
+            replay_ok(f"GA traffic {net}", d, env, res, ga_cfg.faithful_sim)
+            # B2 against its plain version at the GA's own shape and draws
+            ppb = port.stack_problems([port.pad_problem(prob, device=dev)])
+            tcompare(f"GA traffic {net}", ppb,
+                     own_swarm(prob, ga_cfg.pop_size, [res]),
+                     port.traffic_inputs(ppb, arr[None]),
+                     ga_cfg.faithful_sim, grid=False)
+    _phase("baselines", baselines, failures)
+
+    # 9. replan: warm re-planning of the qwen3-0.6b plans -------------------
+    def replan():
+        requests = [(get("qwen3-0.6b"), s, DEADLINE_RATIO) for s in shapes]
+        cold = port.plan_offload_batch(requests, env=tpu_env,
+                                       pso=DEFAULT_PSO, seed=SEED)
+        cold_t = port.plan_offload_batch(requests, env=tpu_env,
+                                         pso=DEFAULT_PSO, seed=SEED,
+                                         traffic=traffic_cfg)
+        dags = [p.dag for p in cold]
+        # a zero-drift round keeps every plan, its key its cold key
+        rep = port.replan_fleet(
+            dags, port.zero_drift_trace(tpu_env, rounds=2),
+            port.ReplanConfig(pso=DEFAULT_PSO),
+            initial=[p.result for p in cold])
+        (log,) = rep.rounds
+        print(f"[replan] zero-drift: {int(log.replanned.sum())}/3 plans "
+              f"changed, incumbent keys {log.incumbent_key.tolist()}, "
+              f"cold keys {[p.result.best_fitness for p in cold]}",
+              flush=True)
+        assert not log.replanned.any() and not log.demoted.any()
+        for p, x, k in zip(cold, rep.plans, log.incumbent_key):
+            assert np.array_equal(x, p.result.best_x)
+            assert k == p.result.best_fitness, (k, p.result.best_fitness)
+        for scenario, tc, plans0 in (("congestion", None, cold),
+                                     ("node-loss", None, cold),
+                                     ("load-surge", traffic_cfg, cold_t)):
+            trace = port.sample_trace(scenario, tpu_env, rounds=4, seed=0)
+            pso = DEFAULT_PSO if tc is None else dataclasses.replace(
+                DEFAULT_PSO, miss_budget=tc.miss_budget)
+            cfg = port.ReplanConfig(pso=pso, traffic=tc)
+            rounds = []
+
+            def on_round(log, plans):
+                n1, n2 = b1.launches, b2.launches
+                rounds.append((log, plans, n1, n2))
+                print(f"[replan] {scenario} round {log.round} ({log.label})"
+                      f": {int(log.replanned.sum())}/{len(plans)} plans "
+                      f"changed (demoted {int(log.demoted.sum())}), fleet "
+                      f"cost ${float(np.sum(log.cost)):.6f}, moved layers "
+                      f"{log.moved_layers.tolist()}, iterations "
+                      f"{log.iterations.tolist()}, {1e3 * log.wall_s:.1f} "
+                      f"ms, schedule_replay launches {n1}, traffic_replay "
+                      f"launches {n2}", flush=True)
+                b1.launches = 0
+                b2.launches = 0
+            b1.launches = 0
+            b2.launches = 0
+            rep = port.replan_fleet(dags, trace, cfg,
+                                    initial=[p.result for p in plans0],
+                                    on_round=on_round)
+            for k, (log, plans, n1, n2) in enumerate(rounds, start=1):
+                acc = log.replanned & ~log.demoted
+                assert (log.candidate_key[acc]
+                        < log.incumbent_key[acc]).all(), (scenario, k)
+                down = trace.events[k].down
+                for i in np.flatnonzero(log.replanned):
+                    assert not down[plans[i]].any(), (scenario, k, i)
+                # one B1 (or B2) launch for the incumbent keys, then per
+                # bucket the solve's and its epilogue's
+                assert (n2 if tc is not None else n1) \
+                    >= int(log.iterations.max()) + 2, (scenario, k, n1, n2)
+                assert n1 > 0 and (n2 > 0) == (tc is not None)
+            last = rep.rounds[-1]
+            env_k = trace.env_at(trace.num_rounds - 1)
+            probs = [port.SimProblem.build(d, env_k) for d in dags]
+            for i, (pr, x) in enumerate(zip(probs, rep.plans)):
+                r = port.simulate_np(pr, x, faithful=pso.faithful_sim)
+                assert np.isfinite(float(r.total_cost)), (scenario, i)
+                if tc is None:
+                    assert bool(r.feasible) == last.feasible[i], (scenario, i)
+                    if last.feasible[i]:
+                        np.testing.assert_allclose(
+                            last.cost[i], float(r.total_cost),
+                            rtol=ORACLE_RTOL, err_msg=f"{scenario} {i}")
+            # the replay kernels against their plain versions at the last
+            # round's buckets, the surviving plans in the swarm
+            k = trace.num_rounds - 1
+            arrivals = None if tc is None else [
+                tc.solver_arrivals(d.num_apps, seed=1000 * k + 31 * i,
+                                   rate_scale=trace.events[k].load_scale)
+                for i, d in enumerate(dags)]
+            check_solve_buckets(f"replan {scenario}", probs, arrivals,
+                                pso.pop_size, [rep.plans], pso.faithful_sim)
+    _phase("replan", replan, failures)
+
+    # 10. check-attn: B3 and B4 against their plain versions ----------------
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_attention as da
@@ -976,7 +1175,7 @@ def main() -> int:
                            decode_plain(q, k, v, valid), dtype)
     _phase("check-attn", check_attn, failures)
 
-    # 9. serve: qwen3-0.6b at full width and depth --------------------------
+    # 11. serve: qwen3-0.6b at full width and depth --------------------------
     def expected_launches(cfg, steps):
         """(B3, B4, B5) launches of one prefill and ``steps`` decode steps:
         one attention kernel per layer (dense) or shared site (hybrid) and
@@ -1039,7 +1238,7 @@ def main() -> int:
         launches["serve_b3"], launches["serve_b4"], _ = serve_model(qwen)
     _phase("serve", serve, failures)
 
-    # 10. serve-check: the kernels against the plain path in one model -----
+    # 12. serve-check: the kernels against the plain path in one model -----
     def serve_check(cfgs, dtype="float32"):
         """Each of ``cfgs`` (cut in depth, full width) in ``dtype``: prefill
         of 1000 tokens and 4 greedy steps through the kernels, then the same
@@ -1113,7 +1312,7 @@ def main() -> int:
         serve_check([qwen2], "bfloat16")
     _phase("serve-check", serve_checks, failures)
 
-    # 11. time-attn: B3 and B4 at the serving shapes ------------------------
+    # 13. time-attn: B3 and B4 at the serving shapes ------------------------
     def in_turns(tag, kernel, library, plain, reps, plain_reps, rounds=5):
         """Kernel and library call timed in turns, ``rounds`` times each,
         then the plain version once; medians of the device times."""
@@ -1218,7 +1417,7 @@ def main() -> int:
         time_decode("zamba2", zkv, zg, zhd)
     _phase("time-attn", time_attn, failures)
 
-    # 12. check-ssd: B5 against its plain version ---------------------------
+    # 14. check-ssd: B5 against its plain version ---------------------------
     rec["ssd_max_abs_err"] = 0.0
 
     def ssd_shape(cfg, batch=SERVE_BATCH, prompt=SERVE_PROMPT):
@@ -1316,12 +1515,12 @@ def main() -> int:
     _phase("serve-ssm", serve_ssm, failures)
     _phase("serve-hybrid", serve_model, failures, zamba2)
 
-    # 15. serve-check-ssm: kernels against plain inside both models ----------
+    # 17. serve-check-ssm: kernels against plain inside both models ----------
     _phase("serve-check-ssm", serve_check, failures,
            [dataclasses.replace(mamba2, n_layers=2),
             dataclasses.replace(zamba2, n_layers=7)])
 
-    # 16. time-ssd: B5 at the serving shapes --------------------------------
+    # 18. time-ssd: B5 at the serving shapes --------------------------------
     def ssd_bound(shape):
         """Least time of one B5 launch, two ways. The float32 CUDA-core
         bound: the causal band's operations (scores C_i . B_j once per

@@ -1,7 +1,7 @@
 """Fleet-scale batched PSO-GA: solve N heterogeneous offloading problems
 with one fleet of swarms per shape bucket, ported from
-``repro.core.batch`` (cold solves, with or without traffic; no mesh or
-incumbents).
+``repro.core.batch``: cold and warm (incumbent-seeded, migration-aware)
+solves, with or without traffic, on one device (no mesh).
 
 ``pack_fleet`` groups problems into power-of-two ``(max_p, max_S)``
 buckets and stacks each bucket's members into one ``PaddedProblem`` with
@@ -19,7 +19,13 @@ its own generator seeded like ``run_pso_ga``, within its own true sizes,
 so a batched solve equals the sequential solves gene for gene. Under
 traffic each problem's arrival draws route with it by original index;
 padded apps never receive a request and padded layers are never walked,
-so that equality holds for traffic solves too.
+so that equality holds for traffic solves too. Incumbents, migration
+weights and rescue flags route by original index the same way.
+
+Public surface: ``run_pso_ga_batch`` (``incumbent=``,
+``migration_weight=``, ``warm_rescue=``, ``return_state=``),
+``pack_fleet`` / ``PackedFleet`` / ``FleetBucket``, ``pack_problems``,
+``pack_arrivals``, ``bucket_size`` and ``SYNC_EVERY``.
 """
 from __future__ import annotations
 
@@ -203,21 +209,28 @@ def _run_fleet(ppb: PaddedProblem, X0: torch.Tensor, cfg: PSOGAConfig,
                draw: Optional[Callable[[int], SwarmDraws]],
                generators: Sequence[torch.Generator],
                record_history: bool = False,
-               arrivals: Optional[np.ndarray] = None
+               arrivals: Optional[np.ndarray] = None,
+               incumbent: Optional[torch.Tensor] = None,
+               mig_weight: Optional[torch.Tensor] = None,
+               linear_inertia: bool = False
                ) -> Tuple[_SwarmState, Optional[torch.Tensor]]:
     """Iterate a stacked fleet of swarms to convergence.
 
     ``X0 (N, P, max_p)``; ``draw(step)`` gives the step's ``(N, P)``
     draws, else each problem draws from its own generator. ``arrivals
     (N, M, max_apps, R)`` switch every problem to the traffic key; their
-    merged orders are built once for the whole solve. Returns the final state
-    and, with ``record_history`` (which runs exactly ``max_iters`` steps
-    without freezing, as the reference's history mode does), the ``(N,
-    max_iters)`` gBest keys.
+    merged orders are built once for the whole solve. ``incumbent (N,
+    max_p)`` and ``mig_weight (N,)`` add the migration term to every
+    score, the initial one included. ``linear_inertia`` replaces Eq.
+    22–23 with Eq. 21's ``w_max − (w_max − w_min)·it/max_iters``. Returns
+    the final state and, with ``record_history`` (which runs exactly
+    ``max_iters`` steps without freezing, as the reference's history mode
+    does), the ``(N, max_iters)`` gBest keys.
     """
     max_p = X0.shape[-1]
     tin = None if arrivals is None else traffic_inputs(ppb, arrivals)
-    f0 = make_swarm_fitness(ppb, cfg.faithful_sim, arrivals=tin,
+    f0 = make_swarm_fitness(ppb, cfg.faithful_sim, incumbent=incumbent,
+                            mig_weight=mig_weight, arrivals=tin,
                             miss_budget=cfg.miss_budget)(X0)  # (N, P)
     i0 = f0.argmin(-1, keepdim=True)
     zeros = torch.zeros(X0.shape[0], dtype=torch.int32, device=X0.device)
@@ -230,9 +243,15 @@ def _run_fleet(ppb: PaddedProblem, X0: torch.Tensor, cfg: PSOGAConfig,
         if not record_history and step % SYNC_EVERY == 0 \
                 and bool(_done(state, cfg).all()):
             break
+        w = None
+        if linear_inertia:                                     # Eq. 21
+            t = state.it.to(torch.float32) / cfg.max_iters
+            w = cfg.w_max - (cfg.w_max - cfg.w_min) * t
         new = swarm_step(ppb, state, cfg,
                          draws=None if draw is None else draw(step),
-                         generators=generators, arrivals=tin)
+                         generators=generators, arrivals=tin,
+                         incumbent=incumbent, mig_weight=mig_weight,
+                         inertia=w)
         if record_history:
             state = new
             history.append(state.gbest_f)
@@ -252,8 +271,12 @@ def run_pso_ga_batch(problems: Sequence[ProblemLike],
                      X0: Optional[Sequence[np.ndarray]] = None,
                      draw_fn: Optional[DrawFn] = None,
                      record_history: bool = False,
-                     arrivals: Optional[Sequence[np.ndarray]] = None
-                     ) -> List[PSOGAResult]:
+                     arrivals: Optional[Sequence[np.ndarray]] = None,
+                     incumbent: Optional[Sequence[
+                         Optional[np.ndarray]]] = None,
+                     migration_weight: Union[float, Sequence[float]] = 0.0,
+                     warm_rescue: Optional[Sequence[bool]] = None,
+                     return_state: bool = False):
     """Solve N offloading problems with one fleet of swarms per bucket,
     on ``device`` (``None`` = the card).
 
@@ -263,12 +286,33 @@ def run_pso_ga_batch(problems: Sequence[ProblemLike],
     replace the generator's initial swarms and step draws, indexed by
     ORIGINAL problem index. ``arrivals`` (one ``(M, n_apps_i, R)`` array
     per problem, routed by original index) switch every problem to the
-    traffic key under ``cfg.miss_budget``. Each bucket's epilogue scores
-    its gBests as a one-row swarm through the zero-load replay, so
-    ``best_cost`` and ``feasible`` are the zero-load plan's and
-    ``best_fitness`` the key the solve minimised. Returns per-problem
-    ``PSOGAResult`` in input order.
+    traffic key under ``cfg.miss_budget``.
+
+    ``incumbent`` (one ``(p_i,)`` plan per problem, online re-planning)
+    warm-starts each swarm around its incumbent (``init_swarm``'s
+    incumbent mode, and its rescue mode where ``warm_rescue[i]``) and adds
+    ``migration_weight`` (scalar or one per problem) × the Eq. 6-form cost
+    of every moved layer to the key. A ``None`` entry solves that problem
+    cold, with weight 0, inside the warm fleet.
+
+    Each bucket's epilogue scores its gBests as a one-row swarm through
+    the zero-load replay, so ``best_cost`` and ``feasible`` are the
+    zero-load plan's and ``best_fitness`` the key the solve minimised.
+    Returns per-problem ``PSOGAResult`` in input order and, with
+    ``return_state``, the final ``_SwarmState`` in input order at the
+    largest bucket's ``max_p`` (genes beyond a problem's own bucket are 0).
     """
+    return _solve_fleet(problems, cfg, seed, bucket, device, X0, draw_fn,
+                        record_history, arrivals, incumbent,
+                        migration_weight, warm_rescue, return_state)
+
+
+def _solve_fleet(problems, cfg, seed, bucket, device, X0, draw_fn,
+                 record_history, arrivals, incumbent=None,
+                 migration_weight=0.0, warm_rescue=None,
+                 return_state=False, linear_inertia=False):
+    """``run_pso_ga_batch``'s body; ``linear_inertia`` serves
+    ``baselines.run_pso_linear``."""
     dev = resolve_device(device)
     probs = _as_problems(problems)
     n = len(probs)
@@ -277,17 +321,36 @@ def run_pso_ga_batch(problems: Sequence[ProblemLike],
         raise ValueError(f"{len(X0)} initial swarms for {n} problems")
     if arrivals is not None and len(arrivals) != n:
         raise ValueError(f"{len(arrivals)} arrival sets for {n} problems")
+    if incumbent is not None and len(incumbent) != n:
+        raise ValueError(f"{len(incumbent)} incumbents for {n} problems")
+    mig_arr = np.broadcast_to(np.asarray(migration_weight, np.float32), (n,))
     fleet = pack_fleet(probs, bucket=bucket, device=dev)
     results: List[Optional[PSOGAResult]] = [None] * n
+    states = []
     for b in fleet.buckets:
-        gens, X0b = [], torch.zeros((len(b.idx), cfg.pop_size, b.max_p),
-                                    dtype=torch.int32, device=dev)
+        nb = len(b.idx)
+        gens = []
+        X0b = torch.zeros((nb, cfg.pop_size, b.max_p), dtype=torch.int32,
+                          device=dev)
+        incb = torch.zeros((nb, b.max_p), dtype=torch.int32, device=dev)
+        migb = torch.zeros((nb,), dtype=torch.float32, device=dev)
         for j, i in enumerate(b.idx):
             g = torch.Generator(device=dev)
             g.manual_seed(seeds[i])
             gens.append(g)
             pr = probs[i]
-            x0 = init_swarm(pr, cfg, g, dev) if X0 is None else \
+            inc_i, rescue_i = None, False
+            if incumbent is not None and incumbent[i] is not None:
+                inc_i = np.asarray(incumbent[i], np.int32)
+                if inc_i.shape != (pr.num_layers,):
+                    raise ValueError(
+                        f"incumbent[{i}] has shape {inc_i.shape}, "
+                        f"expected ({pr.num_layers},)")
+                incb[j, :pr.num_layers] = torch.as_tensor(inc_i)
+                migb[j] = float(mig_arr[i])
+                rescue_i = warm_rescue is not None and bool(warm_rescue[i])
+            x0 = init_swarm(pr, cfg, g, dev, incumbent=inc_i,
+                            rescue=rescue_i) if X0 is None else \
                 torch.tensor(np.asarray(X0[i]), dtype=torch.int32,
                              device=dev)
             if tuple(x0.shape) != (cfg.pop_size, pr.num_layers):
@@ -302,8 +365,12 @@ def run_pso_ga_batch(problems: Sequence[ProblemLike],
 
         arrb = None if arrivals is None else pack_arrivals(
             [arrivals[i] for i in b.idx], fleet.max_apps)
-        state, history = _run_fleet(b.ppb, X0b, cfg, draw, gens,
-                                    record_history, arrb)
+        warm = incumbent is not None
+        state, history = _run_fleet(
+            b.ppb, X0b, cfg, draw, gens, record_history, arrb,
+            incumbent=incb if warm else None,
+            mig_weight=migb if warm else None,
+            linear_inertia=linear_inertia)
         total, feas, _ = schedule_replay(
             *kernel_args(b.ppb), state.gbest_x[:, None, :].contiguous(),
             faithful=cfg.faithful_sim)
@@ -320,4 +387,27 @@ def run_pso_ga_batch(problems: Sequence[ProblemLike],
                 feasible=ok, iterations=int(its[j]),
                 history=None if history is None
                 else history[j].cpu().numpy())
-    return results
+        states.append((b, state))
+    if not return_state:
+        return results
+    return results, _fleet_state(states, n, cfg.pop_size, dev)
+
+
+def _fleet_state(states, n: int, P: int, dev: torch.device) -> _SwarmState:
+    """One input-ordered state from the buckets' states, at the largest
+    bucket's ``max_p``; genes beyond a problem's own bucket are 0."""
+    gmax_p = max(b.max_p for b, _ in states)
+    shapes = {"X": (n, P, gmax_p), "pbest_x": (n, P, gmax_p),
+              "pbest_f": (n, P), "gbest_x": (n, gmax_p), "gbest_f": (n,),
+              "it": (n,), "stall": (n,)}
+    out = {name: torch.zeros(shape, dtype=getattr(states[0][1], name).dtype,
+                             device=dev) for name, shape in shapes.items()}
+    for b, st in states:
+        idx = torch.as_tensor(b.idx, device=dev)
+        for name in shapes:
+            v = getattr(st, name)
+            if name in ("X", "pbest_x", "gbest_x"):
+                out[name][idx, ..., :b.max_p] = v
+            else:
+                out[name][idx] = v
+    return _SwarmState(**out)

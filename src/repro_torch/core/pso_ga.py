@@ -1,5 +1,6 @@
 """PSO-GA — self-adaptive discrete PSO with GA operators (paper §IV-B),
-ported from ``repro.core.pso_ga`` (cold solves, with or without traffic).
+ported from ``repro.core.pso_ga``: cold and warm (incumbent-seeded)
+solves, with or without traffic.
 
 The particle position is the server-assignment vector (the order genes φ
 are frozen to the topological order). One iteration applies, per particle
@@ -22,6 +23,13 @@ solve's device, so a test can feed the reference's own draws. The
 iteration loop lives in ``core.batch``: a single solve is the one-problem
 case of the fleet loop, stopping when gBest is unchanged for
 ``stall_iters`` iterations or at ``max_iters``.
+
+Public surface: ``PSOGAConfig`` (with the warm-start fields
+``warm_elite`` / ``warm_fraction`` / ``warm_mutation``), ``PSOGAResult``,
+``SwarmDraws``, ``init_swarm`` (cold, incumbent and rescue modes),
+``swarm_step`` (with the migration-aware warm key and an inertia override
+for the linear schedule of ``baselines.run_pso_linear``), ``run_pso_ga``,
+``draw_swarm``, ``draws_from_uniforms`` and ``state_from_arrays``.
 """
 from __future__ import annotations
 
@@ -56,6 +64,12 @@ class PSOGAConfig:
     faithful_sim: bool = False      # False = parent-gated recurrence (the
     #   paper's Fig. 2 numbers); True = Alg. 2 line 21 verbatim
     bias_init_to_tiers: bool = True  # seed swarm with tier-aware particles
+    # incumbent ("warm") seeding of online re-planning; only consulted when
+    # init_swarm gets an incumbent
+    warm_elite: int = 2             # exact clones of the incumbent plan
+    warm_fraction: float = 0.5      # swarm share seeded in the incumbent's
+    #   neighborhood (per-gene redraw with prob warm_mutation)
+    warm_mutation: float = 0.1      # per-gene neighborhood redraw prob
     miss_budget: float = 0.05       # p95 deadline-miss budget of the
     #   traffic key (used only when a solve is given arrivals)
 
@@ -166,17 +180,29 @@ def _home_servers(prob: SimProblem) -> np.ndarray:
 
 def init_swarm(prob: SimProblem, cfg: PSOGAConfig,
                generator: torch.Generator,
-               device: Optional[Union[str, torch.device]] = None
-               ) -> torch.Tensor:
-    """Link-aware random initialization (cold mode), ``(pop_size, p)``
-    int32 on ``device``.
+               device: Optional[Union[str, torch.device]] = None,
+               incumbent: Optional[np.ndarray] = None,
+               rescue: bool = False) -> torch.Tensor:
+    """Link-aware random initialization, ``(pop_size, p)`` int32 on
+    ``device``.
 
     Genes are drawn uniformly over the servers reachable from the app's
     home device ({home} ∪ {s : ℓ(home, s) > 0}), so the initial swarm has
     no forbidden-link placement; mutation still draws from ALL servers.
     With ``cfg.bias_init_to_tiers`` particle 0 is the everything-stays-home
     placement and the next ones the single-server placements (≤ S+1
-    anchors in all). Pins are applied last.
+    anchors in all).
+
+    With ``incumbent`` (a ``(p,)`` plan, online re-planning) the swarm is
+    seeded around it instead: ``cfg.warm_elite`` exact clones, then
+    ``cfg.warm_fraction`` of the swarm in its neighborhood (each gene
+    redrawn with prob ``cfg.warm_mutation`` over the layer's reachable
+    servers), then the cold random draw. ``rescue`` (set where drift left
+    the incumbent infeasible) puts the all-home placement and the
+    single-server placements by DESCENDING power at the tail, so the
+    strongest escape hatches survive truncation. The warm draws follow the
+    cold one on ``generator``, so ``incumbent=None`` draws exactly the cold
+    swarm. Pins are applied last.
     """
     dev = resolve_device(device)
     p, s, P = prob.num_layers, prob.num_servers, cfg.pop_size
@@ -187,12 +213,36 @@ def init_swarm(prob: SimProblem, cfg: PSOGAConfig,
     # row j lists layer j's allowed servers first, in ascending order
     table = torch.as_tensor(np.argsort(~allowed, axis=1, kind="stable"),
                             device=dev)
-    u = torch.rand((P, p), generator=generator, device=dev)
-    k = torch.minimum((u * counts).floor().long(), counts - 1)
-    X = table[torch.arange(p, device=dev)[None, :], k].to(torch.int32)
-    if cfg.bias_init_to_tiers:
+    rows = torch.arange(p, device=dev)[None, :]
+
+    def reachable(n: int) -> torch.Tensor:
+        u = torch.rand((n, p), generator=generator, device=dev)
+        k = torch.minimum((u * counts).floor().long(), counts - 1)
+        return table[rows, k].to(torch.int32)
+
+    X = reachable(P)
+    home_t = torch.as_tensor(home, device=dev)
+    if incumbent is not None:
+        inc = torch.as_tensor(np.asarray(incumbent), dtype=torch.int32,
+                              device=dev)
+        n_elite = max(1, min(cfg.warm_elite, P))
+        n_neigh = min(int(round(cfg.warm_fraction * P)), P - n_elite)
+        X[:n_elite] = inc
+        if n_neigh > 0:
+            mut = torch.rand((n_neigh, p), generator=generator,
+                             device=dev) < cfg.warm_mutation
+            X[n_elite:n_elite + n_neigh] = torch.where(
+                mut, reachable(n_neigh), inc)
+        tail = n_elite + n_neigh
+        if rescue and cfg.bias_init_to_tiers and tail < P:
+            n_anchor = min(s + 1, P - tail)
+            X[tail] = home_t
+            by_power = np.argsort(-np.asarray(prob.power), kind="stable")
+            for a in range(n_anchor - 1):
+                X[tail + 1 + a] = int(by_power[a])
+    elif cfg.bias_init_to_tiers:
         n_anchor = min(s + 1, P - 1)
-        X[0] = torch.as_tensor(home, device=dev)
+        X[0] = home_t
         for a in range(n_anchor - 1):
             X[1 + a] = a
     return _clamp_pins(X, torch.as_tensor(prob.pinned, device=dev))
@@ -201,7 +251,9 @@ def init_swarm(prob: SimProblem, cfg: PSOGAConfig,
 def swarm_step(pp: PaddedProblem, state: _SwarmState, cfg: PSOGAConfig,
                draws: Optional[SwarmDraws] = None,
                generators: Optional[Sequence[torch.Generator]] = None,
-               arrivals=None) -> _SwarmState:
+               arrivals=None, incumbent: Optional[torch.Tensor] = None,
+               mig_weight=None,
+               inertia: Optional[torch.Tensor] = None) -> _SwarmState:
     """One PSO-GA iteration on the padded representation (Eq. 17–23).
 
     Works on one problem or on a stacked fleet (a leading axis on ``pp``,
@@ -214,21 +266,33 @@ def swarm_step(pp: PaddedProblem, state: _SwarmState, cfg: PSOGAConfig,
     stacked) switch the fitness to the traffic key under
     ``cfg.miss_budget``. A solve loop passes them as ``TrafficInputs``,
     built once by ``traffic_inputs``, so no step rebuilds the merged order.
+
+    ``incumbent`` (``(max_p,)``, or ``(N, max_p)`` stacked) and
+    ``mig_weight`` (scalar or ``(N,)``) switch the fitness to the
+    migration-aware warm key; a weight of 0 gives the cold key bit for
+    bit. ``inertia`` (``()``, or ``(N,)`` stacked) replaces Eq. 22–23's
+    per-particle weight with one ``w`` for the whole swarm (the linear
+    schedule of Eq. 21).
     """
     max_p = pp.pinned.shape[-1]
     if draws is None:
         draws = draw_swarm(pp, cfg.pop_size, generators)
-    fit = make_swarm_fitness(pp, cfg.faithful_sim, arrivals=arrivals,
+    fit = make_swarm_fitness(pp, cfg.faithful_sim, incumbent=incumbent,
+                             mig_weight=mig_weight, arrivals=arrivals,
                              miss_budget=cfg.miss_budget)
     t = state.it.to(torch.float32) / cfg.max_iters
     c1 = cfg.c1_start + (cfg.c1_end - cfg.c1_start) * t
     c2 = cfg.c2_start + (cfg.c2_end - cfg.c2_start) * t
 
-    # adaptive inertia (Eq. 22-23): padded genes never differ from gBest's,
-    # so the count covers real genes only; divide by the TRUE gene count
-    d = (state.X != state.gbest_x[..., None, :]).to(torch.float32).sum(-1) \
-        / pp.num_layers.to(torch.float32)[..., None]
-    w = cfg.w_max - (cfg.w_max - cfg.w_min) * torch.exp(d / (d - 1.01))
+    if inertia is not None:
+        w = inertia[..., None]
+    else:
+        # adaptive inertia (Eq. 22-23): padded genes never differ from
+        # gBest's, so the count covers real genes only; divide by the TRUE
+        # gene count
+        d = (state.X != state.gbest_x[..., None, :]).to(torch.float32) \
+            .sum(-1) / pp.num_layers.to(torch.float32)[..., None]
+        w = cfg.w_max - (cfg.w_max - cfg.w_min) * torch.exp(d / (d - 1.01))
 
     genes = torch.arange(max_p, device=pp.device)
     do_mu = draws.do_mu < w                                    # Eq. 20

@@ -21,9 +21,9 @@ every Mamba2 block's prefill through B5 (the SSD intra-chunk form); with
 seed.
 
 ``--plan`` first plans the serving shapes' placement over the TPU fleet
-(``launch/plan.py``), as the reference's ``--plan`` does, then serves.
-The reference's ``--replan`` and ``--serve`` modes wait for ROADMAP queue
-A items 9 and 10.
+(``launch/plan.py``), as the reference's ``--plan`` does, then serves;
+``--plan --replan SCENARIO`` re-plans them through a drift trace first.
+The reference's ``--serve`` mode waits for ROADMAP queue A item 10.
 """
 from __future__ import annotations
 
@@ -38,7 +38,7 @@ from ..configs import get
 from ..configs.base import ModelConfig
 from ..core.device import resolve_device
 from ..models import build_model
-from .plan import add_plan_args, plan_serving_shapes
+from .plan import add_plan_args, check_plan_args, plan_serving_shapes
 
 __all__ = ["Server", "main"]
 
@@ -119,13 +119,18 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if args.traffic and not args.plan:
         ap.error("--traffic requires --plan")
+    if args.replan and not args.plan:
+        ap.error("--replan requires --plan")
+    check_plan_args(ap, args)
     device = resolve_device(args.device)
 
     cfg = get(args.arch)
     if args.plan:
         plan_serving_shapes(cfg, device=device, pop=args.pop,
                             iters=args.iters, traffic=args.traffic,
-                            traffic_rate=args.traffic_rate, prefix="serve")
+                            traffic_rate=args.traffic_rate, prefix="serve",
+                            replan=args.replan,
+                            replan_rounds=args.replan_rounds)
     if args.reduced:
         cfg = cfg.reduced()
     srv = Server(cfg, args.batch, args.prompt_len, args.max_new,

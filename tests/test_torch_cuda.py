@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on a card: the
 replay kernels B1 and B2, the attention kernels B3 and B4, the SSD
-intra-chunk kernel B5, and the dense, SSM and hybrid models through them.
+intra-chunk kernel B5, the dense, SSM and hybrid models through them, and
+the comparators (GA, linear-inertia PSO, prePSO) and one re-planning round
+through B1 and B2.
 
 Run where there is one (no JAX needed):
 
@@ -14,10 +16,16 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import (SimProblem, TrafficConfig, heft_makespan,
-                              merge_dags, pack_arrivals, pad_problem,
-                              paper_environment, sample_arrivals,
-                              stack_problems, traffic_inputs, zoo)
+from repro_torch.core import (GAConfig, GADraws, PSOGAConfig, ReplanConfig,
+                              SimProblem, TrafficConfig, greedy_offload,
+                              heft_makespan, init_swarm, merge_dags, pack_arrivals,
+                              pad_problem, paper_environment, pre_pso,
+                              replan_round, run_ga, run_pso_linear,
+                              sample_arrivals, sample_trace, stack_problems,
+                              traffic_inputs, zoo)
+from repro_torch.core.batch import SYNC_EVERY
+from repro_torch.core.dag import preprocess
+from repro_torch.core.pso_ga import draws_from_uniforms
 from repro_torch.core.simulator import kernel_args
 from repro_torch.configs import get
 from repro_torch.kernels import decode_attention as da
@@ -625,3 +633,132 @@ def test_ssm_models_on_card_match_plain_path(cuda_device, arch, layers,
             outs.append(torch.cat(steps, 1).cpu())
     assert tuple(c.launches - s for c, s in zip(counters, start)) == launches
     torch.testing.assert_close(outs[0], outs[1], rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the comparators and the re-planner: the same injected draws on the card
+# (B1, B2) and on the CPU (their plain versions) give the same solves
+# ---------------------------------------------------------------------------
+
+def _deadlined(net, ratio, n_devices):
+    env = paper_environment()
+    dag = merge_dags([zoo.build(net, pin_server=d) for d in range(n_devices)])
+    h, _ = heft_makespan(dag, env)
+    return dag.with_deadline(np.full(dag.num_apps, ratio * h)), env
+
+
+def _swarm_draws(P, seed=7):
+    """``draw_fn(i, step)`` of PSO-GA's step draws, from numpy."""
+    def draw(i, step, p=None, s=None):
+        u = np.random.default_rng([seed, i, step]).random((P, 9),
+                                                          dtype=np.float32)
+        return draws_from_uniforms(torch.as_tensor(u), torch.tensor(p),
+                                   torch.tensor(s))
+    return draw
+
+
+def _same(a, b):
+    np.testing.assert_array_equal(a.best_x, b.best_x)
+    assert (a.iterations, a.feasible, a.best_fitness, a.best_cost) == \
+        (b.iterations, b.feasible, b.best_fitness, b.best_cost)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("traffic", [False, True])
+def test_ga_on_card_equals_cpu(cuda_device, traffic):
+    """``run_ga`` with the same injected population and draws on the card
+    and on the CPU: the same solve; B1 (or B2) launched every generation."""
+    dag, env = _deadlined("googlenet", 3.0, 2)
+    prob = SimProblem.build(dag, env)
+    cfg = GAConfig(pop_size=100, max_iters=60, stall_iters=20)
+    P, T, p, S = cfg.pop_size, cfg.tournament, prob.num_layers, \
+        prob.num_servers
+    X0 = np.random.default_rng(1).integers(0, S, (P, p)).astype(np.int32)
+
+    def draw(gen):
+        r = np.random.default_rng([3, gen])
+        return GADraws(cand=r.integers(0, P, (P, 2, T)).astype(np.int32),
+                       do_x=r.random(P, dtype=np.float32),
+                       seg=r.integers(0, p, (P, 2)).astype(np.int32),
+                       mu=r.random((P, p), dtype=np.float32),
+                       vals=r.integers(0, S, (P, p)).astype(np.int32))
+    arr = TrafficConfig(kind="bursty", rate=0.5).solver_arrivals(
+        2, seed=1) if traffic else None
+    b1, b2 = schedule_sim.schedule_replay, traffic_sim.traffic_replay
+    start = (b1.launches, b2.launches)
+    card = run_ga(dag, env, cfg, device=cuda_device, X0=X0, draw_fn=draw,
+                  arrivals=arr)
+    n1, n2 = b1.launches - start[0], b2.launches - start[1]
+    cpu = run_ga(dag, env, cfg, device="cpu", X0=X0, draw_fn=draw,
+                 arrivals=arr)
+    _same(card, cpu)
+    # the first scoring and one per generation run; then the epilogue's B1
+    fit_launches = n2 if traffic else n1 - 1
+    assert card.iterations + 1 <= fit_launches \
+        <= card.iterations + SYNC_EVERY
+    assert n1 >= 1 and (n2 > 0) == traffic
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["pso_linear", "pre_pso"])
+def test_pso_linear_and_pre_pso_on_card_equal_cpu(cuda_device, solver):
+    """The same injected swarm and step draws on the card and on the CPU:
+    the same solve, with one B1 launch per step besides the first scoring
+    and the epilogue."""
+    dag, env = _deadlined("googlenet", 2.0, 1)
+    solved = preprocess(dag)[0] if solver == "pre_pso" else dag
+    prob = SimProblem.build(solved, env)
+    cfg = PSOGAConfig(pop_size=64, max_iters=80, stall_iters=20)
+    X0 = init_swarm(prob, cfg, torch.Generator().manual_seed(0),
+                    device="cpu").numpy()
+    base = _swarm_draws(cfg.pop_size)
+
+    def draw(i, step):
+        return base(i, step, prob.num_layers, prob.num_servers)
+    fn = run_pso_linear if solver == "pso_linear" else pre_pso
+    b1 = schedule_sim.schedule_replay
+    start = b1.launches
+    card = fn(dag, env, cfg, device=cuda_device, X0=X0, draw_fn=draw)
+    n1 = b1.launches - start
+    _same(card, fn(dag, env, cfg, device="cpu", X0=X0, draw_fn=draw))
+    assert card.iterations + 2 <= n1 <= card.iterations + 2 + SYNC_EVERY
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("traffic", [False, True])
+def test_replan_round_on_card_equals_cpu(cuda_device, traffic):
+    """One node-loss round with the same injected warm swarms and draws on
+    the card and on the CPU: the same decisions and plans; the round
+    launched B1 (and, under traffic, B2)."""
+    env = paper_environment()
+    dags = [_deadlined(net, 1.5, 1)[0] for net in ("alexnet", "googlenet")]
+    trace = sample_trace("node-loss", env, rounds=2, seed=1)
+    probs = [SimProblem.build(d, trace.env_at(1)) for d in dags]
+    incs = [greedy_offload(d, env).best_x for d in dags]
+    cfg = ReplanConfig(pso=PSOGAConfig(pop_size=48, max_iters=60,
+                                       stall_iters=15),
+                       migration_weight=0.1)
+    X0 = [init_swarm(pr, cfg.pso, torch.Generator().manual_seed(i),
+                     device="cpu", incumbent=inc).numpy()
+          for i, (pr, inc) in enumerate(zip(probs, incs))]
+    base = _swarm_draws(cfg.pso.pop_size, seed=11)
+
+    def draw(i, step):
+        return base(i, step, probs[i].num_layers, probs[i].num_servers)
+    arr = [TrafficConfig(kind="bursty", rate=0.5).solver_arrivals(
+        1, seed=31 * i) for i in range(2)] if traffic else None
+    b1, b2 = schedule_sim.schedule_replay, traffic_sim.traffic_replay
+    start = (b1.launches, b2.launches)
+    card = replan_round(probs, incs, cfg, seed=2, arrivals=arr,
+                        device=cuda_device, X0=X0, draw_fn=draw)
+    n1, n2 = b1.launches - start[0], b2.launches - start[1]
+    cpu = replan_round(probs, incs, cfg, seed=2, arrivals=arr, device="cpu",
+                       X0=X0, draw_fn=draw)
+    for a, b in zip(card[0], cpu[0]):
+        np.testing.assert_array_equal(a, b)
+    for field in card[1]._fields:
+        if field != "wall_s":
+            np.testing.assert_array_equal(getattr(card[1], field),
+                                          getattr(cpu[1], field),
+                                          err_msg=field)
+    assert n1 > 0 and (n2 > 0) == traffic
