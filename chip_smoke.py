@@ -61,7 +61,24 @@ result line):
                beat their incumbents and avoid churned servers, final plans
                replay through ``simulate_np``, and B1 (B2) hold against their
                plain versions at the last round's buckets;
- 10. check-attn — B3 (flash prefill) and B4 (flash decode) against their
+ 10. service — the always-on planning service (``run_service``) on the
+               plan and traffic phases' qwen3-0.6b results, each round's
+               rungs, wall and B1 / B2 launches printed: (a) a 6-round
+               congestion trace under ``--chaos``'s faults (crash at round
+               2, NaN env at 3, server 1 down mid-round at 4) with the plan
+               cache — every served plan passes ``_plan_ok`` on the env it
+               runs on, one stale env, a crash or retry, B1 launched in
+               every solved round; (b) a zero-drift trace with the plan
+               cache — later rounds are cache hits, no launch, the cold
+               plans bit for bit; (c) ``--serve bursty`` (load-surge) with
+               rates estimated from queued observations, ingestion threads
+               0 and 2 — B2 launched, enqueued + dropped = offered; (d)
+               ``run_services`` of two services on threads sharing one
+               cache and one telemetry — each equals its solo run, the
+               trace passes ``scripts/check_trace.py``; (e) walls with
+               telemetry off / on / on / off (plans equal), then one
+               profiled run (device busy, idle share);
+ 11. check-attn — B3 (flash prefill) and B4 (flash decode) against their
                plain versions on CUDA tensors, float32 to 2e-5 and bfloat16
                to 2e-2: qwen3-0.6b's serving shapes (batch 8, prompt 2048,
                cache 2080; causal and a 512 window; valid_len 1, 7, 1000,
@@ -70,25 +87,25 @@ result line):
                wholly masked for some rows, a decode split with empty blocks,
                and ragged shapes of the CPU sweep (head_dim 16 to 256, 112
                among them);
- 11. serve   — the LM main path: ``repro_torch.launch.serve.Server`` with
+ 12. serve   — the LM main path: ``repro_torch.launch.serve.Server`` with
                qwen3-0.6b at full width and depth (28 layers, bfloat16,
                seeded weights on the card), batch 8, prompt 2048, 32 new
                tokens, no EOS; a first call, then a counted one that must
                launch B3 28 times and B4 28 x 31 times and give the same
                tokens; prints prefill ms and decode tokens/s;
- 12. serve-check — qwen3-0.6b at full width, 2 layers: prefill of 1000
+ 13. serve-check — qwen3-0.6b at full width, 2 layers: prefill of 1000
                tokens and 4 greedy decode steps through the kernels against
                the same tokens through the plain versions on the card; in
                float32 (the CUDA-core B3 route) logits to 1e-4, equal tokens,
                and decode logits against the prefill logits of the longer
                prompt (teacher-forced, 2e-3); in bfloat16 (the tensor-core B3
                route) logits to 2e-2 + 2e-2 |plain|, token equality printed;
- 13. time-attn — B3 and B4 per launch at qwen3-0.6b's and zamba2-7b's
+ 14. time-attn — B3 and B4 per launch at qwen3-0.6b's and zamba2-7b's
                serving shapes (CUDA events over calls queued behind a device
                sleep, five rounds in turns with one
                ``scaled_dot_product_attention`` call as the yardstick,
                medians), beside their plain versions and bounds;
- 14. check-ssd — B5 (the SSD intra-chunk form) against its plain version
+ 15. check-ssd — B5 (the SSD intra-chunk form) against its plain version
                on CUDA tensors, every element within 1e-4 + 1e-4 |plain|:
                the reference's sweep shapes, chunks of 17 and 37 rows,
                mamba2-2.7b's serving shape (64 chunks of 256, 80 heads of 64,
@@ -96,21 +113,21 @@ result line):
                column slices, the inputs of a real full-width ``mamba_seq``
                prefill, a log-decay steep enough that exp overflows above the
                diagonal, and causality (future inputs leave past rows equal);
- 15. serve-ssm — ``Server`` with mamba2-2.7b at full width and depth (64
+ 16. serve-ssm — ``Server`` with mamba2-2.7b at full width and depth (64
                layers, bfloat16, seeded weights on the card), batch 8,
                prompt 2048, 32 new tokens, no EOS; the counted call must
                launch B5 64 times and B3 and B4 never, and give the first
                call's tokens; prints prefill ms, decode tokens/s, peak memory;
- 16. serve-hybrid — the same with zamba2-7b (81 Mamba2 blocks, 13 shared
+ 17. serve-hybrid — the same with zamba2-7b (81 Mamba2 blocks, 13 shared
                attention sites): B5 81 times, B3 13 and B4 13 x 31 times;
- 17. serve-check-ssm — mamba2-2.7b at full width with 2 layers and
+ 18. serve-check-ssm — mamba2-2.7b at full width with 2 layers and
                zamba2-7b with 7 (one group and one tail block), float32:
                prefill of 1000 tokens (a ragged last chunk) and 4 greedy
                steps through the kernels and through the plain versions on
                the card (logits to 1e-4, equal tokens), and decode logits
                against the prefill of the longer prompt (2e-3);
- 18. time-ssd — B5 per launch at mamba2-2.7b's and zamba2-7b's serving
-               shapes, timed as in 13 (no single PyTorch call computes it, so
+ 19. time-ssd — B5 per launch at mamba2-2.7b's and zamba2-7b's serving
+               shapes, timed as in 14 (no single PyTorch call computes it, so
                no library yardstick), beside its plain version, the bound of
                its 3xTF32 tensor-core route and the float32 CUDA-core bound.
 
@@ -128,6 +145,7 @@ import importlib
 import json
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from concurrent.futures import ThreadPoolExecutor
@@ -748,6 +766,7 @@ def main() -> int:
 
     # 4. plan: the main path ----------------------------------------------
     launches = {}
+    planned = {}            # the plan and traffic phases' cold results
 
     def plan():
         b1.launches = 0
@@ -758,6 +777,7 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches["plan"] = b1.launches
+        planned["plan"] = plans
         for shape, p in zip(shapes, plans):
             print(f"[plan] {shape.name}: iterations "
                   f"{p.result.iterations}\n{p.summary()}")
@@ -781,6 +801,7 @@ def main() -> int:
         wall = time.perf_counter() - t0
         launches["traffic"] = b2.launches
         launches["traffic_zero_load"] = b1.launches
+        planned["traffic"] = plans
         for i, (shape, p) in enumerate(zip(shapes, plans)):
             assert p.backend == "cuda"
             # the returned key, replayed through the plain traffic replay
@@ -1092,7 +1113,169 @@ def main() -> int:
                                 pso.pop_size, [rep.plans], pso.faithful_sim)
     _phase("replan", replan, failures)
 
-    # 10. check-attn: B3 and B4 against their plain versions ----------------
+    # 10. service: the always-on planning service on the qwen3-0.6b plans --
+    def service():
+        from repro_torch.core.service import _down_env, _plan_ok
+        from repro_torch.launch.breakdown import profile
+        from repro_torch.launch.plan import chaos_script
+        plans0, plans_t = planned["plan"], planned["traffic"]
+        dags = [p.dag for p in plans0]
+        rcfg = port.ReplanConfig(pso=DEFAULT_PSO)
+        pso_t = dataclasses.replace(DEFAULT_PSO,
+                                    miss_budget=traffic_cfg.miss_budget)
+        rcfg_t = port.ReplanConfig(pso=pso_t, traffic=traffic_cfg)
+
+        def run(tag, trace, cfg, initial, **kw):
+            """One counted service run: B1 and B2 launches per round."""
+            rows = []
+
+            def on_round(log, plans):
+                rows.append((log, [None if x is None else np.array(x)
+                                   for x in plans], b1.launches,
+                             b2.launches))
+                print(f"[service] {tag} round {log.round} ({log.label}): "
+                      f"rungs {list(log.rung)}, breaker "
+                      f"{log.breaker_state}, {1e3 * log.wall_s:.1f} ms, "
+                      f"budget {log.budget_iters:.4g} iterations, "
+                      f"schedule_replay launches {b1.launches}, "
+                      f"traffic_replay launches {b2.launches}"
+                      + "".join(f" [{f}]" for f, on in (
+                          ("stale-env", log.stale_env),
+                          ("solver-failed", log.solver_failed),
+                          ("cache-hit", log.cache_hit)) if on),
+                      flush=True)
+                b1.launches = 0
+                b2.launches = 0
+            b1.launches = 0
+            b2.launches = 0
+            rep = port.run_service(
+                dags, trace, cfg, seed=SEED, on_round=on_round,
+                initial=None if initial is None
+                else [p.result for p in initial], sleeper=lambda s: None,
+                **kw)
+            s = rep.summary()
+            print(f"[service] {tag}: availability {s['availability']:.4f}, "
+                  f"time to plan p50 {1e3 * s['time_to_plan_s']['p50']:.1f}"
+                  f" ms p99 {1e3 * s['time_to_plan_s']['p99']:.1f} ms, "
+                  f"fallbacks {s['fallback_counts']}, counters "
+                  f"{s['counters']}, cache {rep.cache_stats}", flush=True)
+            return rep, rows
+
+        # (a) congestion under --chaos's faults, with the plan cache
+        trace = port.sample_trace("congestion", tpu_env, rounds=6, seed=0)
+        chaos = chaos_script(6)
+        rep, rows = run("chaos", trace, port.ServiceConfig(
+            replan=rcfg, chaos=chaos, plan_cache=port.PlanCacheConfig()),
+            plans0)
+        assert rep.counters["stale_env_rounds"] == 1, rep.counters
+        assert rep.counters["crashes"] + rep.counters["retries"] >= 1
+        good = trace.env_at(0)
+        for log, plans, n1, n2 in rows:
+            env_k = good if log.stale_env else trace.env_at(log.round)
+            good = env_k
+            if log.round in chaos.mid_round_down:
+                env_k = _down_env(env_k, chaos.mid_round_down[log.round])
+            for d, x in zip(dags, plans):
+                assert _plan_ok(port.SimProblem.build(d, env_k), x), \
+                    (log.round, log.rung)
+            if log.replan is not None:
+                assert n1 > 0, log.round
+        assert rep.availability() == 1.0
+
+        # (b) zero drift with the plan cache: repeat rounds hit, bit for bit
+        rep, rows = run("zero-drift", port.zero_drift_trace(tpu_env, 4),
+                        port.ServiceConfig(
+                            replan=rcfg, plan_cache=port.PlanCacheConfig()),
+                        plans0)
+        assert not rep.rounds[0].cache_hit
+        for log, plans, n1, n2 in rows[1:]:
+            assert log.cache_hit and set(log.rung) == {"cached"}
+            assert n1 == 0 and n2 == 0
+            for p, x in zip(plans0, plans):
+                assert np.array_equal(x, p.result.best_x)
+
+        # (c) --serve bursty: the request stream through a load-surge
+        # trace, rates estimated from queued observations
+        trace = port.sample_trace("load-surge", tpu_env, rounds=6, seed=0)
+        for threads in (0, 2):
+            rep, rows = run(f"bursty ingest threads={threads}", trace,
+                            port.ServiceConfig(
+                                replan=rcfg_t, estimate_rates=True,
+                                ingest=port.IngestConfig(threads=threads)),
+                            plans_t)
+            c = rep.counters
+            offered = (trace.num_rounds - 1) * len(dags)
+            assert c["ingest_enqueued"] + c["ingest_dropped"] == offered, c
+            assert sum(r[3] for r in rows) > 0, "no B2 launch"
+            print(f"[service] bursty threads={threads}: estimated rates "
+                  f"{[r.est_rates for r in rep.rounds]}", flush=True)
+
+        # (d) two services on threads, one shared cache and telemetry
+        trace = port.sample_trace("congestion", tpu_env, rounds=4, seed=0)
+        cfg = port.ServiceConfig(replan=rcfg,
+                                 plan_cache=port.PlanCacheConfig())
+        cache, tel = port.PlanCache(), port.Telemetry()
+        b1.launches = 0
+        t0 = time.perf_counter()
+        reports = port.run_services([dags, dags], trace, cfg, seeds=SEED,
+                                    plan_cache=cache, telemetry=tel)
+        wall = time.perf_counter() - t0
+        n1 = b1.launches
+        t0 = time.perf_counter()
+        solo, _ = run("solo", trace, cfg, None)
+        solo_wall = time.perf_counter() - t0
+        for j, r in enumerate(reports):
+            for x, y in zip(r.plans, solo.plans):
+                assert np.array_equal(x, y), j
+            for a, b in zip(r.rounds, solo.rounds):
+                assert set(a.rung) <= {"cached"} | set(b.rung), (a, b)
+        with tempfile.TemporaryDirectory() as out:
+            path, mdir = Path(out) / "trace.json", Path(out) / "metrics"
+            tel.export_trace(str(path))
+            tel.export_metrics(str(mdir))
+            chk = subprocess.run(
+                [sys.executable, str(ROOT / "scripts" / "check_trace.py"),
+                 str(path), "--metrics", str(mdir), "--require",
+                 "round,solve,cache_lookup,ladder,replan_round,fleet_solve,"
+                 "cold_solve"], capture_output=True, text=True, timeout=120)
+        print(chk.stdout.strip(), flush=True)
+        assert chk.returncode == 0, chk.stdout + chk.stderr
+        print(f"[service] run_services x2 (shared cache, telemetry): "
+              f"{wall:.3f} s against {solo_wall:.3f} s for one service "
+              f"alone ({wall / solo_wall:.2f}x), schedule_replay launches "
+              f"{n1}, cache "
+              f"{cache.stats()}, rungs "
+              f"{[[r.rung for r in rep.rounds] for rep in reports]}",
+              flush=True)
+        assert n1 > 0
+
+        # (e) telemetry on against off, then one profiled run
+        trace = port.sample_trace("congestion", tpu_env, rounds=4, seed=0)
+        walls = {}
+        for tag in ("off", "on", "on", "off"):
+            tel = port.Telemetry() if tag == "on" else None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = port.run_service(dags, trace, port.ServiceConfig(
+                replan=rcfg), seed=SEED, telemetry=tel,
+                initial=[p.result for p in plans0])
+            walls.setdefault(tag, []).append(
+                (time.perf_counter() - t0,
+                 [round(1e3 * x.wall_s, 2) for x in r.rounds]))
+            walls.setdefault(f"plans {tag}", r.plans)
+        for x, y in zip(walls["plans on"], walls["plans off"]):
+            assert np.array_equal(x, y)
+        print(f"[service] telemetry off / on / on / off: wall s and round "
+              f"ms {walls['off'][0]} / {walls['on'][0]} / {walls['on'][1]}"
+              f" / {walls['off'][1]}", flush=True)
+        prof = profile("service-congestion", lambda: port.run_service(
+            dags, trace, port.ServiceConfig(replan=rcfg), seed=SEED,
+            initial=[p.result for p in plans0]), None)
+        prof.pop("top")
+        print(f"[service] profiled: {json.dumps(prof)}", flush=True)
+    _phase("service", service, failures)
+
+    # 11. check-attn: B3 and B4 against their plain versions ----------------
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_attention as da
@@ -1175,7 +1358,7 @@ def main() -> int:
                            decode_plain(q, k, v, valid), dtype)
     _phase("check-attn", check_attn, failures)
 
-    # 11. serve: qwen3-0.6b at full width and depth --------------------------
+    # 12. serve: qwen3-0.6b at full width and depth --------------------------
     def expected_launches(cfg, steps):
         """(B3, B4, B5) launches of one prefill and ``steps`` decode steps:
         one attention kernel per layer (dense) or shared site (hybrid) and
@@ -1238,7 +1421,7 @@ def main() -> int:
         launches["serve_b3"], launches["serve_b4"], _ = serve_model(qwen)
     _phase("serve", serve, failures)
 
-    # 12. serve-check: the kernels against the plain path in one model -----
+    # 13. serve-check: the kernels against the plain path in one model -----
     def serve_check(cfgs, dtype="float32"):
         """Each of ``cfgs`` (cut in depth, full width) in ``dtype``: prefill
         of 1000 tokens and 4 greedy steps through the kernels, then the same
@@ -1312,7 +1495,7 @@ def main() -> int:
         serve_check([qwen2], "bfloat16")
     _phase("serve-check", serve_checks, failures)
 
-    # 13. time-attn: B3 and B4 at the serving shapes ------------------------
+    # 14. time-attn: B3 and B4 at the serving shapes ------------------------
     def in_turns(tag, kernel, library, plain, reps, plain_reps, rounds=5):
         """Kernel and library call timed in turns, ``rounds`` times each,
         then the plain version once; medians of the device times."""
@@ -1417,7 +1600,7 @@ def main() -> int:
         time_decode("zamba2", zkv, zg, zhd)
     _phase("time-attn", time_attn, failures)
 
-    # 14. check-ssd: B5 against its plain version ---------------------------
+    # 15. check-ssd: B5 against its plain version ---------------------------
     rec["ssd_max_abs_err"] = 0.0
 
     def ssd_shape(cfg, batch=SERVE_BATCH, prompt=SERVE_PROMPT):
@@ -1515,12 +1698,12 @@ def main() -> int:
     _phase("serve-ssm", serve_ssm, failures)
     _phase("serve-hybrid", serve_model, failures, zamba2)
 
-    # 17. serve-check-ssm: kernels against plain inside both models ----------
+    # 18. serve-check-ssm: kernels against plain inside both models ----------
     _phase("serve-check-ssm", serve_check, failures,
            [dataclasses.replace(mamba2, n_layers=2),
             dataclasses.replace(zamba2, n_layers=7)])
 
-    # 18. time-ssd: B5 at the serving shapes --------------------------------
+    # 19. time-ssd: B5 at the serving shapes --------------------------------
     def ssd_bound(shape):
         """Least time of one B5 launch, two ways. The float32 CUDA-core
         bound: the causal band's operations (scores C_i . B_j once per

@@ -18,6 +18,14 @@ Public surface:
   * EnvTrace / DriftEvent / sample_trace / zero_drift_trace /
     ReplanConfig / replan_round / replan_fleet / incumbent_keys /
     plan_is_valid                           — online re-planning
+  * ServiceConfig / ChaosConfig / run_service / run_services /
+    LADDER_RUNGS                            — fault-tolerant always-on
+                                              planning service
+  * PlanCache / PlanCacheConfig / dag_fingerprint — the service's plan
+                                              cache
+  * IngestConfig / ArrivalQueue             — async arrival ingestion
+  * Telemetry / MetricsRegistry / SpanTracer — unified metrics + span
+                                              tracing
   * placement / partition                   — the model-fleet bridge
   * zoo                                     — AlexNet/VGG19/GoogleNet/ResNet101
 """
@@ -30,11 +38,15 @@ from .simulator import (PaddedProblem, SimProblem, SimResult,
                         build_simulator, pad_problem, padded_from_arrays,
                         simulate_np, simulate_padded, simulate_swarm,
                         stack_problems)
-from .traffic import (TRAFFIC_KINDS, ArrivalTrace, MergedOrder,
-                      TrafficConfig, TrafficInputs, TrafficResult, TrafficSim,
-                      merged_order, percentile_linear, sample_arrivals,
+from .traffic import (TRAFFIC_KINDS, ArrivalQueue, ArrivalTrace,
+                      IngestConfig, MergedOrder, TrafficConfig, TrafficInputs,
+                      TrafficResult, TrafficSim, merged_order,
+                      percentile_linear, sample_arrivals,
                       simulate_traffic_swarm, traffic_inputs, traffic_replay,
                       traffic_stats, zero_contention_arrivals)
+from .telemetry import (MetricsRegistry, SpanTracer, Telemetry,
+                        get_telemetry, maybe_span, set_telemetry,
+                        telemetry_scope)
 from .fitness import (INFEASIBLE_OFFSET, MISS_PENALTY, fitness_key,
                       make_swarm_fitness, migration_cost)
 from .pso_ga import (PSOGAConfig, PSOGAResult, SwarmDraws, draw_swarm,
@@ -48,6 +60,10 @@ from .online import (TRACE_KINDS, DriftEvent, EnvTrace, OnlineReport,
                      ReplanConfig, RoundLog, incumbent_keys,
                      migration_cost_np, plan_is_valid, replan_fleet,
                      replan_round, sample_trace, zero_drift_trace)
+from .plancache import PlanCache, PlanCacheConfig, dag_fingerprint
+from .service import (LADDER_RUNGS, ChaosConfig, ServiceConfig,
+                      ServiceReport, ServiceRoundLog, run_service,
+                      run_services)
 from .partition import Stage, contiguous_stages, stage_cut_cost, \
     uniform_stages
 from .placement import (OffloadPlan, arch_to_dag, block_flops, plan_offload,
@@ -79,6 +95,12 @@ __all__ = [
     "TRACE_KINDS", "DriftEvent", "EnvTrace", "OnlineReport", "ReplanConfig",
     "RoundLog", "incumbent_keys", "migration_cost_np", "plan_is_valid",
     "replan_fleet", "replan_round", "sample_trace", "zero_drift_trace",
+    "ChaosConfig", "LADDER_RUNGS", "ServiceConfig", "ServiceReport",
+    "ServiceRoundLog", "run_service", "run_services",
+    "PlanCache", "PlanCacheConfig", "dag_fingerprint",
+    "MetricsRegistry", "SpanTracer", "Telemetry", "get_telemetry",
+    "maybe_span", "set_telemetry", "telemetry_scope",
+    "ArrivalQueue", "IngestConfig",
     "Stage", "contiguous_stages", "stage_cut_cost", "uniform_stages",
     "OffloadPlan", "arch_to_dag", "block_flops", "plan_offload",
     "plan_offload_batch", "zoo",

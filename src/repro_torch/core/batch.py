@@ -23,7 +23,8 @@ so that equality holds for traffic solves too. Incumbents, migration
 weights and rescue flags route by original index the same way.
 
 Public surface: ``run_pso_ga_batch`` (``incumbent=``,
-``migration_weight=``, ``warm_rescue=``, ``return_state=``),
+``migration_weight=``, ``warm_rescue=``, ``return_state=``,
+``telemetry=``),
 ``pack_fleet`` / ``PackedFleet`` / ``FleetBucket``, ``pack_problems``,
 ``pack_arrivals``, ``bucket_size`` and ``SYNC_EVERY``.
 """
@@ -46,6 +47,7 @@ from .pso_ga import (DrawFn, PSOGAConfig, PSOGAResult, SwarmDraws,
 from .seeding import coerce_seed
 from .simulator import (PaddedProblem, SimProblem, kernel_args, pad_problem,
                         stack_problems)
+from .telemetry import Telemetry, get_telemetry, maybe_span
 from .traffic import traffic_inputs
 
 __all__ = ["pack_problems", "pack_arrivals", "run_pso_ga_batch",
@@ -276,7 +278,8 @@ def run_pso_ga_batch(problems: Sequence[ProblemLike],
                          Optional[np.ndarray]]] = None,
                      migration_weight: Union[float, Sequence[float]] = 0.0,
                      warm_rescue: Optional[Sequence[bool]] = None,
-                     return_state: bool = False):
+                     return_state: bool = False,
+                     telemetry: Optional[Telemetry] = None):
     """Solve N offloading problems with one fleet of swarms per bucket,
     on ``device`` (``None`` = the card).
 
@@ -301,18 +304,28 @@ def run_pso_ga_batch(problems: Sequence[ProblemLike],
     Returns per-problem ``PSOGAResult`` in input order and, with
     ``return_state``, the final ``_SwarmState`` in input order at the
     largest bucket's ``max_p`` (genes beyond a problem's own bucket are 0).
+
+    ``telemetry`` (DESIGN.md §13; ``None`` falls back to the process-global
+    channel) wraps each bucket's solve in a ``fleet_solve`` span that ends
+    once the bucket's results are on the host, so it spans the device
+    work and adds no sync; results are bit-identical with it on or off.
+    The reference's ``runner_cache.*`` metrics have no counterpart: the
+    port compiles nothing per shape.
     """
+    tel = telemetry if telemetry is not None else get_telemetry()
     return _solve_fleet(problems, cfg, seed, bucket, device, X0, draw_fn,
                         record_history, arrivals, incumbent,
-                        migration_weight, warm_rescue, return_state)
+                        migration_weight, warm_rescue, return_state,
+                        tel=tel)
 
 
 def _solve_fleet(problems, cfg, seed, bucket, device, X0, draw_fn,
                  record_history, arrivals, incumbent=None,
                  migration_weight=0.0, warm_rescue=None,
-                 return_state=False, linear_inertia=False):
+                 return_state=False, linear_inertia=False, tel=None):
     """``run_pso_ga_batch``'s body; ``linear_inertia`` serves
-    ``baselines.run_pso_linear``."""
+    ``baselines.run_pso_linear``; ``tel`` gets one ``fleet_solve`` span
+    per bucket."""
     dev = resolve_device(device)
     probs = _as_problems(problems)
     n = len(probs)
@@ -366,18 +379,22 @@ def _solve_fleet(problems, cfg, seed, bucket, device, X0, draw_fn,
         arrb = None if arrivals is None else pack_arrivals(
             [arrivals[i] for i in b.idx], fleet.max_apps)
         warm = incumbent is not None
-        state, history = _run_fleet(
-            b.ppb, X0b, cfg, draw, gens, record_history, arrb,
-            incumbent=incb if warm else None,
-            mig_weight=migb if warm else None,
-            linear_inertia=linear_inertia)
-        total, feas, _ = schedule_replay(
-            *kernel_args(b.ppb), state.gbest_x[:, None, :].contiguous(),
-            faithful=cfg.faithful_sim)
-        total, feas = total[:, 0].cpu().numpy(), feas[:, 0].cpu().numpy()
-        gbest_x = state.gbest_x.cpu().numpy()
-        gbest_f = state.gbest_f.cpu().numpy()
-        its = state.it.cpu().numpy()
+        # the span closes once the bucket's results are on the host
+        with maybe_span(tel, "fleet_solve", bucket=f"{b.max_p}x{b.max_S}",
+                        n=nb, traffic=arrivals is not None, sharded=False):
+            state, history = _run_fleet(
+                b.ppb, X0b, cfg, draw, gens, record_history, arrb,
+                incumbent=incb if warm else None,
+                mig_weight=migb if warm else None,
+                linear_inertia=linear_inertia)
+            total, feas, _ = schedule_replay(
+                *kernel_args(b.ppb), state.gbest_x[:, None, :].contiguous(),
+                faithful=cfg.faithful_sim)
+            total = total[:, 0].cpu().numpy()
+            feas = feas[:, 0].cpu().numpy()
+            gbest_x = state.gbest_x.cpu().numpy()
+            gbest_f = state.gbest_f.cpu().numpy()
+            its = state.it.cpu().numpy()
         for j, i in enumerate(b.idx):
             ok = bool(feas[j])
             results[i] = PSOGAResult(

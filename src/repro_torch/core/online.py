@@ -21,9 +21,10 @@ as the environment (or the request stream) drifts:
 
 ``incumbent_keys`` scores every incumbent as a one-row swarm, one replay
 launch per shape bucket: B1 at zero load, B2 under traffic, the shape the
-solver's epilogue uses. The reference's ``runner_cache_stats`` counts
-JAX's compiled fleet runners; the port compiles nothing per shape, so it
-has no counterpart, and ``ReplanConfig`` has no ``mesh`` (one device).
+solver's epilogue uses. ``telemetry=`` adds the reference's spans and
+``online.*`` metrics. The reference's ``runner_cache_stats`` counts JAX's
+compiled fleet runners; the port compiles nothing per shape, so it has no
+counterpart, and ``ReplanConfig`` has no ``mesh`` (one device).
 """
 from __future__ import annotations
 
@@ -43,6 +44,7 @@ from .fitness import INFEASIBLE_OFFSET, make_swarm_fitness
 from .pso_ga import PSOGAConfig, PSOGAResult
 from .seeding import rng_entropy
 from .simulator import SimProblem
+from .telemetry import Telemetry, maybe_span
 from .traffic import TrafficConfig
 
 __all__ = ["DriftEvent", "EnvTrace", "ReplanConfig", "RoundLog",
@@ -408,7 +410,9 @@ def replan_round(probs: Sequence[SimProblem],
                  arrivals: Optional[Sequence[np.ndarray]] = None,
                  device: Optional[Union[str, torch.device]] = None,
                  X0: Optional[Sequence[np.ndarray]] = None,
-                 draw_fn=None) -> Tuple[List[np.ndarray], RoundLog]:
+                 draw_fn=None,
+                 telemetry: Optional[Telemetry] = None
+                 ) -> Tuple[List[np.ndarray], RoundLog]:
     """One drift event: warm re-solve the fleet, accept-if-better.
 
     ``probs`` carry the NEW (drifted) environment. Each problem's swarm
@@ -424,9 +428,27 @@ def replan_round(probs: Sequence[SimProblem],
     report the traffic key's verdict. ``X0`` and ``draw_fn`` pass through
     to ``run_pso_ga_batch`` (a test feeds the reference's warm swarms and
     step draws). Returns the surviving per-problem plans and the log.
+
+    ``telemetry`` (DESIGN.md §13) wraps the round in a ``replan_round``
+    span with ``incumbent_keys`` and ``warm_solve`` children, takes
+    ``wall_s`` from its injectable clock, and counts replans and
+    demotions under ``online.*``; plans are bit-identical with it on or
+    off.
     """
+    clock = telemetry.clock if telemetry is not None \
+        else time.perf_counter
+    with maybe_span(telemetry, "replan_round", round=round_no,
+                    label=label, n=len(probs)):
+        return _replan_round_body(probs, incumbent, cfg, seed, round_no,
+                                  label, arrivals, device, X0, draw_fn,
+                                  telemetry, clock)
+
+
+def _replan_round_body(probs, incumbent, cfg, seed, round_no, label,
+                       arrivals, device, X0, draw_fn, telemetry, clock
+                       ) -> Tuple[List[np.ndarray], RoundLog]:
     n = len(probs)
-    t0 = time.perf_counter()
+    t0 = clock()
     checked: List[Optional[np.ndarray]] = []
     demoted = np.zeros(n, bool)
     for i, (pr, inc) in enumerate(zip(probs, incumbent)):
@@ -435,15 +457,17 @@ def replan_round(probs: Sequence[SimProblem],
         else:
             demoted[i] = True
             checked.append(None)
-    inc_key = incumbent_keys(probs, checked, cfg.pso, arrivals=arrivals,
-                             device=device)
+    with maybe_span(telemetry, "incumbent_keys", round=round_no):
+        inc_key = incumbent_keys(probs, checked, cfg.pso, arrivals=arrivals,
+                                 device=device)
     rescue = inc_key >= INFEASIBLE_OFFSET
-    cand, state = run_pso_ga_batch(
-        probs, cfg.pso, seed=seed, device=device, X0=X0, draw_fn=draw_fn,
-        arrivals=arrivals, incumbent=checked,
-        migration_weight=cfg.migration_weight, warm_rescue=rescue,
-        return_state=True)
-    wall = time.perf_counter() - t0        # the results are on the host
+    with maybe_span(telemetry, "warm_solve", round=round_no, n=n):
+        cand, state = run_pso_ga_batch(
+            probs, cfg.pso, seed=seed, device=device, X0=X0,
+            draw_fn=draw_fn, arrivals=arrivals, incumbent=checked,
+            migration_weight=cfg.migration_weight, warm_rescue=rescue,
+            return_state=True, telemetry=telemetry)
+    wall = clock() - t0                    # the results are on the host
 
     plans: List[np.ndarray] = []
     replanned = np.zeros(n, bool)
@@ -487,6 +511,11 @@ def replan_round(probs: Sequence[SimProblem],
                    cost=cost, migration=mig, feasible=feas,
                    moved_layers=moved, iterations=iters,
                    converge_iters=converge, wall_s=wall, demoted=demoted)
+    if telemetry is not None:
+        telemetry.inc("online.rounds")
+        telemetry.inc("online.replanned", int(replanned.sum()))
+        telemetry.inc("online.demotions", int(demoted.sum()))
+        telemetry.observe("online.round_wall_s", wall)
     return plans, log
 
 
@@ -508,7 +537,8 @@ def replan_fleet(dags: Sequence[LayerDAG], trace: EnvTrace,
                  initial: Optional[Sequence[PSOGAResult]] = None,
                  device: Optional[Union[str, torch.device]] = None,
                  on_round: Optional[Callable[[RoundLog, List[np.ndarray]],
-                                             None]] = None
+                                             None]] = None,
+                 telemetry: Optional[Telemetry] = None
                  ) -> OnlineReport:
     """Drive a fleet of DNN placements through a drift trace, on
     ``device`` (``None`` = the card).
@@ -520,12 +550,16 @@ def replan_fleet(dags: Sequence[LayerDAG], trace: EnvTrace,
     request stream whose rate is scaled by the round's ``load_scale``.
     ``on_round(log, plans)`` is called after each round with the plans
     that survived it (a caller reads its kernels' launch counters there).
+    ``telemetry`` wraps the cold solve in a ``cold_solve`` span and goes
+    to every ``replan_round``.
     """
     if initial is None:
         probs0 = [SimProblem.build(d, trace.env_at(0)) for d in dags]
-        cold = run_pso_ga_batch(
-            probs0, cfg.pso, seed=seed, device=device,
-            arrivals=_round_arrivals(cfg, dags, trace.events[0], seed))
+        with maybe_span(telemetry, "cold_solve", n=len(dags)):
+            cold = run_pso_ga_batch(
+                probs0, cfg.pso, seed=seed, device=device,
+                arrivals=_round_arrivals(cfg, dags, trace.events[0], seed),
+                telemetry=telemetry)
     else:
         if len(initial) != len(dags):
             raise ValueError(f"{len(initial)} initial results for "
@@ -540,7 +574,7 @@ def replan_fleet(dags: Sequence[LayerDAG], trace: EnvTrace,
             label=trace.events[k].label,
             arrivals=_round_arrivals(cfg, dags, trace.events[k],
                                      seed + 1000 * k),
-            device=device)
+            device=device, telemetry=telemetry)
         rounds.append(log)
         if on_round is not None:
             on_round(log, plans)

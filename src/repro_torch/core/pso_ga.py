@@ -44,6 +44,7 @@ from .device import resolve_device
 from .environment import Environment
 from .fitness import make_swarm_fitness
 from .simulator import PaddedProblem, SimProblem
+from .telemetry import get_telemetry
 
 __all__ = ["PSOGAConfig", "PSOGAResult", "SwarmDraws", "run_pso_ga",
            "init_swarm", "swarm_step", "draw_swarm", "draws_from_uniforms",
@@ -340,7 +341,8 @@ def run_pso_ga(dag: LayerDAG, env: Environment,
                device: Optional[Union[str, torch.device]] = None,
                X0: Optional[np.ndarray] = None,
                draw_fn: Optional[DrawFn] = None,
-               arrivals: Optional[np.ndarray] = None) -> PSOGAResult:
+               arrivals: Optional[np.ndarray] = None,
+               telemetry=None) -> PSOGAResult:
     """Run PSO-GA to convergence on ``device`` (``None`` = the card).
 
     ``X0`` replaces the initial swarm and ``draw_fn(0, step)`` each step's
@@ -355,13 +357,24 @@ def run_pso_ga(dag: LayerDAG, env: Environment,
     ``feasible`` still report the zero-load replay of the winning plan
     (so a plan can be ``feasible`` with a key above the offset); use
     ``traffic.traffic_replay`` for the plan's load metrics.
+
+    With ``record_history`` and a telemetry channel (explicit arg, or the
+    process-global one from ``telemetry_scope``) the per-iteration gBest
+    curve is published as the ``solver.gbest`` metric series (DESIGN.md
+    §13) beside the returned ``history``; as in the reference, a single
+    solve opens no ``fleet_solve`` span.
     """
-    from .batch import run_pso_ga_batch
-    return run_pso_ga_batch(
-        [(dag, env)], cfg, seed=seed, bucket=False, device=device,
-        X0=None if X0 is None else [X0], draw_fn=draw_fn,
-        record_history=record_history,
-        arrivals=None if arrivals is None else [arrivals])[0]
+    from .batch import _solve_fleet
+    res = _solve_fleet(
+        [(dag, env)], cfg, seed, False, device,
+        None if X0 is None else [X0], draw_fn, record_history,
+        None if arrivals is None else [arrivals])[0]
+    if record_history:
+        tel = telemetry if telemetry is not None else get_telemetry()
+        if tel is not None:
+            tel.record_series("solver.gbest", res.history)
+            tel.inc("solver.history_runs")
+    return res
 
 
 def stack_draws(draws: List[SwarmDraws],

@@ -18,6 +18,9 @@ concurrent load (DESIGN.md §10), ported from ``repro.core.traffic``.
     and the load-adjusted Eq. 8 cost of the whole horizon;
     ``traffic_replay`` replays one plan under Monte-Carlo draws and
     ``traffic_stats`` summarises the tails (p50/p95/p99).
+  * **Async request ingestion** — ``IngestConfig`` and the bounded,
+    thread-safe ``ArrivalQueue`` of the planning service's rate
+    estimator, copied from the reference (plain Python).
 
 Queueing discipline: each server serves work in request-arrival order —
 all layers of an earlier-arriving request precede every layer of a later
@@ -27,8 +30,10 @@ the arrivals only, so it is built once per draw, not once per replay.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
-from typing import Callable, List, NamedTuple, Optional, Union
+import threading
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -42,7 +47,8 @@ __all__ = ["TRAFFIC_KINDS", "ArrivalTrace", "TrafficConfig",
            "sample_arrivals", "zero_contention_arrivals", "MergedOrder",
            "merged_order", "TrafficInputs", "traffic_inputs",
            "percentile_linear", "TrafficSim", "simulate_traffic_swarm",
-           "TrafficResult", "traffic_replay", "traffic_stats"]
+           "TrafficResult", "traffic_replay", "traffic_stats",
+           "IngestConfig", "ArrivalQueue"]
 
 TRAFFIC_KINDS = ("poisson", "diurnal", "bursty", "flash-crowd")
 
@@ -514,3 +520,108 @@ def traffic_stats(res: TrafficResult) -> dict:
     lat = res.latency[res.req_valid]
     out["latency_p95"] = float(np.percentile(lat, 95)) if lat.size else 0.0
     return out
+
+
+# --------------------------------------------------------------------------
+# async request ingestion (DESIGN.md §11 phase 2)
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class IngestConfig:
+    """Async arrival-ingestion knobs for the planning service.
+
+    The service's rate estimator (`estimate_rates`) historically drew
+    one arrival observation per DAG synchronously inside every round.
+    With ingestion enabled, observations flow through a bounded
+    :class:`ArrivalQueue` instead — the pipelined producer/consumer
+    shape of offline-inference servers — and the round loop drains
+    whatever has arrived before estimating.
+
+    threads:  0 = deterministic single-thread mode — the round loop
+              itself enqueues exactly this round's observations before
+              draining, so estimates (and therefore plans) are
+              bit-identical to the legacy synchronous path; chaos and
+              parity suites run in this mode. >0 = that many producer
+              threads pre-draw observations for future rounds and
+              enqueue them concurrently (liveness and backpressure are
+              deterministic, drain *interleaving* is not).
+    capacity: queue slots; a full queue drops the observation and
+              counts it (``ingest_dropped``) — backpressure is
+              explicit, never blocking the planner.
+    """
+
+    threads: int = 0
+    capacity: int = 64
+
+    def __post_init__(self) -> None:
+        if int(self.threads) < 0:
+            raise ValueError(
+                f"threads must be >= 0, got {self.threads!r}")
+        if int(self.capacity) < 1:
+            raise ValueError(
+                f"capacity must be >= 1, got {self.capacity!r}")
+
+
+class ArrivalQueue:
+    """Bounded, thread-safe arrival-observation queue.
+
+    ``put`` never blocks: when the queue is full the observation is
+    dropped and counted, so a slow planner sheds load instead of
+    wedging its producers (rate observations are lossy-tolerant — the
+    sliding window just sees fewer samples). Counters are monotonic:
+    ``enqueued`` + ``dropped`` = offered, ``drained`` = consumed,
+    ``depth`` = enqueued - drained.
+
+    A ``telemetry`` channel mirrors every count live onto the registry
+    as ``ingest.*`` counters plus an ``ingest.depth`` gauge
+    (DESIGN.md §13); queue behavior is identical without it.
+    """
+
+    def __init__(self, capacity: int = 64, *, telemetry=None) -> None:
+        if int(capacity) < 1:
+            raise ValueError(f"capacity must be >= 1, got {capacity!r}")
+        self.capacity = int(capacity)
+        self._dq: collections.deque = collections.deque()
+        self._lock = threading.Lock()
+        self._tel = telemetry
+        self.enqueued = 0
+        self.dropped = 0
+        self.drained = 0
+        self.max_depth = 0
+
+    def put(self, item: Any) -> bool:
+        """Enqueue; False (and counted) when full."""
+        with self._lock:
+            if len(self._dq) >= self.capacity:
+                self.dropped += 1
+                if self._tel is not None:
+                    self._tel.inc("ingest.dropped")
+                return False
+            self._dq.append(item)
+            self.enqueued += 1
+            self.max_depth = max(self.max_depth, len(self._dq))
+            if self._tel is not None:
+                self._tel.inc("ingest.enqueued")
+                self._tel.set_gauge("ingest.depth", float(len(self._dq)))
+            return True
+
+    def drain(self) -> List[Any]:
+        """Dequeue everything currently buffered, FIFO order."""
+        with self._lock:
+            items = list(self._dq)
+            self._dq.clear()
+            self.drained += len(items)
+            if self._tel is not None:
+                self._tel.inc("ingest.drained", len(items))
+                self._tel.set_gauge("ingest.depth", 0.0)
+            return items
+
+    def depth(self) -> int:
+        with self._lock:
+            return len(self._dq)
+
+    def counters(self) -> Dict[str, int]:
+        with self._lock:
+            return {"enqueued": self.enqueued, "dropped": self.dropped,
+                    "drained": self.drained, "max_depth": self.max_depth,
+                    "depth": len(self._dq)}

@@ -47,6 +47,7 @@ invariant under any legal padding, and the kernel (built with
 from __future__ import annotations
 
 import ctypes
+import threading
 from collections import OrderedDict
 from typing import NamedTuple, Tuple
 
@@ -426,23 +427,30 @@ _LIB = None
 #: and their version counters (an in-place change misses)
 _TABLES: "OrderedDict[tuple, tuple]" = OrderedDict()
 _TABLES_KEPT = 16
+#: guards ``_TABLES``, both libraries' first load and both launch counters:
+#: ``core.service.run_services`` replays from several threads at once
+LOCK = threading.RLock()
 
 
 def _memo_tables(tag: str, srcs, build):
     """``build()``, computed once per ``tag`` and set of source tensors
-    ``srcs`` (kept for the last ``_TABLES_KEPT`` of them)."""
+    ``srcs`` (kept for the last ``_TABLES_KEPT`` of them). Thread-safe:
+    two threads that miss on one key may both build it, and either result
+    is the same tables."""
     key = (tag,) + tuple((t.data_ptr(), tuple(t.shape), t.stride(),
                           str(t.device)) for t in srcs)
     versions = tuple(t._version for t in srcs)
-    hit = _TABLES.get(key)
-    if hit is not None and hit[1] == versions:
-        _TABLES.move_to_end(key)
-        return hit[2]
+    with LOCK:
+        hit = _TABLES.get(key)
+        if hit is not None and hit[1] == versions:
+            _TABLES.move_to_end(key)
+            return hit[2]
     meta = build()
-    _TABLES[key] = (srcs, versions, meta)
-    _TABLES.move_to_end(key)
-    while len(_TABLES) > _TABLES_KEPT:
-        _TABLES.popitem(last=False)
+    with LOCK:
+        _TABLES[key] = (srcs, versions, meta)
+        _TABLES.move_to_end(key)
+        while len(_TABLES) > _TABLES_KEPT:
+            _TABLES.popitem(last=False)
     return meta
 
 
@@ -454,25 +462,28 @@ def _tables(order, parent_idx, app_id):
 
 def _lib():
     global _LIB
-    if _LIB is None:
-        from ._build import load
-        lib = load("schedule_sim")
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.schedule_replay_launch.argtypes = [vp] * 21 + [ci] * 10 + [vp]
-        lib.schedule_replay_launch.restype = ci
-        lib.schedule_replay_smem_bytes.argtypes = [ci] * 4
-        lib.schedule_replay_smem_bytes.restype = ctypes.c_size_t
-        lib.schedule_replay_fields.argtypes = [ci, ci]
-        lib.schedule_replay_error_string.argtypes = [ci]
-        lib.schedule_replay_error_string.restype = ctypes.c_char_p
-        geometry = (lib.schedule_replay_ring(), lib.schedule_replay_tile(),
-                    lib.schedule_replay_ahead())
-        if geometry != (RING, TILE, AHEAD):
-            raise RuntimeError(f"schedule_sim.cu walks a ring, tile and "
-                               f"copy distance of {geometry}, the wrapper "
-                               f"expects {(RING, TILE, AHEAD)}")
-        _LIB = lib
-    return _LIB
+    with LOCK:
+        if _LIB is None:
+            from ._build import load
+            lib = load("schedule_sim")
+            vp, ci = ctypes.c_void_p, ctypes.c_int
+            lib.schedule_replay_launch.argtypes = \
+                [vp] * 21 + [ci] * 10 + [vp]
+            lib.schedule_replay_launch.restype = ci
+            lib.schedule_replay_smem_bytes.argtypes = [ci] * 4
+            lib.schedule_replay_smem_bytes.restype = ctypes.c_size_t
+            lib.schedule_replay_fields.argtypes = [ci, ci]
+            lib.schedule_replay_error_string.argtypes = [ci]
+            lib.schedule_replay_error_string.restype = ctypes.c_char_p
+            geometry = (lib.schedule_replay_ring(),
+                        lib.schedule_replay_tile(),
+                        lib.schedule_replay_ahead())
+            if geometry != (RING, TILE, AHEAD):
+                raise RuntimeError(f"schedule_sim.cu walks a ring, tile and "
+                                   f"copy distance of {geometry}, the wrapper "
+                                   f"expects {(RING, TILE, AHEAD)}")
+            _LIB = lib
+        return _LIB
 
 
 def _launch(order, compute, parent_idx, parent_mb, child_idx, child_mb,
@@ -532,7 +543,8 @@ def _launch(order, compute, parent_idx, parent_mb, child_idx, child_mb,
         link_ok.view(torch.uint8), meta, planes, flags, far_end, total, feas,
         tsum)]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    schedule_replay.launches += 1
+    with LOCK:
+        schedule_replay.launches += 1
     err = lib.schedule_replay_launch(
         *ptrs, N, P, P_pad, max_p, max_p_pad, max_in, max_out, S, max_apps,
         int(faithful), stream)

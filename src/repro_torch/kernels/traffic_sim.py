@@ -52,8 +52,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .schedule_sim import (AHEAD, MAX_IN, MAX_SMEM_BYTES, RING, TILE, _check,
-                           _memo_tables, _seq_sum, phase1)
+from .schedule_sim import (AHEAD, LOCK, MAX_IN, MAX_SMEM_BYTES, RING, TILE,
+                           _check, _memo_tables, _seq_sum, phase1)
 
 __all__ = ["traffic_replay", "traffic_replay_plain", "traffic_ring_plain",
            "traffic_step_tables"]
@@ -417,25 +417,26 @@ def _tables(order, parent_idx, app_id, slot_m, n_valid, R):
 
 def _lib():
     global _LIB
-    if _LIB is None:
-        from ._build import load
-        lib = load("traffic_sim")
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.traffic_replay_launch.argtypes = [vp] * 27 + [ci] * 12 + [vp]
-        lib.traffic_replay_launch.restype = ci
-        lib.traffic_replay_smem_bytes.argtypes = [ci] * 5
-        lib.traffic_replay_smem_bytes.restype = ctypes.c_size_t
-        lib.traffic_replay_fields.argtypes = [ci, ci]
-        lib.traffic_replay_error_string.argtypes = [ci]
-        lib.traffic_replay_error_string.restype = ctypes.c_char_p
-        geometry = (lib.traffic_replay_ring(), lib.traffic_replay_tile(),
-                    lib.traffic_replay_ahead())
-        if geometry != (RING, TILE, AHEAD):
-            raise RuntimeError(f"traffic_sim.cu walks a ring, tile and copy "
-                               f"distance of {geometry}, the wrapper "
-                               f"expects {(RING, TILE, AHEAD)}")
-        _LIB = lib
-    return _LIB
+    with LOCK:
+        if _LIB is None:
+            from ._build import load
+            lib = load("traffic_sim")
+            vp, ci = ctypes.c_void_p, ctypes.c_int
+            lib.traffic_replay_launch.argtypes = [vp] * 27 + [ci] * 12 + [vp]
+            lib.traffic_replay_launch.restype = ci
+            lib.traffic_replay_smem_bytes.argtypes = [ci] * 5
+            lib.traffic_replay_smem_bytes.restype = ctypes.c_size_t
+            lib.traffic_replay_fields.argtypes = [ci, ci]
+            lib.traffic_replay_error_string.argtypes = [ci]
+            lib.traffic_replay_error_string.restype = ctypes.c_char_p
+            geometry = (lib.traffic_replay_ring(), lib.traffic_replay_tile(),
+                        lib.traffic_replay_ahead())
+            if geometry != (RING, TILE, AHEAD):
+                raise RuntimeError(f"traffic_sim.cu walks a ring, tile and "
+                                   f"copy distance of {geometry}, the "
+                                   f"wrapper expects {(RING, TILE, AHEAD)}")
+            _LIB = lib
+        return _LIB
 
 
 def _launch(order, compute, parent_idx, parent_mb, child_idx, child_mb,
@@ -510,7 +511,8 @@ def _launch(order, compute, parent_idx, parent_mb, child_idx, child_mb,
         lat_sum, static_ok.view(torch.uint8))]
     ptrs.append(None if latency is None else latency.data_ptr())
     stream = torch.cuda.current_stream(dev).cuda_stream
-    traffic_replay.launches += 1
+    with LOCK:
+        traffic_replay.launches += 1
     err = lib.traffic_replay_launch(
         *ptrs, N, M, P, P_pad, max_p, T_pad, max_in, max_out, S, A, R,
         int(faithful), stream)

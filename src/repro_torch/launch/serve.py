@@ -4,6 +4,8 @@ per-slot completion — the port of ``repro/launch/serve.py``'s ``Server``.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
         --plan --traffic bursty
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
+        --plan --serve congestion --chaos --plan-cache
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
@@ -23,7 +25,12 @@ seed.
 ``--plan`` first plans the serving shapes' placement over the TPU fleet
 (``launch/plan.py``), as the reference's ``--plan`` does, then serves;
 ``--plan --replan SCENARIO`` re-plans them through a drift trace first.
-The reference's ``--serve`` mode waits for ROADMAP queue A item 10.
+``--plan --serve SCENARIO`` runs the always-on planning service on the
+plans instead (``core/service.py``: watchdog, ladder, breaker, triage,
+rate estimation, plan cache; ``--chaos`` injects faults) and, like the
+reference, returns without serving the LM: it is the serving loop.
+``--trace-out`` / ``--metrics-out`` export the planning path's
+telemetry. The solver's ``--mesh`` waits for ROADMAP queue A item 13.
 """
 from __future__ import annotations
 
@@ -38,7 +45,7 @@ from ..configs import get
 from ..configs.base import ModelConfig
 from ..core.device import resolve_device
 from ..models import build_model
-from .plan import add_plan_args, check_plan_args, plan_serving_shapes
+from .plan import add_plan_args, check_plan_args, plan_from_args
 
 __all__ = ["Server", "main"]
 
@@ -121,16 +128,19 @@ def main(argv=None) -> None:
         ap.error("--traffic requires --plan")
     if args.replan and not args.plan:
         ap.error("--replan requires --plan")
+    if args.serve_scenario and not args.plan:
+        ap.error("--serve requires --plan")
+    if (args.trace_out or args.metrics_out) and not args.plan:
+        ap.error("--trace-out / --metrics-out instrument the planning "
+                 "path: they require --plan")
     check_plan_args(ap, args)
     device = resolve_device(args.device)
 
     cfg = get(args.arch)
     if args.plan:
-        plan_serving_shapes(cfg, device=device, pop=args.pop,
-                            iters=args.iters, traffic=args.traffic,
-                            traffic_rate=args.traffic_rate, prefix="serve",
-                            replan=args.replan,
-                            replan_rounds=args.replan_rounds)
+        plan_from_args(cfg, args, device=device, prefix="serve")
+        if args.serve_scenario:
+            return                   # the service IS the serving loop
     if args.reduced:
         cfg = cfg.reduced()
     srv = Server(cfg, args.batch, args.prompt_len, args.max_new,

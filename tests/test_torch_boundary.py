@@ -4,7 +4,10 @@ both), and no kernel wrapper catches a failure to fall back to its plain
 version."""
 import ast
 import importlib
+import os
 import re
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -61,3 +64,53 @@ def test_every_kernel_has_a_wrapper_with_a_launch_counter(source):
     counted = [n for n in mod.__all__
                if isinstance(getattr(getattr(mod, n), "launches", None), int)]
     assert len(counted) == 1, (source.name, counted)
+
+
+#: the planning service's modules (ROADMAP queue A item 10)
+SERVICE_MODULES = ("repro_torch.runtime", "repro_torch.runtime.fault",
+                   "repro_torch.runtime.straggler",
+                   "repro_torch.core.telemetry", "repro_torch.core.plancache",
+                   "repro_torch.core.service", "repro_torch.core.traffic")
+
+
+@pytest.mark.parametrize("name", SERVICE_MODULES)
+def test_service_modules_are_scanned(name):
+    path = PORT.joinpath(*name.split(".")[1:])
+    path = path / "__init__.py" if path.is_dir() else path.with_suffix(".py")
+    assert path in SOURCES
+
+
+def test_service_modules_load_neither_jax_nor_the_reference():
+    """Importing the service stack in a fresh interpreter leaves ``jax``
+    and every ``repro`` module unloaded."""
+    code = ("import sys, importlib\n"
+            f"for m in {SERVICE_MODULES!r}: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "print(bad); sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300,
+                          env={**os.environ, "PYTHONPATH": str(REPO / "src")})
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_service_entry_points_default_to_the_card(monkeypatch):
+    """``device=None`` is the card: without one, the service raises
+    rather than fall back to the CPU."""
+    import numpy as np
+    import torch
+
+    import repro_torch.core as port
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    env = port.paper_environment()
+    dags = [port.zoo.build("alexnet", pin_server=0)]
+    trace = port.zero_drift_trace(env, rounds=2)
+    for call in (lambda: port.run_service(dags, trace),
+                 lambda: port.run_services([dags], trace)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    plans = [np.zeros(dags[0].num_layers, np.int32)]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port.run_service(dags, trace, initial=[
+            port.PSOGAResult(best_x=plans[0], best_fitness=0.0,
+                             best_cost=0.0, feasible=True, iterations=0)])

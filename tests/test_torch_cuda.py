@@ -2,7 +2,8 @@
 replay kernels B1 and B2, the attention kernels B3 and B4, the SSD
 intra-chunk kernel B5, the dense, SSM and hybrid models through them, and
 the comparators (GA, linear-inertia PSO, prePSO) and one re-planning round
-through B1 and B2.
+through B1 and B2, and B1's wrapper under two threads at once (as
+``run_services`` drives it).
 
 Run where there is one (no JAX needed):
 
@@ -11,6 +12,8 @@ Run where there is one (no JAX needed):
 Elsewhere every test skips with its reason: the kernels have no CPU mode.
 """
 import dataclasses
+import sys
+import threading
 
 import numpy as np
 import pytest
@@ -762,3 +765,57 @@ def test_replan_round_on_card_equals_cpu(cuda_device, traffic):
                                           getattr(cpu[1], field),
                                           err_msg=field)
     assert n1 > 0 and (n2 > 0) == traffic
+
+
+@pytest.mark.cuda
+def test_replay_wrapper_is_safe_under_threads(cuda_device):
+    """``run_services`` replays from several threads: two threads × 50 B1
+    calls at once on different problems (each call with its own swarm)
+    give, call for call, the single-thread results bit for bit, and the
+    launch counter counts exactly 100."""
+    buckets = [_fleet(cuda_device, max_apps=3), _deep_bucket(cuda_device)]
+    rng = np.random.default_rng(17)
+    swarms = []
+    for probs, ppb in buckets:
+        N, max_p = ppb.pinned.shape
+        Xs = []
+        for _ in range(50):
+            X = np.zeros((N, 96, max_p), np.int32)
+            for n, pr in enumerate(probs):
+                X[n, :, :pr.num_layers] = rng.integers(
+                    0, pr.num_servers, size=(96, pr.num_layers))
+                X[n, :, 0] = np.where(pr.pinned[0] >= 0, pr.pinned[0], 0)
+            Xs.append(torch.as_tensor(X, device=cuda_device))
+        swarms.append(Xs)
+    b1 = schedule_sim.schedule_replay
+    got = [[None] * 50, [None] * 50]
+    errors = []
+
+    def work(t):
+        try:
+            args = kernel_args(buckets[t][1])
+            for c, X in enumerate(swarms[t]):
+                got[t][c] = b1(*args, X, faithful=bool(t))
+            torch.cuda.synchronize()
+        except Exception as e:            # reported by the assert below
+            errors.append(e)
+
+    switch = sys.getswitchinterval()
+    start = b1.launches
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=work, args=(t,)) for t in (0, 1)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+    finally:
+        sys.setswitchinterval(switch)
+    assert not any(th.is_alive() for th in threads) and errors == []
+    assert b1.launches - start == 100
+    for t, (_, ppb) in enumerate(buckets):
+        args = kernel_args(ppb)
+        for c, X in enumerate(swarms[t]):
+            want = b1(*args, X, faithful=bool(t))
+            for a, b in zip(got[t][c], want):
+                assert torch.equal(a, b), (t, c)
