@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's planner and LM servers on one NVIDIA GPU and
-check them.
+"""Drive the PyTorch port's planner and LM servers (every model family)
+on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -86,7 +86,12 @@ result line):
                112; valid_len 1, 2049, 2079), windows whose first kv tile is
                wholly masked for some rows, a decode split with empty blocks,
                and ragged shapes of the CPU sweep (head_dim 16 to 256, 112
-               among them);
+               among them); new in the serving families' slice: gemma3-27b's
+               local layers (batch 8, prompt 2048, 16 kv heads of 2 query
+               heads, head_dim 128, window 1024), whisper-medium's encoder
+               (bidirectional, 1500 frames, 16 heads of 64) and decoder
+               (causal, 187 tokens), B4 over gemma3's full 1024-slot ring and
+               whisper's 1532-slot self cache (valid 1501, 1532);
  12. serve   — the LM main path: ``repro_torch.launch.serve.Server`` with
                qwen3-0.6b at full width and depth (28 layers, bfloat16,
                seeded weights on the card), batch 8, prompt 2048, 32 new
@@ -104,7 +109,10 @@ result line):
                serving shapes (CUDA events over calls queued behind a device
                sleep, five rounds in turns with one
                ``scaled_dot_product_attention`` call as the yardstick,
-               medians), beside their plain versions and bounds;
+               medians), beside their plain versions and bounds; also B3 at
+               gemma3-27b's local shape (window 1024, SDPA with a boolean band
+               mask) and whisper-medium's encoder (bidirectional, SDPA with
+               ``is_causal=False``), and B4 over gemma3's 1024-slot ring;
  15. check-ssd — B5 (the SSD intra-chunk form) against its plain version
                on CUDA tensors, every element within 1e-4 + 1e-4 |plain|:
                the reference's sweep shapes, chunks of 17 and 37 rows,
@@ -129,7 +137,28 @@ result line):
  19. time-ssd — B5 per launch at mamba2-2.7b's and zamba2-7b's serving
                shapes, timed as in 14 (no single PyTorch call computes it, so
                no library yardstick), beside its plain version, the bound of
-               its 3xTF32 tensor-core route and the float32 CUDA-core bound.
+               its 3xTF32 tensor-core route and the float32 CUDA-core bound;
+ 20. serve-families — ``Server`` with every other family at full width,
+               bfloat16, seeded weights, batch 8, 32 new tokens, no EOS, a
+               first call then a counted one (same tokens, launches exact),
+               prefill ms, decode tokens/s and peak memory per model, each
+               model freed before the next: gemma3-27b (62 layers, prompt
+               2048: 62 B3, 1922 B4), mixtral-8x7b cut to 16 of 32 layers
+               (prompt 2048, 16,384 tokens: capacity 5120 an expert; 16 B3,
+               496 B4), arctic-480b cut to 2 of 35 layers (capacity 320; 2
+               B3, 62 B4), internvl2-2b (24 layers, 1024 vision embeddings +
+               1024 tokens; 24 B3, 744 B4), whisper-medium (24 + 24 layers,
+               1500 frames, 187 decoder tokens; 48 B3, 744 B4, cross
+               attention plain) and qwen3-0.6b with the int8 KV cache (28 B3,
+               868 B4);
+ 21. serve-check-families — the kernels against the plain path inside each
+               new family, as in 13: float32 at full width gemma3 with 7
+               layers (one group, one tail layer; batch 2, prompt 1300, past
+               the window), mixtral with 2 layers, internvl2 with 2 layers
+               (1024 vision + 276 tokens), whisper with 2 + 2 layers (1500
+               frames), qwen3 with 2 layers and the int8 cache (no
+               teacher-forced check: the prefill attends unquantized keys);
+               bfloat16 arctic with 1 layer.
 
 Kernel launch counters are zeroed just before each solve path and each
 counted serve call and read just after; every solve's plans are replayed
@@ -141,6 +170,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import importlib
 import json
 import subprocess
@@ -1284,12 +1314,15 @@ def main() -> int:
     from repro_torch.launch.breakdown import (SERVE_BATCH, SERVE_NEW,
                                               SERVE_PROMPT)
     from repro_torch.kernels import ssd_scan
-    from repro_torch.launch.serve import Server
-    from repro_torch.models import build_model
+    from repro_torch.launch.serve import Server, request_batch
+    from repro_torch.models import CROSS_FRAMES, build_model
     b3, b4 = fa.flash_attention_folded, da.decode_attention_folded
     b5 = ssd_scan.ssd_intra_folded
     qwen, mamba2, zamba2 = (get(a) for a in ("qwen3-0.6b", "mamba2-2.7b",
                                               "zamba2-7b"))
+    gemma3, mixtral, arctic, internvl2, whisper = (get(a) for a in (
+        "gemma3-27b", "mixtral-8x7b", "arctic-480b", "internvl2-2b",
+        "whisper-medium"))
     H, KV, HD = qwen.n_heads, qwen.n_kv_heads, qwen.head_dim
     G = H // KV
     serve_cache = SERVE_PROMPT + SERVE_NEW
@@ -1314,7 +1347,9 @@ def main() -> int:
         assert n_bad == 0, f"{kind} {tag}: {n_bad} elements beyond tol {tol}"
 
     def check_attn():
-        flash_cases = [
+        gkv, ghd = gemma3.n_kv_heads, gemma3.head_dim
+        gg, wkv = gemma3.n_heads // gkv, whisper.n_kv_heads
+        flash_cases = [(shape, True, w, tag) for shape, w, tag in [
             ((SERVE_BATCH, SERVE_PROMPT, KV, G, HD), 0, "qwen3 serve"),
             ((2, SERVE_PROMPT, KV, G, HD), 512, "qwen3 window 512"),
             ((1, 300, 1, 4, 64), 0, "ragged"), ((2, 257, 2, 1, 128), 64,
@@ -1323,7 +1358,13 @@ def main() -> int:
             ((2, 200, 2, 2, 16), 0, "hd 16"), ((1, 100, 2, 3, 256), 7,
                                                "hd 256 window"),
             ((SERVE_BATCH, SERVE_PROMPT, 32, 1, 112), 0, "zamba2 serve"),
-            ((2, 300, 2, 2, 112), 64, "hd 112 ragged window")]
+            ((2, 300, 2, 2, 112), 64, "hd 112 ragged window"),
+            ((SERVE_BATCH, SERVE_PROMPT, gkv, gg, ghd), gemma3.window,
+             "gemma3 local serve"),
+            ((SERVE_BATCH, CROSS_FRAMES // 8, wkv, 1, 64), 0,
+             "whisper decoder serve")]] + [
+            ((SERVE_BATCH, CROSS_FRAMES, wkv, 1, 64), False, 0,
+             "whisper encoder serve (bidirectional)")]
         decode_cases = [
             ((SERVE_BATCH, serve_cache, KV, G, HD), v, f"qwen3 valid {v}")
             for v in (1, 7, 1000, SERVE_PROMPT, serve_cache)] + [
@@ -1334,17 +1375,25 @@ def main() -> int:
             ((1, 300, 1, 1, 256), 77, "hd 256")] + [
             ((SERVE_BATCH, serve_cache, 32, 1, 112), v, f"zamba2 valid {v}")
             for v in (1, SERVE_PROMPT + 1, serve_cache - 1)] + [
-            ((2, 100, 2, 3, 112), 77, "hd 112 G 3")]
+            ((2, 100, 2, 3, 112), 77, "hd 112 G 3"),
+            ((SERVE_BATCH, gemma3.window, gkv, gg, ghd), gemma3.window,
+             "gemma3 full ring"),
+            ((SERVE_BATCH, CROSS_FRAMES + SERVE_NEW, wkv, 1, 64),
+             CROSS_FRAMES + 1, "whisper self cache"),
+            ((SERVE_BATCH, CROSS_FRAMES + SERVE_NEW, wkv, 1, 64),
+             CROSS_FRAMES + SERVE_NEW, "whisper self cache full")]
         for dtype in (torch.float32, torch.bfloat16):
-            for i, ((b, s, kh, g, hd), window, tag) in enumerate(flash_cases):
+            for i, ((b, s, kh, g, hd), causal, window, tag) in enumerate(
+                    flash_cases):
                 q = randn((b, s, kh, g, hd), dtype, 3 * i)
                 k = randn((b, s, kh, hd), dtype, 3 * i + 1)
                 v = randn((b, s, kh, hd), dtype, 3 * i + 2)
-                got = ops.flash_attention(q, k, v, causal=True, window=window)
+                got = ops.flash_attention(q, k, v, causal=causal,
+                                          window=window)
                 torch.cuda.synchronize()
-                want = flash_plain(q, k, v, True, window)
-                attn_check("flash", f"{tag} {(b, s, kh, g, hd)} window "
-                           f"{window}", got, want, dtype)
+                want = flash_plain(q, k, v, causal, window)
+                attn_check("flash", f"{tag} {(b, s, kh, g, hd)} causal "
+                           f"{causal} window {window}", got, want, dtype)
                 del want
             for i, ((b, c, kh, g, hd), valid, tag) in enumerate(decode_cases):
                 q = randn((b, kh, g, hd), dtype, 100 + 3 * i)
@@ -1361,44 +1410,62 @@ def main() -> int:
     # 12. serve: qwen3-0.6b at full width and depth --------------------------
     def expected_launches(cfg, steps):
         """(B3, B4, B5) launches of one prefill and ``steps`` decode steps:
-        one attention kernel per layer (dense) or shared site (hybrid) and
-        one B5 per Mamba2 block."""
-        if cfg.family == "dense":
+        one attention kernel per layer (dense, MoE, VLM; the enc-dec
+        model's encoder and decoder layers in the prefill, its decoder
+        layers in decode) or shared site (hybrid) and one B5 per Mamba2
+        block."""
+        if cfg.family in ("dense", "moe", "vlm"):
             return cfg.n_layers, cfg.n_layers * steps, 0
+        if cfg.family == "encdec":
+            return cfg.enc_layers + cfg.dec_layers, cfg.dec_layers * steps, 0
         sites = cfg.n_layers // cfg.hybrid_attn_every \
             if cfg.family == "hybrid" else 0
         return sites, sites * steps, cfg.n_layers
 
-    def serve_model(cfg):
-        """``Server`` with ``cfg`` at full width and depth, seeded weights
-        on the card: a first call, then a counted one, which must launch
-        the kernels ``expected_launches`` says and give the same tokens.
-        Returns the counted call's (B3, B4, B5) launches."""
+    def serve_prompt(cfg):
+        """(prompt length, vision embeddings) of a served batch: whisper's
+        1500 frames; the VLM's 1024 vision embeddings + 1024 tokens."""
+        if cfg.family == "encdec":
+            return CROSS_FRAMES, None
+        return SERVE_PROMPT, cfg.vision_tokens or None
+
+    def serve_model(cfg, cuts=""):
+        """``Server`` with ``cfg`` at full width (and depth, but for
+        ``cuts``), seeded weights on the card: a first call, then a counted
+        one, which must launch the kernels ``expected_launches`` says and
+        give the same tokens. Returns the counted call's (B3, B4, B5)
+        launches."""
+        gc.collect()
         torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        prompt, n_vis = serve_prompt(cfg)
         t0 = time.perf_counter()
-        srv = Server(cfg, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, eos_id=-1,
+        srv = Server(cfg, SERVE_BATCH, prompt, SERVE_NEW, eos_id=-1,
                      device=dev)
         srv.init_params(SEED)
         torch.cuda.synchronize()
         n_par = sum(p.numel() for p in srv.model.parameters())
         nbytes = sum(p.numel() * p.element_size()
                      for p in srv.model.parameters())
-        print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model "
-              f"{cfg.d_model}, {cfg.dtype}, {n_par} parameters "
-              f"({nbytes / 1e9:.3f} GB), seeded in "
-              f"{time.perf_counter() - t0:.2f} s", flush=True)
-        tokens = np.random.default_rng(SEED).integers(
-            2, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
-        first = srv.generate({"tokens": tokens})
+        seeded = torch.cuda.max_memory_allocated(dev)
+        print(f"[serve] {cfg.name}: {cfg.n_layers} layers{cuts}, d_model "
+              f"{cfg.d_model}, {cfg.dtype}, kv cache {cfg.kv_dtype}, {n_par} "
+              f"parameters ({nbytes / 1e9:.3f} GB), seeded in "
+              f"{time.perf_counter() - t0:.2f} s (peak while seeding "
+              f"{seeded / 1e9:.3f} GB)", flush=True)
+        batch = request_batch(cfg, SERVE_BATCH, prompt,
+                              np.random.default_rng(SEED), vision_tokens=n_vis)
+        shapes = {k: v.shape for k, v in batch.items()}
+        first = srv.generate(batch)
         torch.cuda.reset_peak_memory_stats(dev)
         b3.launches = b4.launches = b5.launches = 0
-        out = srv.generate({"tokens": tokens})
+        out = srv.generate(batch)
         got = (b3.launches, b4.launches, b5.launches)
         peak = torch.cuda.max_memory_allocated(dev)
         want = expected_launches(cfg, SERVE_NEW - 1)
         for tag, o in (("first call", first), ("counted call", out)):
-            print(f"[serve] {cfg.name} {tag}: batch {SERVE_BATCH} prompt "
-                  f"{SERVE_PROMPT}: prefill {1e3 * o['prefill_s']:.2f} ms, "
+            print(f"[serve] {cfg.name} {tag}: batch {shapes}: prefill "
+                  f"{1e3 * o['prefill_s']:.2f} ms, "
                   f"decode {o['tokens_generated']} tokens in "
                   f"{1e3 * o['decode_s']:.2f} ms "
                   f"({o['decode_tok_per_s']:.1f} tok/s)", flush=True)
@@ -1412,7 +1479,8 @@ def main() -> int:
         assert ((toks >= 0) & (toks < cfg.vocab)).all()
         np.testing.assert_array_equal(toks, first["tokens"])   # greedy
         with torch.inference_mode():
-            lg, _ = srv.model.prefill({"tokens": tokens[:1, :64]})
+            lg, _ = srv.model.prefill(request_batch(
+                cfg, 1, 64, np.random.default_rng(SEED)))
         assert lg.shape == (1, 1, cfg.vocab) and bool(torch.isfinite(
             lg).all())
         return got
@@ -1422,33 +1490,41 @@ def main() -> int:
     _phase("serve", serve, failures)
 
     # 13. serve-check: the kernels against the plain path in one model -----
-    def serve_check(cfgs, dtype="float32"):
+    def serve_check(cfgs, dtype="float32", s=1000, n_vis=None):
         """Each of ``cfgs`` (cut in depth, full width) in ``dtype``: prefill
-        of 1000 tokens and 4 greedy steps through the kernels, then the same
-        tokens through the plain versions on the card. float32: logits to
-        1e-4, equal greedy tokens, and decode logits against the prefill of
-        the longer prompt (2e-3). bfloat16: logits within 2e-2 + 2e-2 |plain|
+        of ``s`` tokens (``request_batch``'s: whisper's 1500 frames and 187
+        tokens; ``n_vis`` vision embeddings and ``s - n_vis`` tokens for the
+        VLM) and 4 greedy steps through the kernels, then the same tokens
+        through the plain versions on the card. float32: logits to 1e-4,
+        equal greedy tokens, and (but with the int8 cache, whose prefill
+        attends unquantized keys) decode logits against the prefill of the
+        longer prompt (2e-3). bfloat16: logits within 2e-2 + 2e-2 |plain|
         (the attention kernels' bf16 tolerance); whether the plain path would
         pick the same tokens is printed."""
+        gc.collect()
         torch.cuda.empty_cache()
-        b, s, steps = 2, 1000, 4
+        b, steps = 2, 4
         for cfg in cfgs:
             cfg = dataclasses.replace(cfg, dtype=dtype)
             model = build_model(cfg, device=dev).init(
                 torch.Generator(device=dev).manual_seed(SEED))
-            prompt = torch.as_tensor(np.random.default_rng(SEED + 1).integers(
-                2, cfg.vocab, (b, s)), device=dev)
+            batch = request_batch(cfg, b, CROSS_FRAMES if cfg.family ==
+                                  "encdec" else s,
+                                  np.random.default_rng(SEED + 1), n_vis)
+            prompt = torch.as_tensor(batch["tokens"], device=dev)
+            # decode positions continue the decoder's sequence
+            s0 = prompt.shape[1] + (n_vis or 0) * (cfg.family == "vlm")
 
             def greedy(force=None):
                 """Logits of the prefill and each step, and the greedy tokens
                 (fed back, or ``force``'s tokens when given)."""
-                lg, c = model.prefill({"tokens": prompt}, cache_len=s + steps)
+                lg, c = model.prefill(batch, cache_len=s0 + steps)
                 logits, toks = [lg], []
                 for j in range(steps):
                     toks.append(logits[-1][:, -1].argmax(-1)[:, None])
                     feed = toks[-1] if force is None else force[:, j:j + 1]
                     lg, c = model.decode_step(c, {"token": feed,
-                                                  "pos": s + j})
+                                                  "pos": s0 + j})
                     logits.append(lg)
                 return torch.cat(logits, 1).float(), torch.cat(toks, 1)
 
@@ -1460,8 +1536,12 @@ def main() -> int:
                 with plain_kernels():
                     lp, tp = greedy(force=tk)
                 err = float((lk - lp).abs().max())
-                print(f"[serve-check] {cfg.n_layers}-layer {dtype} "
-                      f"{cfg.name}, prompt {s}, {steps} greedy steps: kernels "
+                depth = f"{cfg.enc_layers} + {cfg.dec_layers}" \
+                    if cfg.family == "encdec" else cfg.n_layers
+                print(f"[serve-check] {depth}-layer {dtype} "
+                      f"{cfg.name} (kv cache {cfg.kv_dtype}), batch "
+                      f"{ {k: v.shape for k, v in batch.items()} }, {steps} "
+                      f"greedy steps: kernels "
                       f"vs plain logits max_abs_err {err:.3g} (|logit| <= "
                       f"{float(lp.abs().max()):.3g}), tokens equal "
                       f"{bool(torch.equal(tk, tp))}", flush=True)
@@ -1477,10 +1557,14 @@ def main() -> int:
                 # float32 on both sides; sums in another order
                 torch.testing.assert_close(lk, lp, rtol=1e-4, atol=1e-4)
                 assert torch.equal(tk, tp)
+                if cfg.kv_dtype == "int8":
+                    del model
+                    continue
                 seq = torch.cat([prompt, tk], 1)
                 tf = 0.0
                 for j in range(1, steps + 1):
-                    want, _ = model.prefill({"tokens": seq[:, :s + j]})
+                    want, _ = model.prefill(
+                        {**batch, "tokens": seq[:, :prompt.shape[1] + j]})
                     # the reference's own teacher-forced tolerance
                     torch.testing.assert_close(lk[:, j], want[:, -1],
                                                rtol=2e-3, atol=2e-3)
@@ -1513,32 +1597,51 @@ def main() -> int:
         return (float(np.median([r[0] for r in k])),
                 float(np.median([r[0] for r in lib])), p[0])
 
-    def time_flash(tag, kv, g, hd):
-        """B3 at a serving prefill (bf16, causal, batch SERVE_BATCH, prompt
-        SERVE_PROMPT, ``kv`` kv heads of ``g`` query heads each) against
-        SDPA in turns; returns the timing record."""
+    def band_pairs(S, causal, window):
+        """(query, key) pairs inside B3's causal / window band."""
+        qpos = np.arange(S)
+        lo = np.maximum(0, qpos - window + 1) if window else 0 * qpos
+        hi = qpos + 1 if causal else S + 0 * qpos
+        return int((hi - lo).sum())
+
+    def time_flash(tag, kv, g, hd, S=SERVE_PROMPT, causal=True, window=0):
+        """B3 at a serving prefill (bf16, batch SERVE_BATCH, ``S`` tokens,
+        ``kv`` kv heads of ``g`` query heads each; causal, banded or
+        bidirectional) against SDPA in turns (a boolean band mask for a
+        window); returns the timing record. The bound counts the band's
+        pairs."""
         dt = torch.bfloat16
-        B, S, h = SERVE_BATCH, SERVE_PROMPT, kv * g
+        B, h = SERVE_BATCH, kv * g
         q = randn((B, S, kv, g, hd), dt, 1)
         k, v = randn((B, S, kv, hd), dt, 2), randn((B, S, kv, hd), dt, 3)
         qs = q.reshape(B, S, h, hd).transpose(1, 2).contiguous()
         ks, vs = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+        band = None
+        if window:
+            qp = torch.arange(S, device=dev)[:, None]
+            kp = torch.arange(S, device=dev)[None, :]
+            band = (kp > qp - window) & ((kp <= qp) if causal else True)
 
         def sdpa():
-            return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
-                                                  enable_gqa=True)
+            return F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=band,
+                is_causal=causal and band is None, enable_gqa=True)
+
+        def kernel():
+            return ops.flash_attention(q, k, v, causal=causal, window=window)
         ms, lib, plain = in_turns(
-            f"B3 {tag}", lambda: ops.flash_attention(q, k, v), sdpa,
-            lambda: flash_plain(q, k, v), 20, 3)
+            f"B3 {tag}", kernel, sdpa,
+            lambda: flash_plain(q, k, v, causal, window), 20, 3)
         lib_err = float((sdpa().transpose(1, 2).reshape(q.shape).float()
-                         - ops.flash_attention(q, k, v).float()).abs().max())
-        flops = 4 * B * h * (S * (S + 1) // 2) * hd
+                         - kernel().float()).abs().max())
+        flops = 4 * B * h * band_pairs(S, causal, window) * hd
         nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
         t_ops, t_bytes = flops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
         rec_ = dict(ms=ms, plain_ms=plain, library_ms=lib,
                     bound_ms=1e3 * max(t_ops, t_bytes),
                     bound_by="operations" if t_ops >= t_bytes else "bytes")
-        print(f"[time-attn] B3 {tag} bf16 q {tuple(q.shape)} causal: kernel "
+        print(f"[time-attn] B3 {tag} bf16 q {tuple(q.shape)} causal "
+              f"{causal} window {window}: kernel "
               f"{ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), plain "
               f"{plain:.3f} ms, sdpa {lib:.4f} ms ({flops / lib / 1e9:.2f} "
               f"TFLOP/s; max |diff| {lib_err:.3g}), bound "
@@ -1546,11 +1649,11 @@ def main() -> int:
               f"FLOPs, {nbytes:.4g} bytes)", flush=True)
         return rec_
 
-    def time_decode(tag, kv, g, hd):
-        """B4 at a serving decode step (bf16 cache of serve_cache slots,
-        SERVE_PROMPT live) against SDPA with a slot mask in turns."""
+    def time_decode(tag, kv, g, hd, C=serve_cache, valid=SERVE_PROMPT):
+        """B4 at a serving decode step (bf16 cache of ``C`` slots, ``valid``
+        live) against SDPA with a slot mask in turns."""
         dt = torch.bfloat16
-        B, C, valid, h = SERVE_BATCH, serve_cache, SERVE_PROMPT, kv * g
+        B, h = SERVE_BATCH, kv * g
         qd = randn((B, kv, g, hd), dt, 4)
         kc, vc = randn((B, C, kv, hd), dt, 5), randn((B, C, kv, hd), dt, 6)
         qsd = qd.reshape(B, h, 1, hd)
@@ -1598,6 +1701,15 @@ def main() -> int:
         time_flash("zamba2", zkv, zg, zhd)
         timing["decode"] = time_decode("qwen3", KV, G, HD)
         time_decode("zamba2", zkv, zg, zhd)
+        gkv, ghd, w = gemma3.n_kv_heads, gemma3.head_dim, gemma3.window
+        gg = gemma3.n_heads // gkv
+        timing["flash gemma3 local"] = time_flash("gemma3 local", gkv, gg,
+                                                  ghd, window=w)
+        timing["flash whisper encoder"] = time_flash(
+            "whisper encoder", whisper.n_kv_heads, 1, whisper.head_dim,
+            S=CROSS_FRAMES, causal=False)
+        timing["decode gemma3 ring"] = time_decode("gemma3 ring", gkv, gg,
+                                                   ghd, C=w, valid=w)
     _phase("time-attn", time_attn, failures)
 
     # 15. check-ssd: B5 against its plain version ---------------------------
@@ -1750,6 +1862,35 @@ def main() -> int:
                                              bound_by=r_by)
         timing["ssd"] = timing[f"ssd {mamba2.name}"]
     _phase("time-ssd", time_ssd, failures)
+
+    # 20. serve-families: every other family at full width ------------------
+    #: each run: (config, its depth cut); the card's 80 GB force the cuts
+    family_runs = [
+        (gemma3, ""),
+        (dataclasses.replace(mixtral, n_layers=16),
+         " (of 32: 32 need 93.4 GB of bf16 weights)"),
+        (dataclasses.replace(arctic, n_layers=2),
+         " (of 35: a layer of 128 experts holds 13.6 B parameters)"),
+        (internvl2, ""), (whisper, " (24 encoder + 24 decoder)"),
+        (dataclasses.replace(qwen, kv_dtype="int8"), "")]
+
+    def serve_families():
+        for cfg, cuts in family_runs:
+            got = serve_model(cfg, cuts)
+            launches[f"serve {cfg.name} {cfg.kv_dtype}"] = got
+    _phase("serve-families", serve_families, failures)
+
+    # 21. serve-check-families: kernels against plain inside each family ----
+    def serve_check_families():
+        serve_check([dataclasses.replace(gemma3, n_layers=7)], s=1300)
+        serve_check([dataclasses.replace(mixtral, n_layers=2)])
+        serve_check([dataclasses.replace(internvl2, n_layers=2)], s=1300,
+                    n_vis=internvl2.vision_tokens)
+        serve_check([dataclasses.replace(whisper, enc_layers=2,
+                                         dec_layers=2)])
+        serve_check([dataclasses.replace(qwen, n_layers=2, kv_dtype="int8")])
+        serve_check([dataclasses.replace(arctic, n_layers=1)], "bfloat16")
+    _phase("serve-check-families", serve_check_families, failures)
 
     jax_loaded = "jax" in sys.modules
     print(f"[imports] jax loaded: {jax_loaded}")

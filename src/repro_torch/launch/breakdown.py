@@ -4,7 +4,7 @@ share of the wall during which the device ran no kernel.
 
     PYTHONPATH=src python -m repro_torch.launch.breakdown [--traffic bursty]
     PYTHONPATH=src python -m repro_torch.launch.breakdown --serve \
-        [--arch mamba2-2.7b | zamba2-7b]
+        [--arch mamba2-2.7b | zamba2-7b | gemma3-27b | ...]
 
 Profiles two solves after a warm-up of each: the qwen3-0.6b serving plan
 (``launch/plan.py``'s settings) and the paper's Fig. 8 problem at the
@@ -14,8 +14,11 @@ plan under that request stream (``launch/plan.py --traffic``, rate 0.5).
 serves: the prefill of 8 prompts of 2048 tokens and the 31 decode steps
 after it (``launch/serve.py``, seeded weights, full width and depth) for
 ``--arch`` (qwen3-0.6b unless told; mamba2-2.7b and zamba2-7b run their
-Mamba2 prefill through B5). Prints one JSON line per profiled run; chrome
-traces go to ``--trace-dir`` when given.
+Mamba2 prefill through B5; the VLM's prompt is its 1,024 vision
+embeddings and 1,024 tokens, whisper's 1,500 frames and 187 tokens;
+models that do not fit the card at full depth, mixtral-8x7b and
+arctic-480b, do not fit here either). Prints one JSON line per profiled
+run; chrome traces go to ``--trace-dir`` when given.
 """
 from __future__ import annotations
 
@@ -36,7 +39,8 @@ from ..core.paper import PAPER_PSO, fig8_problem
 from ..kernels import (decode_attention, flash_attention, schedule_sim,
                        ssd_scan, traffic_sim)
 from .plan import DEADLINE_RATIO, DEFAULT_PSO
-from .serve import Server
+from ..models import CROSS_FRAMES
+from .serve import Server, request_batch
 
 #: the served batch: 8 prompts of 2048 tokens, 32 new tokens each
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 2048, 32
@@ -99,27 +103,29 @@ def profile(tag: str, solve: Callable[[], object],
 def profile_serve(arch: str, trace_dir: Optional[Path]) -> None:
     """The LM server's prefill, then its decode steps, each profiled."""
     import numpy as np
-    srv = Server(get(arch), SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, eos_id=-1)
+    cfg = get(arch)
+    prompt = CROSS_FRAMES if cfg.family == "encdec" else SERVE_PROMPT
+    srv = Server(cfg, SERVE_BATCH, prompt, SERVE_NEW, eos_id=-1)
     srv.init_params(0)
-    tokens = np.random.default_rng(0).integers(
-        2, srv.cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
+    batch = request_batch(cfg, SERVE_BATCH, prompt, np.random.default_rng(0),
+                          vision_tokens=cfg.vision_tokens)
     state = {}
 
     @torch.inference_mode()
     def prefill():
         state["logits"], state["caches"] = srv.model.prefill(
-            {"tokens": tokens}, cache_len=srv.cache_len)
+            batch, cache_len=srv.cache_len)
 
     @torch.inference_mode()
     def decode():
         tok = state["logits"][:, -1].argmax(-1)[:, None]
         for i in range(SERVE_NEW - 1):
             logits, _ = srv.model.decode_step(
-                state["caches"], {"token": tok, "pos": SERVE_PROMPT + i})
+                state["caches"], {"token": tok, "pos": prompt + i})
             tok = logits[:, -1].argmax(-1)[:, None]
             tok.cpu()                  # the server reads every token back
 
-    tag = f"serve-{arch}-b{SERVE_BATCH}-s{SERVE_PROMPT}"
+    tag = f"serve-{arch}-b{SERVE_BATCH}-s{prompt}"
     print(json.dumps(profile(f"{tag}-prefill", prefill, trace_dir)))
     print(json.dumps(profile(f"{tag}-decode{SERVE_NEW - 1}", decode,
                              trace_dir)))
@@ -128,8 +134,8 @@ def profile_serve(arch: str, trace_dir: Optional[Path]) -> None:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="qwen3-0.6b",
-                    help="the planned arch; with --serve the served one: "
-                         "qwen3-0.6b, mamba2-2.7b or zamba2-7b")
+                    help="the planned arch; with --serve the served one "
+                         "(any config that fits the card at full depth)")
     ap.add_argument("--trace-dir", type=Path, default=None)
     ap.add_argument("--traffic", default=None, metavar="SCENARIO",
                     choices=TRAFFIC_KINDS,

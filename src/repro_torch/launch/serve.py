@@ -8,19 +8,26 @@ per-slot completion — the port of ``repro/launch/serve.py``'s ``Server``.
         --plan --serve congestion --chaos --plan-cache
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-27b \
         --reduced --device cpu
 
 Static slot batching, as in the reference: a batch of B same-length
 prompts is prefilled together, then decoded in lock-step at one shared
 cache position ``prompt_len + i``; the loop stops when every slot has
 emitted EOS or after ``max_new`` tokens. Every family ``build_model``
-builds is served alike: the dense transformer (qwen3-0.6b, starcoder2-3b),
-the Mamba2 LM (mamba2-2.7b) and the Zamba2 hybrid (zamba2-7b). On the card,
-attention runs through the CUDA kernels B3 (prefill) and B4 (decode) and
-every Mamba2 block's prefill through B5 (the SSD intra-chunk form); with
-``--device cpu`` their plain versions run. Weights are random, from a
-seed.
+builds is served alike: the dense transformer (qwen3-0.6b, starcoder2-3b,
+gemma-7b, gemma3-27b's local:global layers), MoE (mixtral-8x7b,
+arctic-480b), the VLM (internvl2-2b), the enc-dec model (whisper-medium),
+the Mamba2 LM (mamba2-2.7b) and the Zamba2 hybrid (zamba2-7b), each also
+with the int8 KV cache (``kv_dtype="int8"``). ``request_batch`` builds the
+reference ``main``'s synthetic batch: for whisper ``prompt_len`` frames of
+audio embeddings and ``prompt_len // 8`` tokens, for the VLM vision
+embeddings ahead of the tokens. For whisper the decode positions continue
+from ``prompt_len``, the encoder's length, as in the reference. On the
+card, self-attention runs through the CUDA kernels B3 (prefill) and B4
+(decode) and every Mamba2 block's prefill through B5 (the SSD intra-chunk
+form); with ``--device cpu`` their plain versions run. Weights are random,
+from a seed.
 
 ``--plan`` first plans the serving shapes' placement over the TPU fleet
 (``launch/plan.py``), as the reference's ``--plan`` does, then serves;
@@ -36,7 +43,7 @@ from __future__ import annotations
 
 import argparse
 import time
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -47,7 +54,30 @@ from ..core.device import resolve_device
 from ..models import build_model
 from .plan import add_plan_args, check_plan_args, plan_from_args
 
-__all__ = ["Server", "main"]
+__all__ = ["Server", "main", "request_batch"]
+
+
+def request_batch(cfg: ModelConfig, batch: int, prompt_len: int,
+                  rng: np.random.Generator,
+                  vision_tokens: Optional[int] = None
+                  ) -> Dict[str, np.ndarray]:
+    """The reference ``main``'s request batch from ``rng``: ``prompt_len``
+    tokens; for the enc-dec model ``audio_embeds (batch, prompt_len, d)``
+    and the first ``prompt_len // 8`` tokens; for the VLM ``vision (batch,
+    n, d)`` with ``n = vision_tokens`` (``min(cfg.vision_tokens, 8)``
+    unless given) and the first ``prompt_len - n`` tokens."""
+    tokens = rng.integers(2, cfg.vocab, (batch, prompt_len)).astype(np.int32)
+    if cfg.family == "encdec":
+        return {"audio_embeds": rng.standard_normal(
+            (batch, prompt_len, cfg.d_model)).astype(np.float32),
+            "tokens": tokens[:, :prompt_len // 8]}
+    if cfg.family == "vlm":
+        n = min(cfg.vision_tokens, 8) if vision_tokens is None \
+            else vision_tokens
+        return {"vision": rng.standard_normal(
+            (batch, n, cfg.d_model)).astype(np.float32),
+            "tokens": tokens[:, :prompt_len - n]}
+    return {"tokens": tokens}
 
 
 class Server:
@@ -75,8 +105,9 @@ class Server:
 
     @torch.inference_mode()
     def generate(self, batch: Dict[str, np.ndarray]) -> Dict[str, Any]:
-        """batch: {"tokens": (B, prompt_len) ints}. Returns the generated
-        tokens (B, n) and the prefill / decode wall clocks."""
+        """batch: ``request_batch``'s dict, handed to the model's prefill
+        whole. Returns the generated tokens (B, n) and the prefill / decode
+        wall clocks."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t0 = time.perf_counter()
@@ -112,8 +143,11 @@ class Server:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True,
-                    help="a dense (qwen3-0.6b, starcoder2-3b), SSM "
-                         "(mamba2-2.7b) or hybrid (zamba2-7b) config")
+                    help="any config: dense (qwen3-0.6b, starcoder2-3b, "
+                         "gemma-7b, gemma3-27b), MoE (mixtral-8x7b, "
+                         "arctic-480b), VLM (internvl2-2b), enc-dec "
+                         "(whisper-medium), SSM (mamba2-2.7b) or hybrid "
+                         "(zamba2-7b)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -146,9 +180,8 @@ def main(argv=None) -> None:
     srv = Server(cfg, args.batch, args.prompt_len, args.max_new,
                  device=device)
     srv.init_params()
-    rng = np.random.default_rng(0)
-    batch = {"tokens": rng.integers(
-        2, cfg.vocab, (args.batch, args.prompt_len)).astype(np.int32)}
+    batch = request_batch(cfg, args.batch, args.prompt_len,
+                          np.random.default_rng(0))
     out = srv.generate(batch)
     print(f"[serve] {cfg.name} on {device}: prefill "
           f"{out['prefill_s'] * 1e3:.0f}ms  decode {out['tokens_generated']} "

@@ -5,15 +5,21 @@ pytree as numpy arrays (``jax.tree.map(np.asarray, params)``), in its
 layer-stacked layout, and returns the state dict of the port's model for
 ``cfg.family``: the same values under per-block names, one block per index.
 
-* dense (``repro/models/transformer.py:92-121``)::
+* dense, moe, vlm (``repro/models/transformer.py:92-121``)::
 
       embed (vocab, d), final_norm (d,), [unembed (d, vocab)],
+      [vision_proj (d, d)],
       blocks/{ln1, ln2 (L, d),
               attn/{wq (L, d, h, hd), wk, wv (L, d, k, hd), wo (L, h, hd, d),
                     [q_norm, k_norm (L, hd)]},
-              mlp/{wi, [wg] (L, d, ff), wo (L, ff, d)}}
+              mlp/{wi, [wg] (L, d, ff), wo (L, ff, d)}
+              | moe/{router (L, d, E) float32, wi, wg (L, E, d, ff),
+                     wo (L, E, ff, d), [dense/{wi, wg, wo}]}}
 
-  → ``blocks.<i>.{ln1, ln2, attn.<name>, mlp.<name>}``;
+  → ``blocks.<i>.{ln1, ln2, attn.<name>, mlp.<name> | moe.<name>}``; with
+  a local:global period the blocks lead with ``(n_groups, period)`` and
+  the leftover layers sit under ``tail`` (leading ``n_tail``) →
+  ``blocks.<g>.<l>.*``, ``tail.<t>.*``;
 * ssm (``repro/models/hybrid.py:50-59``, ``ssm.py:39-57``)::
 
       embed, final_norm, blocks/{ln (L, d), mamba/{wz, wx, wB, wC, wdt,
@@ -24,11 +30,16 @@ layer-stacked layout, and returns the state dict of the port's model for
 * hybrid (``repro/models/hybrid.py:140-166``): the same mamba blocks under
   ``groups`` (leading ``(n_groups, k)``) and ``tail`` (leading
   ``n_tail``), plus ``shared_attn/{ln1, attn/..., ln2, mlp/...}`` (one
-  set) → ``groups.<g>.<l>.*``, ``tail.<t>.*``, ``shared_attn.*``.
+  set) → ``groups.<g>.<l>.*``, ``tail.<t>.*``, ``shared_attn.*``;
+* encdec (``repro/models/encdec.py:83-97``): ``enc_blocks/{ln1, attn/...,
+  ln2, mlp/...}`` (leading ``enc_layers``), ``dec_blocks/`` the same plus
+  ``ln_x``, ``xattn/...`` (leading ``dec_layers``), ``enc_norm``,
+  ``dec_norm``, ``embed``, ``dec_pos`` → ``enc_blocks.<i>.*``,
+  ``dec_blocks.<i>.*`` and the four by name.
 
 Nothing is transposed or re-laid out; bfloat16 arrays keep their bits and
-the float32 ``A_log``, ``D`` and ``dt_bias`` of a bfloat16 model stay
-float32.
+the float32 ``A_log``, ``D``, ``dt_bias`` and MoE ``router`` of a
+bfloat16 model stay float32.
 """
 from __future__ import annotations
 
@@ -70,17 +81,29 @@ def _stacked(tree: Any, name: str, lead: tuple,
 
 def params_from_reference(cfg: ModelConfig, tree: Mapping[str, Any]
                           ) -> Dict[str, torch.Tensor]:
-    if cfg.family not in ("dense", "ssm", "hybrid") or (
-            cfg.family == "dense" and cfg.local_global_period):
-        raise NotImplementedError(
-            f"{cfg.name}: only the dense uniform, SSM and hybrid families "
-            f"are ported (ROADMAP queue A item 12)")
+    if cfg.family == "encdec":
+        out = {n: _tensor(tree[n])
+               for n in ("enc_norm", "dec_norm", "embed", "dec_pos")}
+        _stacked(tree["enc_blocks"], "enc_blocks", (cfg.enc_layers,), out)
+        _stacked(tree["dec_blocks"], "dec_blocks", (cfg.dec_layers,), out)
+        return out
     out = {"embed": _tensor(tree["embed"]),
            "final_norm": _tensor(tree["final_norm"])}
-    if cfg.family == "dense" and not cfg.tie_embeddings:
-        out["unembed"] = _tensor(tree["unembed"])
-    if cfg.family in ("dense", "ssm"):
+    if cfg.family == "ssm":
         _stacked(tree["blocks"], "blocks", (cfg.n_layers,), out)
+        return out
+    if cfg.family in ("dense", "moe", "vlm"):
+        for name in ("unembed", "vision_proj"):
+            if name in tree:
+                out[name] = _tensor(tree[name])
+        period = cfg.local_global_period
+        if not period:
+            _stacked(tree["blocks"], "blocks", (cfg.n_layers,), out)
+            return out
+        n_groups, n_tail = divmod(cfg.n_layers, period)
+        _stacked(tree["blocks"], "blocks", (n_groups, period), out)
+        if n_tail:
+            _stacked(tree["tail"], "tail", (n_tail,), out)
         return out
     n_groups, n_tail = divmod(cfg.n_layers, cfg.hybrid_attn_every)
     _stacked(tree["groups"], "groups", (n_groups, cfg.hybrid_attn_every),

@@ -1,0 +1,207 @@
+"""Whisper-medium's backbone: a transformer encoder over (stubbed) audio
+frame embeddings and a causal decoder with cross attention — the port of
+``repro/models/encdec.py`` for serving.
+
+The conv frontend is a stub, as in the reference: the batch carries
+precomputed frame embeddings ``audio_embeds (B, S_enc, D)``. The encoder
+adds sinusoidal positions and runs bidirectional self-attention through
+B3 (``causal=False``), with the RoPE that every self-attention applies on
+top of them (a quirk of the reference, kept). The decoder adds learned
+positions ``dec_pos (8192, d)`` to its unscaled token embeddings, attends
+causally to itself (B3 in the prefill, B4 over its self cache in decode)
+and, without mask or RoPE, to the encoder's frames (plain PyTorch, as in
+the reference: ``attention.cross_attn_apply``). Its head is ``embed.T``.
+
+Parameters, in the reference's names (``models.convert`` maps its
+pytree): ``enc_blocks.<i>.{ln1, attn.*, ln2, mlp.*}``, ``enc_norm``,
+``dec_blocks.<i>.{ln1, attn.*, ln_x, xattn.*, ln2, mlp.*}``, ``dec_norm``,
+``embed (vocab, d)`` and ``dec_pos``. Caches are ``{"self": {"k", "v"}
+(L, B, C, K, hd), "cross": {"k", "v"} (L, B, S_enc, K, hd)}``; the cross
+keys and values are computed once, in the prefill.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..configs.base import ModelConfig
+from ..core.device import resolve_device
+from . import attention as attn
+from .layers import DTYPES, embed_init, rms_norm
+from .transformer import DenseBlock, _param
+
+__all__ = ["EncDecLM", "CROSS_FRAMES"]
+
+CROSS_FRAMES = 1500     # whisper: 30 s of audio -> 1500 encoder frames
+#: learned decoder positions
+DEC_POSITIONS = 8192
+
+Caches = Dict[str, Dict[str, torch.Tensor]]
+
+
+def _sinusoid(s: int, d: int, dtype: torch.dtype,
+              device: torch.device) -> torch.Tensor:
+    pos = torch.arange(s, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / (10_000.0 ** (2 * dim / d))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
+class DecBlock(DenseBlock):
+    """A decoder layer: the encoder's layer plus ``ln_x`` and the cross
+    attention's ``xattn.{wq, wk, wv, wo}``."""
+
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype,
+                 device: torch.device):
+        super().__init__(cfg, dtype, device)
+        self.ln_x = _param(torch.zeros(cfg.d_model, dtype=dtype,
+                                       device=device))
+        self.xattn = nn.ParameterDict(
+            {n: _param(torch.empty_like(t)) for n, t in self.attn.items()})
+
+    @torch.no_grad()
+    def init(self, gen: torch.Generator) -> None:
+        super().init(gen)
+        self.ln_x.zero_()
+        self.init_attn(self.xattn, self.cfg, gen)
+
+
+class EncDecLM(nn.Module):
+    """cfg.family == "encdec"."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.device = dev = resolve_device(device)
+        self.dtype = dt = DTYPES[cfg.dtype]
+        d = cfg.d_model
+        self.enc_blocks = nn.ModuleList(DenseBlock(cfg, dt, dev)
+                                        for _ in range(cfg.enc_layers))
+        self.dec_blocks = nn.ModuleList(DecBlock(cfg, dt, dev)
+                                        for _ in range(cfg.dec_layers))
+        self.enc_norm = _param(torch.zeros(d, dtype=dt, device=dev))
+        self.dec_norm = _param(torch.zeros(d, dtype=dt, device=dev))
+        self.embed = _param(torch.empty((cfg.vocab, d), dtype=dt,
+                                        device=dev))
+        self.dec_pos = _param(torch.empty((DEC_POSITIONS, d), dtype=dt,
+                                          device=dev))
+
+    @torch.no_grad()
+    def init(self, gen: torch.Generator) -> "EncDecLM":
+        """He-normal weights and embeddings from ``gen`` (on the model's
+        device), zero norm scales."""
+        for blk in (*self.enc_blocks, *self.dec_blocks):
+            blk.init(gen)
+        self.enc_norm.zero_()
+        self.dec_norm.zero_()
+        d = self.cfg.d_model
+        embed_init(gen, self.cfg.vocab, d, self.dtype, out=self.embed)
+        embed_init(gen, DEC_POSITIONS, d, self.dtype, out=self.dec_pos)
+        return self
+
+    # ------------------------------------------------------------ encoder
+    def encode(self, audio_embeds) -> torch.Tensor:
+        """(B, S_enc, d) frame embeddings (any float array) -> the normed
+        encoder output."""
+        cfg = self.cfg
+        x = torch.as_tensor(audio_embeds, device=self.device).to(self.dtype)
+        b, s, d = x.shape
+        x = x + _sinusoid(s, d, self.dtype, self.device)
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=self.device).expand(b, s)
+        for blk in self.enc_blocks:
+            h, _ = attn.attn_prefill(
+                blk.attn, rms_norm(x, blk.ln1, cfg.norm_eps), positions, cfg,
+                True, False, causal=False)                  # bidirectional
+            x = x + h
+            x = x + blk.ffn(x)[0]
+        return rms_norm(x, self.enc_norm, cfg.norm_eps)
+
+    def cross_caches(self, enc_out: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Every decoder layer's cross keys and values of ``enc_out``,
+        stacked: {"k", "v"} (L, B, S_enc, K, hd)."""
+        kv = [attn.cross_kv(blk.xattn, enc_out) for blk in self.dec_blocks]
+        return {"k": torch.stack([k for k, _ in kv]),
+                "v": torch.stack([v for _, v in kv])}
+
+    # ------------------------------------------------------------ decoder
+    def _dec_block(self, blk: DecBlock, x: torch.Tensor, enc_k, enc_v,
+                   attend) -> torch.Tensor:
+        """One decoder layer around its self-attention ``attend(p, xn)``."""
+        cfg = self.cfg
+        x = x + attend(blk.attn, rms_norm(x, blk.ln1, cfg.norm_eps))
+        x = x + attn.cross_attn_apply(
+            blk.xattn, rms_norm(x, blk.ln_x, cfg.norm_eps), enc_k, enc_v,
+            cfg)
+        return x + blk.ffn(x)[0]
+
+    def decode_seq(self, tokens, cross: Dict[str, torch.Tensor],
+                   with_cache: bool = False
+                   ) -> Tuple[torch.Tensor, Optional[Dict]]:
+        """The decoder over a token sequence against the stacked cross keys
+        and values ``cross``: (normed hidden (B,S,D), self caches (L, B, S,
+        K, hd) or None)."""
+        cfg = self.cfg
+        tok = torch.as_tensor(tokens, device=self.device).long()
+        b, s = tok.shape
+        x = self.embed[tok] + self.dec_pos[:s]
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=self.device).expand(b, s)
+        caches: Optional[Dict] = {} if with_cache else None
+        for i, blk in enumerate(self.dec_blocks):
+            def attend(p, xn):
+                h, c = attn.attn_prefill(p, xn, positions, cfg, True,
+                                         with_cache)
+                if with_cache:
+                    for n, t in c.items():
+                        if n not in caches:
+                            caches[n] = t.new_empty((cfg.dec_layers,
+                                                     *t.shape))
+                        caches[n][i] = t
+                return h
+            x = self._dec_block(blk, x, cross["k"][i], cross["v"][i], attend)
+        return rms_norm(x, self.dec_norm, cfg.norm_eps), caches
+
+    # ------------------------------------------------------------ serving
+    def prefill(self, batch: Dict, cache_len: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Caches]:
+        """batch: {"audio_embeds" (B, S_enc, d), "tokens" (B, S)}. Returns
+        the last token's logits (B,1,V) and the caches, the self caches
+        grown to ``cache_len`` when given."""
+        cross = self.cross_caches(self.encode(batch["audio_embeds"]))
+        h, caches = self.decode_seq(batch["tokens"], cross, with_cache=True)
+        if cache_len is not None:
+            caches = attn.grow_cache(caches, self.cfg, True, cache_len,
+                                     h.shape[1])
+        return h[:, -1:] @ self.embed.T, {"self": caches, "cross": cross}
+
+    def decode_step(self, caches: Caches, batch: Dict
+                    ) -> Tuple[torch.Tensor, Caches]:
+        """batch: {"token": (B,1) ints, "pos": int}. Returns (logits
+        (B,1,V), caches), the self caches updated in place."""
+        cfg = self.cfg
+        pos = int(batch["pos"])
+        tok = torch.as_tensor(batch["token"], device=self.device).long()
+        x = self.embed[tok] + self.dec_pos[pos:pos + 1]
+        cross = caches["cross"]
+        for i, blk in enumerate(self.dec_blocks):
+            layer = {n: t[i] for n, t in caches["self"].items()}
+
+            def attend(p, xn):
+                return attn.attn_decode(p, xn, layer, pos, cfg, True)[0]
+            x = self._dec_block(blk, x, cross["k"][i], cross["v"][i], attend)
+        x = rms_norm(x, self.dec_norm, cfg.norm_eps)
+        return x @ self.embed.T, caches
+
+    def init_caches(self, batch: int, cache_len: int) -> Caches:
+        cfg, n = self.cfg, self.cfg.dec_layers
+        one = attn.init_cache(cfg, batch, cache_len, True, self.dtype,
+                              self.device)
+        shape = (n, batch, CROSS_FRAMES, cfg.n_kv_heads, cfg.head_dim)
+        return {"self": {k: t.expand(n, *t.shape).clone()
+                         for k, t in one.items()},
+                "cross": {k: torch.zeros(shape, dtype=self.dtype,
+                                         device=self.device)
+                          for k in ("k", "v")}}

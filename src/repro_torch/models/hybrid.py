@@ -25,7 +25,9 @@ attn.<name>, ln2, mlp.<name>}`` (Zamba2LM).
 Caches mirror the reference's, stacked over blocks: MambaLM's are
 ``(conv (L, B, k-1, d_inner + 2N), ssm (L, B, H, P, N))``; Zamba2LM's are
 ``{"mamba": (conv, ssm) with leading (n_groups, k), "attn": {"k", "v"}
-(n_groups, B, C, K, hd), "tail": (conv, ssm) with leading n_tail}``.
+(n_groups, B, C, K, hd), "tail": (conv, ssm) with leading n_tail}``; with
+``cfg.kv_dtype == "int8"`` the sites' caches are int8 with float32 scales
+``"k_s"``, ``"v_s"`` (``models.attention``).
 The prefill writes each block's states and each site's keys and values
 into caches allocated once; ``decode_step`` updates them in place.
 """

@@ -5,8 +5,11 @@ Parameters are tensors in the reference's layouts (``(d_in, d_out)``
 matrices, ``(vocab, d)`` embeddings). The initialisers draw from an
 explicit ``torch.Generator`` on the generator's device; they give other
 numbers than ``jax.random`` from the same seed, so parity tests load the
-reference's parameters instead (``models.convert``). The training helpers
-(``cross_entropy``, ``chunked_ce``) come with the training slice.
+reference's parameters instead (``models.convert``). A tensor of more than ``DRAW_SLICE`` elements is
+drawn in slices along its leading axis, so that its float32 draw never
+needs a second copy of the whole (arctic-480b's expert banks hold 4.5 G
+elements each). The training helpers (``cross_entropy``, ``chunked_ce``)
+come with the training slice.
 """
 from __future__ import annotations
 
@@ -15,33 +18,66 @@ from typing import Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
-__all__ = ["rms_norm", "rope", "mlp_apply", "he_init", "dense_init",
-           "embed_init", "DTYPES"]
+__all__ = ["rms_norm", "rope", "mlp_apply", "mlp_params", "init_mlp",
+           "he_init", "dense_init", "embed_init", "DTYPES", "DRAW_SLICE"]
 
 #: ``ModelConfig.dtype`` names
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+#: elements of one float32 draw at most (1 GiB)
+DRAW_SLICE = 1 << 28
 
 
 def he_init(gen: torch.Generator, shape: Tuple[int, ...],
             fan_in: Optional[int] = None,
-            dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Normal(0, 1/fan_in) in float32 on ``gen``'s device, cast to
-    ``dtype``."""
+            dtype: torch.dtype = torch.float32,
+            out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Normal(0, 1/fan_in) drawn in float32 on ``gen``'s device, cast to
+    ``dtype`` (or written into ``out``, of ``shape``), in slices of at most
+    ``DRAW_SLICE`` elements along the leading axis."""
     fan_in = fan_in or shape[0]
-    x = torch.randn(shape, generator=gen, dtype=torch.float32,
-                    device=gen.device)
-    return (x * (1.0 / math.sqrt(fan_in))).to(dtype)
+    if out is None:
+        out = torch.empty(shape, dtype=dtype, device=gen.device)
+    rows = max(1, DRAW_SLICE // max(1, math.prod(shape[1:])))
+    for r in range(0, shape[0], rows):
+        n = min(rows, shape[0] - r)
+        x = torch.randn((n, *shape[1:]), generator=gen, dtype=torch.float32,
+                        device=gen.device)
+        out[r:r + n].copy_(x.mul_(1.0 / math.sqrt(fan_in)))
+    return out
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
-               dtype: torch.dtype) -> torch.Tensor:
-    return he_init(gen, (d_in, d_out), d_in, dtype)
+               dtype: torch.dtype, out: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
+    return he_init(gen, (d_in, d_out), d_in, dtype, out)
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int,
-               dtype: torch.dtype) -> torch.Tensor:
-    return he_init(gen, (vocab, d), d, dtype)
+               dtype: torch.dtype, out: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
+    return he_init(gen, (vocab, d), d, dtype, out)
+
+
+def mlp_params(d: int, ff: int, act: str, dtype: torch.dtype,
+               device: torch.device) -> nn.ParameterDict:
+    """An MLP's ``{wi, wo[, wg]}`` in the reference's layouts, allocated,
+    not initialised (``init_mlp`` fills them)."""
+    def empty(*shape):
+        return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                            requires_grad=False)
+    p = {"wi": empty(d, ff), "wo": empty(ff, d)}
+    if act in ("swiglu", "geglu"):
+        p["wg"] = empty(d, ff)
+    return nn.ParameterDict(p)
+
+
+@torch.no_grad()
+def init_mlp(p: nn.ParameterDict, gen: torch.Generator) -> None:
+    """He-normal ``wi``, ``wo`` and ``wg`` from ``gen``, in that order."""
+    for w in p.values():
+        dense_init(gen, w.shape[0], w.shape[1], w.dtype, out=w)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6

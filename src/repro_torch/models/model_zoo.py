@@ -1,10 +1,10 @@
 """Model construction and analytic counts — the port of
 ``repro/models/model_zoo.py``.
 
-``build_model`` builds the dense family (``TransformerLM``), the SSM
-family (``MambaLM``) and the hybrid (``Zamba2LM``); MoE, VLM and enc-dec
-raise NotImplementedError until their slices land (ROADMAP queue A
-item 12). ``supports_shape``, ``skip_reason``, ``param_count`` and
+``build_model`` builds every family the reference builds: the dense, MoE
+and VLM families (``TransformerLM``), the SSM family (``MambaLM``), the
+hybrid (``Zamba2LM``) and the enc-dec model (``EncDecLM``).
+``supports_shape``, ``skip_reason``, ``param_count`` and
 ``model_flops`` are plain Python, copied from the reference. The
 reference's ``input_specs``/``batch_pspecs`` describe inputs for XLA's
 ahead-of-time lowering and sharding and have no counterpart here.
@@ -12,6 +12,7 @@ ahead-of-time lowering and sharding and have no counterpart here.
 from __future__ import annotations
 
 from ..configs.base import ModelConfig, ShapeSpec
+from .encdec import EncDecLM
 from .hybrid import MambaLM, Zamba2LM
 from .transformer import TransformerLM
 
@@ -21,15 +22,15 @@ __all__ = ["build_model", "supports_shape", "skip_reason", "model_flops",
 
 def build_model(cfg: ModelConfig, device=None):
     """The model for ``cfg`` on ``device`` (``cuda`` unless told)."""
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe", "vlm"):
         return TransformerLM(cfg, device=device)
     if cfg.family == "ssm":
         return MambaLM(cfg, device=device)
     if cfg.family == "hybrid":
         return Zamba2LM(cfg, device=device)
-    raise NotImplementedError(
-        f"family {cfg.family!r} ({cfg.name}) is not ported yet: ROADMAP "
-        f"queue A item 12 lists what is left")
+    if cfg.family == "encdec":
+        return EncDecLM(cfg, device=device)
+    raise ValueError(f"unknown family {cfg.family!r} ({cfg.name})")
 
 
 # ---------------------------------------------------------------------------

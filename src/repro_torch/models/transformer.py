@@ -1,25 +1,39 @@
-"""Decoder-only transformer LM for the dense family with a uniform
-attention pattern (every layer global, or every layer sliding-window) —
+"""Decoder-only transformer LM covering the dense, MoE and VLM families —
 the port of ``repro/models/transformer.py`` for serving.
 
 ``TransformerLM`` is an ``nn.Module`` that owns its parameters, in the
-reference's layouts: ``embed (vocab, d)``, ``final_norm (d,)`` and per
-layer ``blocks.<i>.{ln1, ln2}``, ``blocks.<i>.attn.{wq (d,h,hd), wk, wv
-(d,k,hd), wo (h,hd,d), q_norm, k_norm}``, ``blocks.<i>.mlp.{wi, wg, wo}``
-(``models.convert`` maps the reference's layer-stacked pytree onto these
-names). A plain Python loop over the layers stands in for the reference's
+reference's layouts: ``embed (vocab, d)``, ``final_norm (d,)``, per layer
+``{ln1, ln2}``, ``attn.{wq (d,h,hd), wk, wv (d,k,hd), wo (h,hd,d), q_norm,
+k_norm}`` and either ``mlp.{wi, wg, wo}`` or, for the MoE family, ``moe.
+{router, wi, wg, wo[, dense.*]}`` (``models.moe``); ``unembed`` when the
+head is untied and ``vision_proj (d, d)`` for the VLM, whose vision
+embeddings, projected, prefix the token embeddings.
+
+Layer stacking follows the reference (``models.convert`` maps its pytree
+onto these names):
+  * uniform patterns (every layer global, or every layer sliding-window as
+    mixtral): ``blocks.<i>``;
+  * periodic local:global patterns (gemma3: 5 local + 1 global):
+    ``blocks.<g>.<l>`` for ``n_layers // period`` whole periods, layer l
+    of a period global iff ``(l + 1) % period == 0``, then ``tail.<t>``,
+    the ``n_layers % period`` leftover layers, all local.
+Plain Python loops over the layers stand in for the reference's
 ``lax.scan``. Parameters do not require gradients: this slice serves.
 ``LMBase`` holds what every family's LM shares (embedding, final norm,
-tied head); ``DenseBlock`` is also Zamba2's shared attention block.
+tied head); ``DenseBlock`` is also Zamba2's shared attention block and the
+enc-dec model's encoder block.
 
-Caches are layer-stacked as in the reference, ``{"k", "v"}`` of shape
-(L, B, C, K, hd); ``decode_step`` writes each layer's new key and value
-into them in place. The periodic local:global groups (gemma3), MoE and VLM
-raise NotImplementedError (ROADMAP queue A item 12).
+Caches nest as the reference's: uniform models keep ``{"k", "v"}`` (with
+``cfg.kv_dtype == "int8"`` also ``"k_s"``, ``"v_s"``) stacked over layers,
+(L, B, C, K, hd); periodic models keep ``{"groups": {"local": (G, P-1, B,
+C_w, K, hd), "global": (G, B, C, K, hd)}, "tail": (n_tail, B, C_w, K,
+hd)}`` of such dicts, where a local layer's ring holds ``C_w = min(window,
+C)`` slots. ``decode_step`` writes each layer's new key and value into
+them in place.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -27,11 +41,13 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..core.device import resolve_device
 from . import attention as attn
-from .layers import DTYPES, dense_init, embed_init, mlp_apply, rms_norm
+from . import moe as moe_mod
+from .layers import (DTYPES, dense_init, embed_init, init_mlp, mlp_apply,
+                     mlp_params, rms_norm)
 
-__all__ = ["TransformerLM", "LMBase"]
+__all__ = ["TransformerLM", "LMBase", "DenseBlock"]
 
-Caches = Dict[str, torch.Tensor]
+Caches = Dict[str, object]
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -39,14 +55,13 @@ def _param(t: torch.Tensor) -> nn.Parameter:
 
 
 class DenseBlock(nn.Module):
-    """One pre-norm attention + MLP layer; parameters allocated, not
-    initialised (``init`` fills them)."""
+    """One pre-norm attention + MLP (or MoE) layer; parameters allocated,
+    not initialised (``init`` fills them)."""
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype,
                  device: torch.device):
         super().__init__()
-        d, h, k, hd, ff = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                           cfg.head_dim, cfg.d_ff)
+        d, h, k, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
         def empty(*shape):
             return _param(torch.empty(shape, dtype=dtype, device=device))
@@ -60,21 +75,19 @@ class DenseBlock(nn.Module):
         if cfg.qk_norm:
             a["q_norm"], a["k_norm"] = zeros(hd), zeros(hd)
         self.attn = nn.ParameterDict(a)
-        m = {"wi": empty(d, ff), "wo": empty(ff, d)}
-        if cfg.act in ("swiglu", "geglu"):
-            m["wg"] = empty(d, ff)
-        self.mlp = nn.ParameterDict(m)
+        if cfg.n_experts:
+            self.moe = moe_mod.MoE(cfg, dtype, device)
+        else:
+            self.mlp = mlp_params(d, cfg.d_ff, cfg.act, dtype, device)
         self.cfg = cfg
 
+    @staticmethod
     @torch.no_grad()
-    def init(self, gen: torch.Generator) -> None:
-        """He-normal projections from ``gen``, zero norm scales."""
-        cfg = self.cfg
+    def init_attn(a: nn.ParameterDict, cfg: ModelConfig,
+                  gen: torch.Generator) -> None:
+        """He-normal projections from ``gen``, zero qk-norm scales."""
         d, h, k, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        dt = self.ln1.dtype
-        self.ln1.zero_()
-        self.ln2.zero_()
-        a = self.attn
+        dt = a["wq"].dtype
         a["wq"].copy_(dense_init(gen, d, h * hd, dt).reshape(d, h, hd))
         a["wk"].copy_(dense_init(gen, d, k * hd, dt).reshape(d, k, hd))
         a["wv"].copy_(dense_init(gen, d, k * hd, dt).reshape(d, k, hd))
@@ -82,9 +95,27 @@ class DenseBlock(nn.Module):
         if cfg.qk_norm:
             a["q_norm"].zero_()
             a["k_norm"].zero_()
-        for name in self.mlp:
-            w = self.mlp[name]
-            w.copy_(dense_init(gen, w.shape[0], w.shape[1], dt))
+
+    @torch.no_grad()
+    def init(self, gen: torch.Generator) -> None:
+        """He-normal projections from ``gen``, zero norm scales."""
+        self.ln1.zero_()
+        self.ln2.zero_()
+        self.init_attn(self.attn, self.cfg, gen)
+        if self.cfg.n_experts:
+            self.moe.init(gen)
+        else:
+            init_mlp(self.mlp, gen)
+
+    def ffn(self, x: torch.Tensor, moe_impl: str = "scatter"
+            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The pre-normed MLP (or MoE) branch and its aux loss (None for an
+        MLP)."""
+        cfg = self.cfg
+        hn = rms_norm(x, self.ln2, cfg.norm_eps)
+        if cfg.n_experts:
+            return moe_mod.moe_apply(self.moe, hn, cfg, moe_impl)
+        return mlp_apply(self.mlp, hn, cfg.act), None
 
 
 class LMBase(nn.Module):
@@ -103,8 +134,8 @@ class LMBase(nn.Module):
                                              device=self.device))
 
     def init_embed(self, gen: torch.Generator) -> None:
-        self.embed.copy_(embed_init(gen, self.cfg.vocab, self.cfg.d_model,
-                                    self.dtype))
+        embed_init(gen, self.cfg.vocab, self.cfg.d_model, self.dtype,
+                   out=self.embed)
         self.final_norm.zero_()
 
     def embed_inputs(self, tok) -> torch.Tensor:
@@ -118,30 +149,69 @@ class LMBase(nn.Module):
         return rms_norm(h, self.final_norm, self.cfg.norm_eps) @ self.embed.T
 
 
-class TransformerLM(LMBase):
-    """cfg.family == "dense" with ``local_global_period == 0``."""
+#: where a layer's cache lives: the path of its dict in the caches and its
+#: index along that dict's leading (stacked) axes
+Where = Tuple[Tuple[str, ...], Tuple[int, ...]]
 
-    def __init__(self, cfg: ModelConfig, device=None):
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (ROADMAP queue A "
-                f"item 12): the port serves the dense family")
-        if cfg.local_global_period:
-            raise NotImplementedError(
-                "the periodic local:global group scan (gemma3) is not ported "
-                "yet (ROADMAP queue A item 12)")
-        if cfg.kv_dtype == "int8":
-            raise NotImplementedError(
-                "the int8 KV cache is not ported yet (ROADMAP queue A "
-                "item 12)")
+
+def _node(tree: Dict, path: Tuple[str, ...]) -> Dict:
+    for key in path:
+        tree = tree.setdefault(key, {})
+    return tree
+
+
+class TransformerLM(LMBase):
+    """cfg.family in {dense, moe, vlm}."""
+
+    def __init__(self, cfg: ModelConfig, device=None,
+                 moe_impl: str = "scatter"):
+        if cfg.family not in ("dense", "moe", "vlm"):
+            raise ValueError(f"TransformerLM serves the dense, moe and vlm "
+                             f"families, not {cfg.family!r}")
+        moe_mod.check_impl(moe_impl)
         super().__init__(cfg, device)
-        self.is_global = cfg.window == 0
+        self.moe_impl = moe_impl
         dev, dt = self.device, self.dtype
-        self.blocks = nn.ModuleList(DenseBlock(cfg, dt, dev)
-                                    for _ in range(cfg.n_layers))
+
+        def block():
+            return DenseBlock(cfg, dt, dev)
+        period = cfg.local_global_period
+        # layers: (block, is_global, where its cache lives); stacks: each
+        # cache dict's path -> (leading axes, is_global)
+        self._layers: List[Tuple[DenseBlock, bool, Where]] = []
+        self._stacks: Dict[Tuple[str, ...], Tuple[Tuple[int, ...], bool]] \
+            = {}
+        if period:
+            n_groups, n_tail = divmod(cfg.n_layers, period)
+            self.blocks = nn.ModuleList(
+                nn.ModuleList(block() for _ in range(period))
+                for _ in range(n_groups))
+            self.tail = nn.ModuleList(block() for _ in range(n_tail))
+            for g, group in enumerate(self.blocks):
+                for l, blk in enumerate(group):
+                    is_global = (l + 1) % period == 0
+                    where = (("groups", "global"), (g,)) if is_global \
+                        else (("groups", "local"), (g, l))
+                    self._layers.append((blk, is_global, where))
+            self._layers += [(blk, False, (("tail",), (t,)))
+                             for t, blk in enumerate(self.tail)]
+            self._stacks[("groups", "local")] = ((n_groups, period - 1),
+                                                 False)
+            self._stacks[("groups", "global")] = ((n_groups,), True)
+            if n_tail:
+                self._stacks[("tail",)] = ((n_tail,), False)
+        else:
+            self.blocks = nn.ModuleList(block() for _ in range(cfg.n_layers))
+            is_global = cfg.window == 0
+            self._layers = [(blk, is_global, ((), (i,)))
+                            for i, blk in enumerate(self.blocks)]
+            self._stacks[()] = ((cfg.n_layers,), is_global)
         if not cfg.tie_embeddings:
             self.unembed = _param(torch.empty((cfg.d_model, cfg.vocab),
                                               dtype=dt, device=dev))
+        if cfg.family == "vlm":
+            self.vision_proj = _param(torch.empty(
+                (cfg.d_model, cfg.d_model), dtype=dt, device=dev))
 
     # ------------------------------------------------------------- params
     @torch.no_grad()
@@ -150,11 +220,14 @@ class TransformerLM(LMBase):
         device), zero norm scales."""
         cfg = self.cfg
         self.init_embed(gen)
-        for blk in self.blocks:
+        for blk, _, _ in self._layers:
             blk.init(gen)
         if not cfg.tie_embeddings:
             self.unembed.copy_(embed_init(gen, cfg.vocab, cfg.d_model,
                                           self.dtype).T)
+        if cfg.family == "vlm":
+            self.vision_proj.copy_(embed_init(gen, cfg.d_model, cfg.d_model,
+                                              self.dtype).T)
         return self
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
@@ -162,41 +235,58 @@ class TransformerLM(LMBase):
             return super().logits(h)
         return rms_norm(h, self.final_norm, self.cfg.norm_eps) @ self.unembed
 
+    def embed_batch(self, batch: Dict) -> torch.Tensor:
+        """The scaled token embeddings, prefixed for the VLM by the batch's
+        ``vision`` embeddings (B, Nv, d) cast to the model dtype and
+        projected by ``vision_proj``."""
+        x = self.embed_inputs(batch["tokens"])
+        if self.cfg.family == "vlm" and "vision" in batch:
+            vis = torch.as_tensor(batch["vision"], device=self.device)
+            x = torch.cat([vis.to(self.dtype) @ self.vision_proj, x], dim=1)
+        return x
+
     # ----------------------------------------------------------- seq path
     def forward(self, batch: Dict, with_cache: bool = False
-                ) -> Tuple[torch.Tensor, Optional[Caches]]:
-        """Returns (hidden (B,S,D), layer-stacked caches or None)."""
+                ) -> Tuple[torch.Tensor, Optional[Caches], torch.Tensor]:
+        """Returns (hidden (B,S,D), caches or None, the MoE aux loss summed
+        over layers, 0 without experts)."""
         cfg = self.cfg
-        x = self.embed_inputs(batch["tokens"])
+        x = self.embed_batch(batch)
         b, s, _ = x.shape
         positions = torch.arange(s, dtype=torch.int32,
                                  device=self.device).expand(b, s)
-        caches = None
-        for i, blk in enumerate(self.blocks):
+        caches: Optional[Dict] = {} if with_cache else None
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        for blk, is_global, (path, idx) in self._layers:
             h, c = attn.attn_prefill(
                 blk.attn, rms_norm(x, blk.ln1, cfg.norm_eps), positions, cfg,
-                self.is_global, with_cache)
+                is_global, with_cache)
             x = x + h
-            x = x + mlp_apply(blk.mlp, rms_norm(x, blk.ln2, cfg.norm_eps),
-                              cfg.act)
+            y, a = blk.ffn(x, self.moe_impl)
+            x = x + y
+            if a is not None:
+                aux = aux + a
             if with_cache:
-                if caches is None:
-                    caches = {n: t.new_empty((cfg.n_layers, *t.shape))
-                              for n, t in c.items()}
+                node = _node(caches, path)
+                lead = self._stacks[path][0]
                 for n, t in c.items():
-                    caches[n][i] = t
-        return x, caches
+                    if n not in node:
+                        node[n] = t.new_empty((*lead, *t.shape))
+                    node[n][idx] = t
+        return x, caches, aux
 
     # ------------------------------------------------------------ serving
     def prefill(self, batch: Dict, cache_len: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Caches]:
         """Last-token logits (B,1,V) and the caches, grown to
         ``cache_len`` when given."""
-        h, caches = self.forward(batch, with_cache=True)
+        h, caches, _ = self.forward(batch, with_cache=True)
         logits = self.logits(h[:, -1:])
         if cache_len is not None:
-            caches = attn.grow_cache(caches, self.cfg, self.is_global,
-                                     cache_len, h.shape[1])
+            for path, (_, is_global) in self._stacks.items():
+                node = _node(caches, path)
+                node.update(attn.grow_cache(node, self.cfg, is_global,
+                                            cache_len, h.shape[1]))
         return logits, caches
 
     def decode_step(self, caches: Caches, batch: Dict
@@ -206,19 +296,21 @@ class TransformerLM(LMBase):
         cfg = self.cfg
         pos = int(batch["pos"])
         x = self.embed_inputs(batch["token"])
-        for i, blk in enumerate(self.blocks):
-            layer = {n: t[i] for n, t in caches.items()}
+        for blk, is_global, (path, idx) in self._layers:
+            layer = {n: t[idx] for n, t in _node(caches, path).items()}
             h, _ = attn.attn_decode(
                 blk.attn, rms_norm(x, blk.ln1, cfg.norm_eps), layer, pos,
-                cfg, self.is_global)
+                cfg, is_global)
             x = x + h
-            x = x + mlp_apply(blk.mlp, rms_norm(x, blk.ln2, cfg.norm_eps),
-                              cfg.act)
+            x = x + blk.ffn(x, self.moe_impl)[0]
         return self.logits(x), caches
 
     # ------------------------------------------------------------- caches
     def init_caches(self, batch: int, cache_len: int) -> Caches:
-        one = attn.init_cache(self.cfg, batch, cache_len, self.is_global,
-                              self.dtype, self.device)
-        return {n: t.expand(self.cfg.n_layers, *t.shape).clone()
-                for n, t in one.items()}
+        caches: Dict = {}
+        for path, (lead, is_global) in self._stacks.items():
+            one = attn.init_cache(self.cfg, batch, cache_len, is_global,
+                                  self.dtype, self.device)
+            _node(caches, path).update(
+                {n: t.expand(*lead, *t.shape).clone() for n, t in one.items()})
+        return caches

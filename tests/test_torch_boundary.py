@@ -114,3 +114,28 @@ def test_service_entry_points_default_to_the_card(monkeypatch):
         port.run_service(dags, trace, initial=[
             port.PSOGAResult(best_x=plans[0], best_fitness=0.0,
                              best_cost=0.0, feasible=True, iterations=0)])
+
+
+#: the serving families' modules (ROADMAP queue A item 12)
+MODEL_MODULES = ("repro_torch.models.moe", "repro_torch.models.encdec",
+                 "repro_torch.models.transformer",
+                 "repro_torch.models.attention", "repro_torch.launch.serve")
+
+
+@pytest.mark.parametrize("name", MODEL_MODULES)
+def test_model_modules_are_scanned(name):
+    assert PORT.joinpath(*name.split(".")[1:]).with_suffix(".py") in SOURCES
+
+
+def test_model_modules_load_neither_jax_nor_the_reference():
+    """Importing the MoE and enc-dec models and the server in a fresh
+    interpreter leaves ``jax`` and every ``repro`` module unloaded."""
+    code = ("import sys, importlib\n"
+            f"for m in {MODEL_MODULES!r}: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "print(bad); sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300,
+                          env={**os.environ, "PYTHONPATH": str(REPO / "src")})
+    assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -1,9 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions, on a card: the
 replay kernels B1 and B2, the attention kernels B3 and B4, the SSD
-intra-chunk kernel B5, the dense, SSM and hybrid models through them, and
-the comparators (GA, linear-inertia PSO, prePSO) and one re-planning round
-through B1 and B2, and B1's wrapper under two threads at once (as
-``run_services`` drives it).
+intra-chunk kernel B5, every model family through them (the int8 KV cache
+included), the comparators (GA, linear-inertia PSO, prePSO) and one
+re-planning round through B1 and B2, and B1's wrapper under two threads at
+once (as ``run_services`` drives it).
 
 Run where there is one (no JAX needed):
 
@@ -34,6 +34,7 @@ from repro_torch.configs import get
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, schedule_sim, ssd_scan, traffic_sim
+from repro_torch.launch.serve import request_batch
 from repro_torch.models import TransformerLM, build_model
 
 RTOL = 1e-5
@@ -387,6 +388,9 @@ def _randn(shape, dtype, device, seed):
     # rows 191.. of the second q tile see nothing of their first kv tile
     (1, 512, 2, 2, 64, True, 64),
     (1, 700, 1, 2, 128, False, 100),   # bidirectional with a window
+    (8, 2048, 16, 2, 128, True, 1024),  # gemma3-27b's local layers
+    (8, 1500, 16, 1, 64, False, 0),    # whisper-medium's encoder
+    (8, 187, 16, 1, 64, True, 0),      # whisper-medium's decoder prefill
 ])
 def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, b, s, kh, g,
                                             hd, causal, window):
@@ -428,6 +432,9 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, b, s, kh, g,
     (8, 2080, 32, 1, 112, 2048),       # zamba2-7b's serving cache
     (1, 600, 1, 1, 128, 520),          # 8 blocks, the last ones empty
     (1, 600, 1, 6, 64, 599),           # G 6: two head groups of 4
+    (8, 1024, 16, 2, 128, 1024),       # gemma3-27b's full local ring
+    (8, 1532, 16, 1, 64, 1501),        # whisper-medium's self cache
+    (8, 1532, 16, 1, 64, 1532),
 ])
 def test_decode_kernel_matches_plain_on_card(cuda_device, dtype, b, c, kh,
                                              g, hd, valid):
@@ -515,6 +522,50 @@ def test_model_on_card_matches_plain_path(cuda_device):
         outs.append(torch.cat(steps, 1).cpu())
     assert fa.flash_attention_folded.launches - f0 == cfg.n_layers
     assert da.decode_attention_folded.launches - d0 == 3 * cfg.n_layers
+    torch.testing.assert_close(outs[0], outs[1], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,kw", [
+    ("gemma3-27b", {"n_layers": 7}),   # 3 groups and a tail, rings wrap
+    ("mixtral-8x7b", {}), ("arctic-480b", {}), ("internvl2-2b", {}),
+    ("whisper-medium", {}), ("qwen3-0.6b", {"kv_dtype": "int8"}),
+    ("zamba2-7b", {"n_layers": 3, "kv_dtype": "int8"})])
+def test_family_on_card_matches_plain_path(cuda_device, arch, kw):
+    """Every family's reduced float32 model on ``request_batch``'s 40-long
+    prompt (gemma3's past its 32-token window; internvl2's 8 vision
+    embeddings and 32 tokens; whisper's 40 frames and 5 tokens) and 3
+    decode steps through B3 / B4 on the card against the same weights on
+    the CPU plain path: logits to 1e-4, one B3 per attention layer
+    (encoder and decoder) and one B4 per decoder layer and step."""
+    cfg = dataclasses.replace(get(arch).reduced(), **kw)
+    cpu = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    card = build_model(cfg, device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    batch = request_batch(cfg, 2, 40, np.random.default_rng(0))
+    s0 = 40 if cfg.family != "encdec" else batch["tokens"].shape[1]
+    toks = np.random.default_rng(1).integers(0, cfg.vocab, (2, 3))
+    f0, d0 = fa.flash_attention_folded.launches, \
+        da.decode_attention_folded.launches
+    outs = []
+    with torch.inference_mode():
+        for m in (card, cpu):
+            lg, c = m.prefill(batch, cache_len=s0 + 3)
+            steps = [lg]
+            for j in range(3):
+                lg, c = m.decode_step(c, {"token": toks[:, j:j + 1],
+                                          "pos": s0 + j})
+                steps.append(lg)
+            outs.append(torch.cat(steps, 1).cpu())
+    if cfg.family == "encdec":
+        n_b3, n_dec = cfg.enc_layers + cfg.dec_layers, cfg.dec_layers
+    elif cfg.family == "hybrid":
+        n_b3 = n_dec = cfg.n_layers // cfg.hybrid_attn_every
+    else:
+        n_b3 = n_dec = cfg.n_layers
+    assert fa.flash_attention_folded.launches - f0 == n_b3
+    assert da.decode_attention_folded.launches - d0 == 3 * n_dec
     torch.testing.assert_close(outs[0], outs[1], rtol=1e-4, atol=1e-4)
 
 

@@ -29,7 +29,7 @@ from repro.models import param_count as ref_params
 from repro.models import supports_shape as ref_supports
 from repro_torch.configs import SHAPES, get
 from repro_torch.models import (TransformerLM, attn_decode, attn_prefill,
-                                build_model, grow_cache, mlp_apply,
+                                grow_cache, mlp_apply,
                                 model_flops, param_count,
                                 params_from_reference, rms_norm, rope,
                                 supports_shape)
@@ -275,20 +275,6 @@ def test_counts_match_reference(arch):
     for active in (False, True):
         assert param_count(get(arch), active) == ref_params(ref_get(arch),
                                                             active)
-
-
-@pytest.mark.parametrize("arch,what", [
-    ("gemma3-27b", "local:global"), ("mixtral-8x7b", "moe"),
-    ("whisper-medium", "encdec"), ("internvl2-2b", "vlm")])
-def test_unported_families_raise(arch, what):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(get(arch).reduced(), device="cpu")
-
-
-def test_int8_kv_cache_raises():
-    cfg = dataclasses.replace(get("qwen3-0.6b").reduced(), kv_dtype="int8")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TransformerLM(cfg, device="cpu")
 
 
 def test_qwen3_full_width_counts():

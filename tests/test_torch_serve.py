@@ -89,3 +89,17 @@ def test_cli_serves_ssm_and_hybrid_on_the_cpu(arch, capsys):
     serve.main(["--arch", arch, "--reduced", "--device", "cpu", "--batch",
                 "2", "--prompt-len", "8", "--max-new", "3"])
     assert f"[serve] {arch}-smoke on cpu" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["gemma3-27b", "mixtral-8x7b",
+                                  "internvl2-2b", "whisper-medium"])
+def test_cli_serves_the_other_families_on_the_cpu(arch, capsys):
+    """The reference ``main``'s batch for each family: gemma3's local:global
+    groups (a 40-token prompt past the reduced 32-token window), mixtral's
+    experts, internvl2's 8 vision embeddings ahead of 32 tokens, whisper's
+    40 frames and 5 decoder tokens."""
+    serve.main(["--arch", arch, "--reduced", "--device", "cpu", "--batch",
+                "2", "--prompt-len", "40", "--max-new", "3"])
+    out = capsys.readouterr().out
+    assert f"[serve] {arch}-smoke on cpu" in out
+    assert "decode 6 tokens" in out
