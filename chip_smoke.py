@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's planner and LM servers (every model family)
-on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's planner, LM servers (every model family) and
+trainer on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -158,7 +158,26 @@ result line):
                (1024 vision + 276 tokens), whisper with 2 + 2 layers (1500
                frames), qwen3 with 2 layers and the int8 cache (no
                teacher-forced check: the prefill attends unquantized keys);
-               bfloat16 arctic with 1 layer.
+               bfloat16 arctic with 1 layer;
+ 22. train-check — the training route (``loss_fn`` and its backward) on
+               the card against the same route on the CPU, float32 at full
+               width from the same seeded weights and data-stream batch:
+               qwen3-0.6b (2 layers) and mamba2-2.7b (2 blocks) at batch 2
+               x 256, whisper-medium (2 + 2 layers) at 1,500 frames; every
+               gradient finite and within 1e-4 (relative norm) of the
+               CPU's, the loss within 1e-5, no kernel launched;
+ 23. train   — qwen3-0.6b at full width and depth (28 layers, bfloat16)
+               through ``Trainer`` as ``python -m repro_torch.launch.train
+               --steps 8 --batch 4 --seq 4096`` runs it, checkpoints every
+               4 steps and a failure injected before step 6: the loss falls,
+               the step-4 checkpoint restores the parameters and moments
+               bit for bit and step 5 re-runs to the same loss bit for bit,
+               no kernel launched; step ms, tokens/s, 6·N·tokens / step
+               time / 989 TFLOP/s and peak memory printed.
+
+Training runs on none of the hand-written kernels, as the reference trains
+on none of its Pallas kernels: the ``kernels`` line below is the serving
+and planning paths'.
 
 Kernel launch counters are zeroed just before each solve path and each
 counted serve call and read just after; every solve's plans are replayed
@@ -366,6 +385,177 @@ def plain_kernels():
         yield
     finally:
         ops.flash_attention, ops.decode_attention, ops.ssd_intra = saved
+
+
+#: train-check: float32 gradients on the card against the CPU's, the same
+#: weights and batch: ``‖g_cuda − g_cpu‖ ≤ GRAD_RTOL ‖g_cpu‖`` per tensor
+#: (float32 sums in other orders, TF32 off; the CPU parity tests measure
+#: ≤ 4.3e-6 against the reference), the loss to LOSS_RTOL
+GRAD_RTOL = 1e-4
+LOSS_RTOL = 1e-5
+
+
+def free_card():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _kernel_launches():
+    """(B3, B4, B5) launch counters."""
+    from repro_torch.kernels import decode_attention, flash_attention, ssd_scan
+    return (flash_attention.flash_attention_folded.launches,
+            decode_attention.decode_attention_folded.launches,
+            ssd_scan.ssd_intra_folded.launches)
+
+
+def train_check(dev):
+    """train-check: the training route (each model's ``loss_fn``, backward)
+    on the card against the same route on the CPU, from the same seeded
+    float32 weights and batch: qwen3-0.6b with 2 layers, mamba2-2.7b with 2
+    blocks, whisper-medium with 2 + 2 layers, full width, batch 2 of the
+    data stream at sequence 256 (whisper: 1,500 frames, 187 + 1 tokens).
+    Every parameter gets a finite gradient on the card, within GRAD_RTOL of
+    the CPU's; the loss within LOSS_RTOL; no kernel launches."""
+    import dataclasses
+
+    from repro_torch.configs import get
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import make_stream
+    from repro_torch.models import build_model
+    runs = [dataclasses.replace(get("qwen3-0.6b"), n_layers=2),
+            dataclasses.replace(get("mamba2-2.7b"), n_layers=2),
+            dataclasses.replace(get("whisper-medium"), enc_layers=2,
+                                dec_layers=2)]
+    for cfg in runs:
+        cfg = dataclasses.replace(cfg, dtype="float32")
+        seq = 1500 if cfg.family == "encdec" else 256
+        batch = make_stream(cfg, ShapeSpec("train-check", seq, 2,
+                                           "train")).batch(0)
+        t0 = time.perf_counter()
+        card = build_model(cfg, device=dev).init(
+            torch.Generator(device=dev).manual_seed(SEED))
+        host = build_model(cfg, device="cpu")
+        host.load_state_dict({n: t.cpu() for n, t in
+                              card.state_dict().items()})
+        out = {}
+        for tag, model in (("cuda", card), ("cpu", host)):
+            model.requires_grad_(True)
+            before = _kernel_launches()
+            loss, _ = model.loss_fn(batch)
+            loss.backward()
+            if tag == "cuda":
+                torch.cuda.synchronize(dev)
+            assert _kernel_launches() == before, (
+                cfg.name, before, _kernel_launches())
+            out[tag] = (float(loss.detach()), {n: p.grad for n, p in
+                                      model.named_parameters()})
+        (lc, g_card), (lh, g_host) = out["cuda"], out["cpu"]
+        worst, worst_name = 0.0, ""
+        for name, g in g_card.items():
+            assert g is not None, f"{cfg.name}: {name} has no gradient"
+            assert bool(torch.isfinite(g).all()), f"{cfg.name}: {name}"
+            want = g_host[name]
+            rel = float((g.cpu() - want).norm()) / max(float(want.norm()),
+                                                       1e-30)
+            if rel > worst:
+                worst, worst_name = rel, name
+        shapes = {k: v.shape for k, v in batch.items()}
+        depth = f"{cfg.enc_layers} + {cfg.dec_layers}" \
+            if cfg.family == "encdec" else cfg.n_layers
+        print(f"[train-check] {cfg.name}: {depth} layers, batch "
+              f"{shapes}: loss cuda {lc!r} cpu {lh!r} (rel "
+              f"{abs(lc - lh) / abs(lh):.2e}); {len(g_card)} gradients, worst "
+              f"relative norm error {worst:.3e} ({worst_name}); kernel "
+              f"launches 0 ({time.perf_counter() - t0:.1f} s)", flush=True)
+        assert abs(lc - lh) <= LOSS_RTOL * abs(lh), (cfg.name, lc, lh)
+        assert worst <= GRAD_RTOL, (cfg.name, worst_name, worst)
+        del card, host, out, g_card, g_host
+        free_card()
+
+
+def train_run(dev):
+    """train: qwen3-0.6b at full width and depth, bfloat16, through
+    ``Trainer`` exactly as ``python -m repro_torch.launch.train --arch
+    qwen3-0.6b --steps 8 --batch 4 --seq 4096 --ckpt-every 4 --fail-at 6
+    --log-every 1 --ckpt-dir DIR`` runs it (train_4k's sequence, its global
+    batch cut from 256 to 4 for one card). The failure before step 6
+    restores the step-4 checkpoint and re-runs steps 5-7. Asserts: the
+    loss falls (step 7 below step 0); the first re-run step (5) has the
+    first pass's loss bit for bit, since it depends only on the restored
+    state; the restored bfloat16 parameters, float32 moments and step
+    count equal the ones entering step 5 in the first pass bit for bit; no
+    kernel launches. Prints step ms (median after the first step),
+    tokens/s, 6·N·tokens / step time / 989 TFLOP/s and peak memory."""
+    import tempfile
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import model_flops, param_count
+    free_card()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with tempfile.TemporaryDirectory() as ckpt:
+        args = train_cli.parse_args([
+            "--arch", "qwen3-0.6b", "--steps", "8", "--batch", "4",
+            "--seq", "4096", "--ckpt-dir", ckpt, "--ckpt-every", "4",
+            "--fail-at", "6", "--log-every", "1"])
+        trainer = train_cli.trainer_from_args(args)
+        cfg = trainer.cfg
+        n_par = sum(p.numel() for p in trainer.params.values())
+        print(f"[train] {cfg.name}: {cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}, {cfg.dtype}, remat {cfg.remat}, ce_chunk "
+              f"{cfg.ce_chunk}, {n_par} parameters; batch {args.batch} x "
+              f"{args.seq}", flush=True)
+        entering5 = []            # the state entering step 5, each time
+
+        def on_step(step, opt):
+            if step == 5:
+                entering5.append([{n: t.detach().to("cpu", copy=True)
+                                   for n, t in tensors.items()}
+                                  for tensors in (trainer.params, opt.mu,
+                                                  opt.nu,
+                                                  {"count": opt.count})])
+
+        before = _kernel_launches()
+        t0 = time.perf_counter()
+        out = trainer.train(on_step=on_step)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        assert _kernel_launches() == before, (before, _kernel_launches())
+    recs = out["metrics"]
+    steps = [r["step"] for r in recs]
+    print(f"[train] steps run {steps}, final step {out['final_step']}, "
+          f"stragglers {out['stragglers']}, wall {wall:.1f} s (checkpoints "
+          f"and the restore included)", flush=True)
+    assert out["final_step"] == 7 and steps == [0, 1, 2, 3, 4, 5, 5, 6, 7], \
+        steps
+    first, rerun = recs[5], recs[6]
+    print(f"[train] step 5 loss first pass {first['loss']!r}, after the "
+          f"restore {rerun['loss']!r}; grad norm {first['grad_norm']!r} / "
+          f"{rerun['grad_norm']!r}", flush=True)
+    assert rerun["loss"] == first["loss"], (first, rerun)
+    assert len(entering5) == 2, len(entering5)
+
+    def bits(t):                  # bfloat16 and float32 as their words
+        return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+    for saved, restored in zip(*entering5):
+        for n, t in saved.items():
+            assert torch.equal(bits(t), bits(restored[n])), n
+    assert recs[-1]["loss"] < recs[0]["loss"], (recs[0], recs[-1])
+    dts = sorted(r["dt"] for r in recs[1:])
+    step_s = dts[len(dts) // 2]
+    tokens = args.batch * args.seq
+    shape = ShapeSpec("train_4k, batch cut to 4", args.seq, args.batch,
+                      "train")
+    flops = model_flops(cfg, shape)
+    print(f"[train] losses {[round(r['loss'], 4) for r in recs]}", flush=True)
+    print(f"[train] step {1e3 * step_s:.1f} ms (median of {len(dts)} steps "
+          f"after the first; all {[round(1e3 * d, 1) for d in dts]}), "
+          f"{tokens / step_s:.0f} tokens/s, 6*N*tokens / step time / 989 "
+          f"TFLOP/s = {flops / step_s / BF16_OPS_PER_S:.4f} (N = "
+          f"{param_count(cfg, active_only=True) - cfg.vocab * cfg.d_model} "
+          f"non-embedding parameters), peak device memory "
+          f"{peak / 1e9:.3f} GB; restored state bit for bit", flush=True)
+    print(f"[train] card: {smi_field('name,power.limit')}", flush=True)
 
 
 def main() -> int:
@@ -1891,6 +2081,12 @@ def main() -> int:
         serve_check([dataclasses.replace(qwen, n_layers=2, kv_dtype="int8")])
         serve_check([dataclasses.replace(arctic, n_layers=1)], "bfloat16")
     _phase("serve-check-families", serve_check_families, failures)
+
+    # 22. train-check: the training route's gradients, card against CPU ---
+    _phase("train-check", train_check, failures, dev)
+
+    # 23. train: qwen3-0.6b at full width and depth through Trainer --------
+    _phase("train", train_run, failures, dev)
 
     jax_loaded = "jax" in sys.modules
     print(f"[imports] jax loaded: {jax_loaded}")

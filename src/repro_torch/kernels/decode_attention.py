@@ -24,6 +24,8 @@ batch, 1 <= valid_len <= C. The output has q's shape and dtype.
 ``decode_attention_folded`` picks by the tensors' device: plain on the
 CPU, the kernel on CUDA, where it raises on anything the kernel does not
 take. Its ``launches`` attribute counts kernel launches (one per call).
+It refuses inputs that require grad while grad mode is on
+(``flash_attention.refuse_grad``): the kernel has no backward.
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ from typing import Optional
 import torch
 
 from .flash_attention import (DTYPE_CODES, HEAD_DIMS, NEG_INF,
-                              check_operand)
+                              check_operand, refuse_grad)
 
 __all__ = ["decode_attention_folded", "decode_attention_plain",
            "decode_split"]
@@ -115,6 +117,7 @@ def decode_attention_folded(q: torch.Tensor, k: torch.Tensor,
     """Decode attention over the folded (or row-split) layout: the plain
     version on the CPU, the kernel on CUDA (or it raises). ``splits``
     overrides the kernel's blocks per row (``decode_split``)."""
+    refuse_grad("decode_attention_folded", q, k, v)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, valid_len)
     if q.device.type != "cuda":

@@ -22,7 +22,10 @@ without a copy. The output has q's shape and dtype (float32 or bfloat16).
 
 ``flash_attention_folded`` picks by the tensors' device: plain on the CPU,
 the kernel on CUDA, where it raises on anything the kernel does not take.
-Its ``launches`` attribute counts kernel launches.
+Its ``launches`` attribute counts kernel launches. The kernel has no
+backward (nor has the reference's), so on either device it refuses inputs
+that require grad while grad mode is on (``refuse_grad``): training takes
+the models' differentiable route instead.
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ import ctypes
 import torch
 
 __all__ = ["flash_attention_folded", "flash_attention_plain", "NEG_INF",
-           "HEAD_DIMS"]
+           "HEAD_DIMS", "refuse_grad"]
 
 #: the reference's large-but-finite mask value
 NEG_INF = -2.0 ** 30
@@ -41,6 +44,19 @@ NEG_INF = -2.0 ** 30
 HEAD_DIMS = (16, 64, 112, 128, 256)
 #: the dtypes the kernels take, with the code their C entry points use
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise if grad mode is on and any of ``tensors`` requires grad: a
+    kernel's launch is invisible to autograd, so its inputs would get no
+    gradient, silently (the CPU's plain version would give one, so this
+    holds on both devices)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward: autograd records nothing for its "
+            f"kernel, so its inputs would get no gradient. Train through "
+            f"the models' loss_fn, whose forward(train=True) takes the "
+            f"differentiable route, or call it under torch.no_grad()")
 
 
 def _split(q, k, v):
@@ -89,6 +105,7 @@ def flash_attention_folded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            *, causal: bool, window: int) -> torch.Tensor:
     """Prefill attention over the folded (or row-split) layout: the plain
     version on the CPU, the kernel on CUDA (or it raises)."""
+    refuse_grad("flash_attention_folded", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":

@@ -16,7 +16,8 @@ CPU.
 ``ssd_intra_plain`` is the same function in plain PyTorch, after
 ``repro/kernels/ref.py::ssd_intra_ref``: a lower-triangular ``where`` (never
 a multiplication by a mask: above the diagonal ``exp`` may be inf), then
-two contractions. The CPU path and the checks on the card use it.
+two contractions. The CPU path, the checks on the card and the models'
+training route (which differentiates it) use it.
 
 Both take the reference's folded layout, all float32: ``xc (BC, Q, H, P)``,
 ``cum (BC, Q, H)`` (the inclusive cumsum of the log-decay within each
@@ -27,13 +28,18 @@ multiples of 4 up to 128.
 
 ``ssd_intra_folded`` picks by the tensors' device: plain on the CPU, the
 kernel on CUDA, where it raises on anything the kernel does not take. Its
-``launches`` attribute counts kernel launches.
+``launches`` attribute counts kernel launches. Like the attention kernels
+it refuses inputs that require grad while grad mode is on
+(``flash_attention.refuse_grad``): ``models.ssm`` trains on the plain
+form.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+
+from .flash_attention import refuse_grad
 
 __all__ = ["ssd_intra_folded", "ssd_intra_plain", "check_aligned"]
 
@@ -84,7 +90,12 @@ def ssd_intra_plain(xc: torch.Tensor, cum: torch.Tensor, Bc: torch.Tensor,
     li = cum[:, :, None, :]                               # (bc, i, 1, h)
     lj = cum[:, None, :, :]                               # (bc, 1, j, h)
     mask = torch.ones((q, q), dtype=torch.bool, device=xc.device).tril()
-    decay = torch.where(mask[None, :, :, None], torch.exp(li - lj), 0.0)
+    mask = mask[None, :, :, None]
+    # the exponent is masked as well: where exp overflows above the
+    # diagonal, its backward would multiply inf by the zero gradient there
+    # (NaN, as the reference's einsum form gives); the values are the same
+    decay = torch.where(mask, torch.exp(torch.where(mask, li - lj, 0.0)),
+                        0.0)
     scores = torch.einsum("bin,bjn->bij", Cc, Bc)
     return torch.einsum("bijh,bjhp->bihp", scores[..., None] * decay, xc)
 
@@ -93,6 +104,7 @@ def ssd_intra_folded(xc: torch.Tensor, cum: torch.Tensor, Bc: torch.Tensor,
                      Cc: torch.Tensor) -> torch.Tensor:
     """The intra-chunk form over the folded layout: the plain version on
     the CPU, the kernel on CUDA (or it raises)."""
+    refuse_grad("ssd_intra_folded", xc, cum, Bc, Cc)
     _check(xc, cum, Bc, Cc)
     if xc.device.type == "cpu":
         return ssd_intra_plain(xc, cum, Bc, Cc)

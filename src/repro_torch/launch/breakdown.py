@@ -1,10 +1,12 @@
-"""Where a planning solve's or a served batch's time goes on the card:
-host wall clock, device kernel time by name (``torch.profiler``), and the
-share of the wall during which the device ran no kernel.
+"""Where a planning solve's, a served batch's or a train step's time goes
+on the card: host wall clock, device kernel time by name
+(``torch.profiler``), and the share of the wall during which the device
+ran no kernel.
 
     PYTHONPATH=src python -m repro_torch.launch.breakdown [--traffic bursty]
     PYTHONPATH=src python -m repro_torch.launch.breakdown --serve \
         [--arch mamba2-2.7b | zamba2-7b | gemma3-27b | ...]
+    PYTHONPATH=src python -m repro_torch.launch.breakdown --train
 
 Profiles two solves after a warm-up of each: the qwen3-0.6b serving plan
 (``launch/plan.py``'s settings) and the paper's Fig. 8 problem at the
@@ -17,8 +19,11 @@ after it (``launch/serve.py``, seeded weights, full width and depth) for
 Mamba2 prefill through B5; the VLM's prompt is its 1,024 vision
 embeddings and 1,024 tokens, whisper's 1,500 frames and 187 tokens;
 models that do not fit the card at full depth, mixtral-8x7b and
-arctic-480b, do not fit here either). Prints one JSON line per profiled
-run; chrome traces go to ``--trace-dir`` when given.
+arctic-480b, do not fit here either). ``--train`` profiles one train step
+(forward, backward and AdamW through ``launch.steps.make_train_objects``,
+seeded weights, full width and depth) of ``--arch`` at ``chip_smoke.py``'s
+train shape, batch 4 x 4,096 tokens of the data stream. Prints one JSON
+line per profiled run; chrome traces go to ``--trace-dir`` when given.
 """
 from __future__ import annotations
 
@@ -131,6 +136,31 @@ def profile_serve(arch: str, trace_dir: Optional[Path]) -> None:
                              trace_dir)))
 
 
+#: the train step's shape: train_4k's sequence, its batch cut to 4
+TRAIN_BATCH, TRAIN_SEQ = 4, 4096
+
+
+def profile_train(arch: str, trace_dir: Optional[Path]) -> None:
+    """One train step of ``arch`` after a warm-up step."""
+    from ..configs.base import ShapeSpec
+    from ..data import make_stream
+    from ..optim import AdamWConfig, adamw_init
+    from .steps import make_train_objects
+    cfg = get(arch)
+    shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    model, step, _ = make_train_objects(cfg, shape, AdamWConfig())
+    model.init(torch.Generator(device=model.device).manual_seed(0))
+    state = {"opt": adamw_init(dict(model.named_parameters()))}
+    batch = make_stream(cfg, shape).batch(0)
+
+    def run():
+        state["opt"], m = step(state["opt"], batch)
+        float(m["loss"])
+
+    print(json.dumps(profile(f"train-{arch}-b{TRAIN_BATCH}-s{TRAIN_SEQ}",
+                             run, trace_dir)))
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="qwen3-0.6b",
@@ -143,6 +173,8 @@ def main(argv=None) -> None:
     ap.add_argument("--serve", action="store_true",
                     help="profile the LM server's prefill and decode "
                          "instead of the planner")
+    ap.add_argument("--train", action="store_true",
+                    help="profile one train step instead of the planner")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("breakdown measures the card: no CUDA device")
@@ -152,6 +184,9 @@ def main(argv=None) -> None:
     print(f"[breakdown] {smi} torch {torch.__version__}")
     if args.serve:
         profile_serve(args.arch, args.trace_dir)
+        return
+    if args.train:
+        profile_train(args.arch, args.trace_dir)
         return
 
     cfg, env = get(args.arch), tpu_fleet_environment()

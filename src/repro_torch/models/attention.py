@@ -17,6 +17,12 @@ runs outside any kernel, in the reference as in the port:
 ``_chunked_attention`` is the reference's chunked online softmax in plain
 PyTorch, its probabilities cast to the value dtype before P·V as there.
 
+Training takes the reference's XLA path, which is differentiable:
+``attn_prefill(..., train=True)`` runs ``_chunked_attention`` with the
+reference's triangular (causal) or banded (sliding-window) chunk schedule
+instead of B3, which autograd cannot see through. Only the models'
+``loss_fn`` passes ``train=True``; serving never does.
+
 Caches are ``{"k", "v"}`` of shape (B, C, K, hd) holding roped keys, or
 with ``cfg.kv_dtype == "int8"`` ``{"k", "k_s", "v", "v_s"}``: int8 values
 with float32 per-(token, head) scales of shape (B, C, K, 1).
@@ -62,28 +68,49 @@ def _project_qkv(p: Mapping[str, torch.Tensor], x: torch.Tensor,
 
 
 def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool = False, window: int = 0,
                        q_chunk: int = 1024, kv_chunk: int = 1024
                        ) -> torch.Tensor:
-    """Unmasked attention, q: (B,S,K,G,hd), k/v: (B,Sk,K,hd) -> float32
-    (B,S,K,G,hd): the reference's ``_chunked_attention`` (causal False, no
-    window), its fp32 running (max, sum, acc) over kv chunks."""
+    """q: (B,S,K,G,hd), k/v: (B,Sk,K,hd) -> float32 (B,S,K,G,hd): the
+    reference's ``_chunked_attention``, its fp32 running (max, sum, acc)
+    over kv chunks. A query chunk visits only the kv chunks at or below its
+    diagonal (``causal``) and within ``window`` of it; masked scores are
+    ``NEG_INF``. The probabilities are cast to the value dtype before P·V,
+    as the reference's XLA path does."""
     b, s, kh, g, hd = q.shape
     sk = k.shape[1]
+    if (causal or window) and sk != s:
+        raise ValueError("causal or local attention needs equal q and kv "
+                         f"lengths, got {s} and {sk}")
     scale = hd ** -0.5
     q_chunk, kv_chunk = min(q_chunk, s), min(kv_chunk, sk)
     outs = []
     for q0 in range(0, s, q_chunk):
-        qi = q[:, q0:q0 + q_chunk]
-        qlen = qi.shape[1]
+        q1 = min(q0 + q_chunk, s)
+        qi = q[:, q0:q1]
+        qlen = q1 - q0
         m = torch.full((b, kh, g, qlen), NEG_INF, dtype=torch.float32,
                        device=q.device)
         l = torch.zeros((b, kh, g, qlen), dtype=torch.float32,
                         device=q.device)
         acc = torch.zeros((b, qlen, kh, g, hd), dtype=torch.float32,
                           device=q.device)
-        for k0 in range(0, sk, kv_chunk):
-            kj, vj = k[:, k0:k0 + kv_chunk], v[:, k0:k0 + kv_chunk]
+        hi = q1 if causal else sk
+        lo = max(0, q0 - window + 1) if window else 0
+        for j in range(lo // kv_chunk, -(-hi // kv_chunk)):
+            k0, k1 = j * kv_chunk, min((j + 1) * kv_chunk, sk)
+            kj, vj = k[:, k0:k1], v[:, k0:k1]
             sc = torch.einsum("bqkgd,bckd->bkgqc", qi, kj).float() * scale
+            if causal or window:
+                qpos = torch.arange(q0, q1, device=q.device)[:, None]
+                kpos = torch.arange(k0, k1, device=q.device)[None, :]
+                ok = torch.ones((qlen, k1 - k0), dtype=torch.bool,
+                                device=q.device)
+                if causal:
+                    ok = ok & (kpos <= qpos)
+                if window:
+                    ok = ok & (kpos > qpos - window)
+                sc = torch.where(ok, sc, NEG_INF)
             m_new = torch.maximum(m, sc.amax(dim=-1))
             pr = torch.exp(sc - m_new[..., None])
             corr = torch.exp(m - m_new)
@@ -113,17 +140,20 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
 
 def attn_prefill(p: Mapping[str, torch.Tensor], x: torch.Tensor,
                  positions: torch.Tensor, cfg: ModelConfig, is_global: bool,
-                 with_cache: bool = False, causal: bool = True
+                 with_cache: bool = False, causal: bool = True,
+                 train: bool = False
                  ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """Causal (or sliding-window, or bidirectional) self-attention over a
     full sequence. Returns (out (B,S,D), cache or None); a sliding-window
-    layer's cache keeps the last ``window`` roped keys and values."""
+    layer's cache keeps the last ``window`` roped keys and values. B3 runs
+    it, or with ``train`` the differentiable ``_chunked_attention``."""
     b, s, _ = x.shape
     h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = _project_qkv(p, x, positions, cfg)
     window = 0 if is_global else cfg.window
-    out = kops.flash_attention(q.reshape(b, s, kh, h // kh, hd), k, v,
-                               causal=causal, window=window)
+    attend = _chunked_attention if train else kops.flash_attention
+    out = attend(q.reshape(b, s, kh, h // kh, hd), k, v, causal=causal,
+                 window=window)
     out = out.reshape(b, s, h, hd).to(x.dtype)
     y = torch.einsum("bshq,hqd->bsd", out, p["wo"])
     cache = None

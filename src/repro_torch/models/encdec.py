@@ -15,7 +15,10 @@ the reference: ``attention.cross_attn_apply``). Its head is ``embed.T``.
 Parameters, in the reference's names (``models.convert`` maps its
 pytree): ``enc_blocks.<i>.{ln1, attn.*, ln2, mlp.*}``, ``enc_norm``,
 ``dec_blocks.<i>.{ln1, attn.*, ln_x, xattn.*, ln2, mlp.*}``, ``dec_norm``,
-``embed (vocab, d)`` and ``dec_pos``. Caches are ``{"self": {"k", "v"}
+``embed (vocab, d)`` and ``dec_pos``. ``loss_fn`` runs the encoder and the
+decoder on the differentiable route (``train=True``: the chunked
+attention, bidirectional in the encoder, in place of B3), each layer a
+``torch.utils.checkpoint`` region when ``cfg.remat``. Caches are ``{"self": {"k", "v"}
 (L, B, C, K, hd), "cross": {"k", "v"} (L, B, S_enc, K, hd)}``; the cross
 keys and values are computed once, in the prefill.
 """
@@ -29,7 +32,7 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..core.device import resolve_device
 from . import attention as attn
-from .layers import DTYPES, embed_init, rms_norm
+from .layers import DTYPES, cross_entropy, embed_init, remat, rms_norm
 from .transformer import DenseBlock, _param
 
 __all__ = ["EncDecLM", "CROSS_FRAMES"]
@@ -102,7 +105,15 @@ class EncDecLM(nn.Module):
         return self
 
     # ------------------------------------------------------------ encoder
-    def encode(self, audio_embeds) -> torch.Tensor:
+    def _enc_block(self, blk: DenseBlock, x: torch.Tensor,
+                   positions: torch.Tensor, train: bool) -> torch.Tensor:
+        h, _ = attn.attn_prefill(
+            blk.attn, rms_norm(x, blk.ln1, self.cfg.norm_eps), positions,
+            self.cfg, True, False, causal=False, train=train)  # bidirectional
+        x = x + h
+        return x + blk.ffn(x)[0]
+
+    def encode(self, audio_embeds, train: bool = False) -> torch.Tensor:
         """(B, S_enc, d) frame embeddings (any float array) -> the normed
         encoder output."""
         cfg = self.cfg
@@ -111,12 +122,9 @@ class EncDecLM(nn.Module):
         x = x + _sinusoid(s, d, self.dtype, self.device)
         positions = torch.arange(s, dtype=torch.int32,
                                  device=self.device).expand(b, s)
+        block = remat(self._enc_block, train and cfg.remat)
         for blk in self.enc_blocks:
-            h, _ = attn.attn_prefill(
-                blk.attn, rms_norm(x, blk.ln1, cfg.norm_eps), positions, cfg,
-                True, False, causal=False)                  # bidirectional
-            x = x + h
-            x = x + blk.ffn(x)[0]
+            x = block(blk, x, positions, train)
         return rms_norm(x, self.enc_norm, cfg.norm_eps)
 
     def cross_caches(self, enc_out: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -138,7 +146,7 @@ class EncDecLM(nn.Module):
         return x + blk.ffn(x)[0]
 
     def decode_seq(self, tokens, cross: Dict[str, torch.Tensor],
-                   with_cache: bool = False
+                   with_cache: bool = False, train: bool = False
                    ) -> Tuple[torch.Tensor, Optional[Dict]]:
         """The decoder over a token sequence against the stacked cross keys
         and values ``cross``: (normed hidden (B,S,D), self caches (L, B, S,
@@ -150,10 +158,11 @@ class EncDecLM(nn.Module):
         positions = torch.arange(s, dtype=torch.int32,
                                  device=self.device).expand(b, s)
         caches: Optional[Dict] = {} if with_cache else None
+        block = remat(self._dec_block, train and cfg.remat)
         for i, blk in enumerate(self.dec_blocks):
             def attend(p, xn):
                 h, c = attn.attn_prefill(p, xn, positions, cfg, True,
-                                         with_cache)
+                                         with_cache, train=train)
                 if with_cache:
                     for n, t in c.items():
                         if n not in caches:
@@ -161,8 +170,21 @@ class EncDecLM(nn.Module):
                                                      *t.shape))
                         caches[n][i] = t
                 return h
-            x = self._dec_block(blk, x, cross["k"][i], cross["v"][i], attend)
+            x = block(blk, x, cross["k"][i], cross["v"][i], attend)
         return rms_norm(x, self.dec_norm, cfg.norm_eps), caches
+
+    # --------------------------------------------------------------- loss
+    def loss_fn(self, batch: Dict
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """batch: {"audio_embeds" (B, S_enc, d), "tokens" (B, S+1)}: the
+        decoder's next-token cross entropy through the differentiable
+        route, its head ``embed.T``. Returns (loss, {"ce": loss})."""
+        tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        cross = self.cross_caches(self.encode(batch["audio_embeds"],
+                                              train=True))
+        h, _ = self.decode_seq(tokens[:, :-1], cross, train=True)
+        loss = cross_entropy(h @ self.embed.T, tokens[:, 1:])
+        return loss, {"ce": loss}
 
     # ------------------------------------------------------------ serving
     def prefill(self, batch: Dict, cache_len: Optional[int] = None

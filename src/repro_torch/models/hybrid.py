@@ -11,11 +11,16 @@ mamba2 blocks::
 
 Both heads multiply by ``embed.T`` whatever ``tie_embeddings`` says, as the
 reference does (``LMBase``'s tied head). Plain Python loops over the blocks stand in for the
-reference's ``scan_blocks``; parameters do not require gradients (this
-slice serves). The methods are ``TransformerLM``'s, so ``launch.serve``
-drives every family alike: ``init(gen)``, ``forward(batch, with_cache)``,
-``prefill(batch, cache_len)``, ``decode_step(caches, {"token", "pos"})``,
-``init_caches(batch, cache_len)``.
+reference's ``scan_blocks``; parameters are built with
+``requires_grad=False``, as ``TransformerLM``'s. The methods are
+``TransformerLM``'s, so ``launch.serve`` and ``launch.train`` drive every
+family alike: ``init(gen)``, ``forward(batch, with_cache, train)``,
+``loss_fn(batch)``, ``prefill(batch, cache_len)``,
+``decode_step(caches, {"token", "pos"})``, ``init_caches(batch,
+cache_len)``. ``loss_fn`` takes the differentiable route
+(``forward(train=True)``: the einsum intra-chunk form and the chunked
+attention in place of B5 and B3), each block (and shared-attention site) a
+``torch.utils.checkpoint`` region when ``cfg.remat``.
 
 State-dict names follow the reference's pytree (``models.convert`` maps it):
 ``blocks.<i>.{ln, mamba.<name>}`` (MambaLM); ``groups.<g>.<l>.{ln,
@@ -40,7 +45,7 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from . import attention as attn
-from .layers import mlp_apply, rms_norm
+from .layers import cross_entropy, mlp_apply, remat, rms_norm
 from .ssm import init_ssm_state, mamba_decode, mamba_init, mamba_seq
 from .transformer import DenseBlock, LMBase, _param
 
@@ -77,9 +82,11 @@ class MambaBlock(nn.Module):
         for name, t in mamba_init(gen, self.cfg, self.ln.dtype).items():
             self.mamba[name].copy_(t)
 
-    def seq(self, x: torch.Tensor) -> Tuple[torch.Tensor, States]:
+    def seq(self, x: torch.Tensor, train: bool = False
+            ) -> Tuple[torch.Tensor, States]:
         cfg = self.cfg
-        y, st = mamba_seq(self.mamba, rms_norm(x, self.ln, cfg.norm_eps), cfg)
+        y, st = mamba_seq(self.mamba, rms_norm(x, self.ln, cfg.norm_eps), cfg,
+                          train=train)
         return x + y, st
 
     def step(self, x: torch.Tensor, conv: torch.Tensor, ssm: torch.Tensor
@@ -107,6 +114,15 @@ def _ssm_zeros(cfg: ModelConfig, batch: int, lead: Tuple[int, ...],
             ssm.expand(*lead, *ssm.shape).clone())
 
 
+def _lm_loss(model: LMBase, batch: Dict):
+    """The SSM and hybrid loss: cross entropy of the tied head's logits
+    (``cfg.ce_chunk`` is not read, as in the reference)."""
+    tokens = model.tokens(batch)
+    h, _ = model.forward({"tokens": tokens[:, :-1]}, train=True)
+    loss = cross_entropy(model.logits(h), tokens[:, 1:])
+    return loss, {"ce": loss}
+
+
 class MambaLM(LMBase):
     """cfg.family == "ssm"."""
 
@@ -123,16 +139,23 @@ class MambaLM(LMBase):
             blk.init(gen)
         return self
 
-    def forward(self, batch: Dict, with_cache: bool = False
+    def forward(self, batch: Dict, with_cache: bool = False,
+                train: bool = False
                 ) -> Tuple[torch.Tensor, Optional[States]]:
         """Returns (hidden (B,S,D), stacked (conv, ssm) states or None)."""
         x = self.embed_inputs(batch["tokens"])
         states = self.init_caches(x.shape[0], 0) if with_cache else None
         for i, blk in enumerate(self.blocks):
-            x, st = blk.seq(x)
+            x, st = remat(blk.seq, train and self.cfg.remat)(x, train)
             if with_cache:
                 _put(states, i, st)
         return x, states
+
+    def loss_fn(self, batch: Dict
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Next-token cross entropy over ``batch["tokens"]`` (B, S+1),
+        through the differentiable route: (loss, {"ce": loss})."""
+        return _lm_loss(self, batch)
 
     def prefill(self, batch: Dict, cache_len: Optional[int] = None
                 ) -> Tuple[torch.Tensor, States]:
@@ -185,39 +208,53 @@ class Zamba2LM(LMBase):
         self.shared_attn.init(gen)
         return self
 
+    def _site(self, x: torch.Tensor, positions: torch.Tensor,
+              with_cache: bool, train: bool):
+        """The shared attention + MLP block at one site: (x, its cache or
+        None)."""
+        cfg, p = self.cfg, self.shared_attn
+        h, kv = attn.attn_prefill(
+            p.attn, rms_norm(x, p.ln1, cfg.norm_eps), positions, cfg, True,
+            with_cache, train=train)
+        x = x + h
+        return x + mlp_apply(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps),
+                             cfg.act), kv
+
     def forward(self, batch: Dict, with_cache: bool = False,
-                cache_len: Optional[int] = None
+                cache_len: Optional[int] = None, train: bool = False
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
         """Returns (hidden (B,S,D), caches or None). The caches hold every
         mamba block's states and every site's KV cache of
         ``max(cache_len, S)`` slots, the prompt's keys and values first and
         zeros after (the reference grows its caches after the prefill)."""
-        cfg, p = self.cfg, self.shared_attn
         x = self.embed_inputs(batch["tokens"])
         b, s, _ = x.shape
         positions = torch.arange(s, dtype=torch.int32,
                                  device=self.device).expand(b, s)
         caches = self.init_caches(b, max(cache_len or s, s)) \
             if with_cache else None
+        on = train and self.cfg.remat
+        site = remat(self._site, on)
         for g, group in enumerate(self.groups):
             for l, blk in enumerate(group):
-                x, st = blk.seq(x)
+                x, st = remat(blk.seq, on)(x, train)
                 if with_cache:
                     _put(caches["mamba"], (g, l), st)
-            h, kv = attn.attn_prefill(
-                p.attn, rms_norm(x, p.ln1, cfg.norm_eps), positions, cfg,
-                True, with_cache)
-            x = x + h
-            x = x + mlp_apply(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps),
-                              cfg.act)
+            x, kv = site(x, positions, with_cache, train)
             if with_cache:
                 for n, t in kv.items():
                     caches["attn"][n][g, :, :s] = t
         for t, blk in enumerate(self.tail):
-            x, st = blk.seq(x)
+            x, st = remat(blk.seq, on)(x, train)
             if with_cache:
                 _put(caches["tail"], t, st)
         return x, caches
+
+    def loss_fn(self, batch: Dict
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Next-token cross entropy over ``batch["tokens"]`` (B, S+1),
+        through the differentiable route: (loss, {"ce": loss})."""
+        return _lm_loss(self, batch)
 
     def prefill(self, batch: Dict, cache_len: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Dict]:

@@ -8,8 +8,13 @@ numbers than ``jax.random`` from the same seed, so parity tests load the
 reference's parameters instead (``models.convert``). A tensor of more than ``DRAW_SLICE`` elements is
 drawn in slices along its leading axis, so that its float32 draw never
 needs a second copy of the whole (arctic-480b's expert banks hold 4.5 G
-elements each). The training helpers (``cross_entropy``, ``chunked_ce``)
-come with the training slice.
+elements each).
+
+The losses are the reference's: ``cross_entropy`` (token-mean, float32,
+z-loss 1e-4, optional mask) and ``chunked_ce``, which never holds more than
+one sequence chunk's float32 logits: each chunk is a
+``torch.utils.checkpoint`` region, so its logits are recomputed in the
+backward pass, as the reference's ``jax.checkpoint`` body does.
 """
 from __future__ import annotations
 
@@ -19,9 +24,11 @@ from typing import Mapping, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 __all__ = ["rms_norm", "rope", "mlp_apply", "mlp_params", "init_mlp",
-           "he_init", "dense_init", "embed_init", "DTYPES", "DRAW_SLICE"]
+           "he_init", "dense_init", "embed_init", "cross_entropy",
+           "chunked_ce", "remat", "DTYPES", "DRAW_SLICE"]
 
 #: ``ModelConfig.dtype`` names
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -117,3 +124,67 @@ def mlp_apply(p: Mapping[str, torch.Tensor], x: torch.Tensor, act: str
     else:
         raise ValueError(f"unknown act {act}")
     return h @ p["wo"]
+
+
+def _token_loss(logits: torch.Tensor, labels: torch.Tensor,
+                z_loss: float) -> torch.Tensor:
+    """Per-token ``logsumexp - gold (+ z_loss · lse²)`` in float32."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels[..., None].long())[..., 0]
+    loss = lse - gold
+    if z_loss:
+        loss = loss + z_loss * lse.square()
+    return loss
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None,
+                  z_loss: float = 1e-4) -> torch.Tensor:
+    """Token-mean cross entropy in float32 with a z-loss (stabilises large
+    vocabularies); with ``mask``, the mean over the masked-in tokens."""
+    loss = _token_loss(logits, labels, z_loss)
+    if mask is not None:
+        loss = loss * mask
+        return loss.sum() / torch.clamp_min(mask.sum(), 1.0)
+    return loss.mean()
+
+
+def chunked_ce(h: torch.Tensor, unembed: torch.Tensor, labels: torch.Tensor,
+               n_chunks: int, z_loss: float = 1e-4) -> torch.Tensor:
+    """Sequence-chunked cross entropy: the (B, S, V) float32 logits are
+    never held whole. h: (B, S, D) final hidden states; unembed: (D, V);
+    labels: (B, S). A ragged sequence is padded to ``n_chunks`` equal
+    chunks and the padded rows are masked out (they get zero gradient).
+    The sum over chunks is divided by ``B · S``."""
+    b, s, _ = h.shape
+    n_chunks = max(1, min(n_chunks, s))
+    pad = (-s) % n_chunks
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+    q = (s + pad) // n_chunks
+    valid = (torch.arange(s + pad, device=h.device) < s).reshape(n_chunks, q)
+
+    def body(h_i, l_i, v_i):
+        loss = _token_loss(h_i @ unembed, l_i, z_loss)
+        return torch.where(v_i[None, :], loss, 0.0).sum()
+
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(n_chunks):
+        sl = slice(c * q, (c + 1) * q)
+        total = total + checkpoint(body, h[:, sl], labels[:, sl], valid[c],
+                                   use_reentrant=False,
+                                   preserve_rng_state=False)
+    return total / (b * s)
+
+
+def remat(fn, enabled: bool):
+    """``fn`` as a ``torch.utils.checkpoint`` region when ``enabled`` (its
+    activations are recomputed in the backward pass; ``cfg.remat``), else
+    ``fn`` itself. Nothing in a model draws random numbers, so the RNG
+    state is not saved for the recompute."""
+    if not enabled:
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False,
+                                    preserve_rng_state=False)

@@ -5,19 +5,25 @@
 and VLM families (``TransformerLM``), the SSM family (``MambaLM``), the
 hybrid (``Zamba2LM``) and the enc-dec model (``EncDecLM``).
 ``supports_shape``, ``skip_reason``, ``param_count`` and
-``model_flops`` are plain Python, copied from the reference. The
-reference's ``input_specs``/``batch_pspecs`` describe inputs for XLA's
-ahead-of-time lowering and sharding and have no counterpart here.
+``model_flops`` are plain Python, copied from the reference.
+``input_specs`` gives the inputs of the step a shape exercises as tensors
+on the ``meta`` device (shapes and dtypes, no storage), where the
+reference gives ``jax.ShapeDtypeStruct``s; ``batch_pspecs`` (their
+shardings) waits for ROADMAP queue A item 13.
 """
 from __future__ import annotations
+
+from typing import Dict
+
+import torch
 
 from ..configs.base import ModelConfig, ShapeSpec
 from .encdec import EncDecLM
 from .hybrid import MambaLM, Zamba2LM
 from .transformer import TransformerLM
 
-__all__ = ["build_model", "supports_shape", "skip_reason", "model_flops",
-           "param_count"]
+__all__ = ["build_model", "input_specs", "cache_len_for", "supports_shape",
+           "skip_reason", "model_flops", "param_count"]
 
 
 def build_model(cfg: ModelConfig, device=None):
@@ -52,6 +58,39 @@ def skip_reason(cfg: ModelConfig, shape: ShapeSpec) -> str:
         return ""
     return ("pure full attention at 512k context (no sub-quadratic path); "
             "skipped per assignment")
+
+
+# ---------------------------------------------------------------------------
+# input specs
+# ---------------------------------------------------------------------------
+
+def _sd(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, torch.Tensor]:
+    """The batch of the step ``shape`` exercises, as meta tensors: a train
+    batch holds one token more than the sequence (the labels' shift); the
+    enc-dec model's sequence is its encoder's frames, with ``seq // 8``
+    decoder tokens; the VLM's vision embeddings take up to a quarter of
+    it; a decode step is one token and a position."""
+    b, s = shape.global_batch, shape.seq_len
+    i32, f32 = torch.int32, torch.float32
+    extra = 1 if shape.kind == "train" else 0
+    if shape.kind == "decode":
+        return {"token": _sd((b, 1), i32), "pos": _sd((), i32)}
+    if cfg.family == "encdec":
+        return {"audio_embeds": _sd((b, s, cfg.d_model), f32),
+                "tokens": _sd((b, s // 8 + extra), i32)}
+    if cfg.family == "vlm":
+        tv = min(cfg.vision_tokens, max(s // 4, 8))
+        return {"vision": _sd((b, tv, cfg.d_model), f32),
+                "tokens": _sd((b, s - tv + extra), i32)}
+    return {"tokens": _sd((b, s + extra), i32)}
+
+
+def cache_len_for(cfg: ModelConfig, shape: ShapeSpec) -> int:
+    return shape.seq_len
 
 
 # ---------------------------------------------------------------------------

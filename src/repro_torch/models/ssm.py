@@ -8,7 +8,9 @@ selective SSM with a scalar decay per head, gated RMSNorm, out projection.
 The sequence path uses the chunked SSD algorithm: within chunks of
 ``cfg.ssm_chunk`` the recurrence is a decay-masked quadratic form, computed
 by ``kernels.ops.ssd_intra`` (kernel B5 on the card, its plain version on
-the CPU: the tensors' device picks); across chunks a Python loop carries
+the CPU: the tensors' device picks), or for training (``train=True``,
+passed by the models' ``loss_fn`` only) by the reference's differentiable
+einsum form, whatever the device; across chunks a Python loop carries
 the (heads, head_dim, state) recurrent state, in place of the reference's
 ``lax.scan``. ``ssd_sequential`` is the O(S)-step recurrence, the oracle of
 the tests. The reference's sharding specs (``mamba_pspec``,
@@ -28,6 +30,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels import ops as kops
+from ..kernels.ssd_scan import ssd_intra_plain
 from .layers import dense_init, he_init, rms_norm
 
 __all__ = ["mamba_init", "mamba_seq", "mamba_decode", "init_ssm_state",
@@ -85,14 +88,31 @@ def ssd_sequential(xdt: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
     return torch.stack(ys, 1), hst
 
 
+def _intra_einsum(xc: torch.Tensor, cum: torch.Tensor, Bc: torch.Tensor,
+                  Cc: torch.Tensor) -> torch.Tensor:
+    """The reference's einsum form of the intra-chunk term
+    (``ssm.py:145-155``: a lower-triangular decay ``where``, the scores
+    ``C·B``, their product contracted with x), differentiable. It is B5's
+    plain version over the folded ``(b·c, ...)`` layout, whose two
+    two-operand contractions stand in for the three-operand einsum. Its
+    gradient stays finite where a steep decay overflows ``exp`` above the
+    diagonal; the reference's is NaN there (ROADMAP queue C)."""
+    b, c, q, h, p = xc.shape
+    n = Bc.shape[-1]
+    return ssd_intra_plain(xc.reshape(b * c, q, h, p),
+                           cum.reshape(b * c, q, h), Bc.reshape(b * c, q, n),
+                           Cc.reshape(b * c, q, n)).reshape(b, c, q, h, p)
+
+
 def ssd_chunked(xdt: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
                 C: torch.Tensor, chunk: int,
-                h0: Optional[torch.Tensor] = None
+                h0: Optional[torch.Tensor] = None, train: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD. Same contract as ``ssd_sequential``.
 
     Per chunk c of length Q (cum = inclusive cumsum of log a):
-      intra[i] = Σ_{j≤i} (C_i·B_j) · exp(cum_i − cum_j) · xdt_j   (B5)
+      intra[i] = Σ_{j≤i} (C_i·B_j) · exp(cum_i − cum_j) · xdt_j   (B5, or
+                 with ``train`` the einsum form)
       state_c  = Σ_j exp(cum_Q − cum_j) · B_j ⊗ xdt_j            (outflow)
       inter[i] = exp(cum_i) · C_i · S_{c-1};  S_c = exp(cum_Q)·S_{c-1} + state_c
     """
@@ -122,7 +142,7 @@ def ssd_chunked(xdt: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
     cum = torch.cumsum(la, dim=2)                       # (b,c,q,h) inclusive
     total = cum[:, :, -1]                               # (b,c,h)
 
-    intra = kops.ssd_intra(xc, cum, Bc, Cc)
+    intra = (_intra_einsum if train else kops.ssd_intra)(xc, cum, Bc, Cc)
 
     # chunk outflow states, as two two-operand products: x is scaled by the
     # decay first (a three-operand torch.einsum contracts left to right and
@@ -188,9 +208,10 @@ def _conv_silu_split(p: Params, xs, B, C, cfg: ModelConfig, conv_state):
 def mamba_seq(p: Params, x: torch.Tensor, cfg: ModelConfig,
               conv_state: Optional[torch.Tensor] = None,
               ssm_state: Optional[torch.Tensor] = None,
-              ) -> Tuple[torch.Tensor, States]:
+              train: bool = False) -> Tuple[torch.Tensor, States]:
     """Full-sequence mamba2 block. x: (B,S,D) -> (y (B,S,D),
-    (conv_state, ssm_state))."""
+    (conv_state, ssm_state)); ``train`` takes the differentiable intra-chunk
+    form in place of B5."""
     b, s, _ = x.shape
     h, pdim = cfg.ssm_heads, cfg.ssm_head_dim
     z, xs, B, C, dt = _split_proj(p, x, cfg)
@@ -199,7 +220,8 @@ def mamba_seq(p: Params, x: torch.Tensor, cfg: ModelConfig,
     A = -torch.exp(p["A_log"])                          # (h,)
     a = torch.exp(dt * A)                               # (b,s,h)
     xdt = xh * dt[..., None].to(xh.dtype)               # in the model dtype
-    y, ssm_state = ssd_chunked(xdt, a, B, C, cfg.ssm_chunk, h0=ssm_state)
+    y, ssm_state = ssd_chunked(xdt, a, B, C, cfg.ssm_chunk, h0=ssm_state,
+                               train=train)
     y = y + xh.float() * p["D"][:, None]
     y = y.reshape(b, s, cfg.d_inner).to(x.dtype)
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)

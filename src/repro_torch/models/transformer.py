@@ -18,7 +18,11 @@ onto these names):
     of a period global iff ``(l + 1) % period == 0``, then ``tail.<t>``,
     the ``n_layers % period`` leftover layers, all local.
 Plain Python loops over the layers stand in for the reference's
-``lax.scan``. Parameters do not require gradients: this slice serves.
+``lax.scan``. Parameters are built with ``requires_grad=False``, for
+serving; the train builder (``launch.steps.make_train_objects``) turns
+gradients on. ``loss_fn`` is the only caller of ``forward(train=True)``,
+the differentiable route (``attention._chunked_attention`` in place of
+B3), each block a ``torch.utils.checkpoint`` region when ``cfg.remat``.
 ``LMBase`` holds what every family's LM shares (embedding, final norm,
 tied head); ``DenseBlock`` is also Zamba2's shared attention block and the
 enc-dec model's encoder block.
@@ -42,8 +46,9 @@ from ..configs.base import ModelConfig
 from ..core.device import resolve_device
 from . import attention as attn
 from . import moe as moe_mod
-from .layers import (DTYPES, dense_init, embed_init, init_mlp, mlp_apply,
-                     mlp_params, rms_norm)
+from .layers import (DTYPES, chunked_ce, cross_entropy, dense_init,
+                     embed_init, init_mlp, mlp_apply, mlp_params, remat,
+                     rms_norm)
 
 __all__ = ["TransformerLM", "LMBase", "DenseBlock"]
 
@@ -148,6 +153,10 @@ class LMBase(nn.Module):
     def logits(self, h: torch.Tensor) -> torch.Tensor:
         return rms_norm(h, self.final_norm, self.cfg.norm_eps) @ self.embed.T
 
+    def tokens(self, batch: Dict) -> torch.Tensor:
+        """The batch's token ids on the model's device."""
+        return torch.as_tensor(batch["tokens"], device=self.device)
+
 
 #: where a layer's cache lives: the path of its dict in the caches and its
 #: index along that dict's leading (stacked) axes
@@ -230,10 +239,12 @@ class TransformerLM(LMBase):
                                               self.dtype).T)
         return self
 
+    def head(self) -> torch.Tensor:
+        """The (d, vocab) unembedding: ``embed.T`` when tied."""
+        return self.embed.T if self.cfg.tie_embeddings else self.unembed
+
     def logits(self, h: torch.Tensor) -> torch.Tensor:
-        if self.cfg.tie_embeddings:
-            return super().logits(h)
-        return rms_norm(h, self.final_norm, self.cfg.norm_eps) @ self.unembed
+        return rms_norm(h, self.final_norm, self.cfg.norm_eps) @ self.head()
 
     def embed_batch(self, batch: Dict) -> torch.Tensor:
         """The scaled token embeddings, prefixed for the VLM by the batch's
@@ -246,10 +257,25 @@ class TransformerLM(LMBase):
         return x
 
     # ----------------------------------------------------------- seq path
-    def forward(self, batch: Dict, with_cache: bool = False
+    def _block_seq(self, blk: DenseBlock, x: torch.Tensor,
+                   positions: torch.Tensor, is_global: bool,
+                   with_cache: bool, train: bool):
+        """One layer over the sequence: (x, cache or None, aux or None)."""
+        cfg = self.cfg
+        h, c = attn.attn_prefill(
+            blk.attn, rms_norm(x, blk.ln1, cfg.norm_eps), positions, cfg,
+            is_global, with_cache, train=train)
+        x = x + h
+        y, a = blk.ffn(x, self.moe_impl)
+        return x + y, c, a
+
+    def forward(self, batch: Dict, with_cache: bool = False,
+                train: bool = False
                 ) -> Tuple[torch.Tensor, Optional[Caches], torch.Tensor]:
         """Returns (hidden (B,S,D), caches or None, the MoE aux loss summed
-        over layers, 0 without experts)."""
+        over layers, 0 without experts). ``train`` takes the differentiable
+        route, each layer recomputed in the backward pass when
+        ``cfg.remat``."""
         cfg = self.cfg
         x = self.embed_batch(batch)
         b, s, _ = x.shape
@@ -257,13 +283,9 @@ class TransformerLM(LMBase):
                                  device=self.device).expand(b, s)
         caches: Optional[Dict] = {} if with_cache else None
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        block = remat(self._block_seq, train and cfg.remat)
         for blk, is_global, (path, idx) in self._layers:
-            h, c = attn.attn_prefill(
-                blk.attn, rms_norm(x, blk.ln1, cfg.norm_eps), positions, cfg,
-                is_global, with_cache)
-            x = x + h
-            y, a = blk.ffn(x, self.moe_impl)
-            x = x + y
+            x, c, a = block(blk, x, positions, is_global, with_cache, train)
             if a is not None:
                 aux = aux + a
             if with_cache:
@@ -274,6 +296,29 @@ class TransformerLM(LMBase):
                         node[n] = t.new_empty((*lead, *t.shape))
                     node[n][idx] = t
         return x, caches, aux
+
+    # --------------------------------------------------------------- loss
+    def loss_fn(self, batch: Dict
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Next-token cross entropy over ``batch["tokens"]`` (B, S+1) (the
+        VLM's on its text positions only), through the differentiable
+        route; ``cfg.ce_chunk > 1`` chunks it; MoE adds ``0.01 · aux``.
+        Returns (loss, {"ce": loss, "aux": aux}), as the reference."""
+        cfg = self.cfg
+        tokens = self.tokens(batch)
+        h, _, aux = self.forward({**batch, "tokens": tokens[:, :-1]},
+                                 train=True)
+        labels = tokens[:, 1:]
+        if cfg.family == "vlm" and "vision" in batch:
+            h = h[:, batch["vision"].shape[1]:]
+        if cfg.ce_chunk > 1:
+            loss = chunked_ce(rms_norm(h, self.final_norm, cfg.norm_eps),
+                              self.head(), labels, cfg.ce_chunk)
+        else:
+            loss = cross_entropy(self.logits(h), labels)
+        if cfg.n_experts:
+            loss = loss + 0.01 * aux
+        return loss, {"ce": loss, "aux": aux}
 
     # ------------------------------------------------------------ serving
     def prefill(self, batch: Dict, cache_len: Optional[int] = None

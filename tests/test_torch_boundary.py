@@ -139,3 +139,52 @@ def test_model_modules_load_neither_jax_nor_the_reference():
                           text=True, timeout=300,
                           env={**os.environ, "PYTHONPATH": str(REPO / "src")})
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+#: the training slice's modules (ROADMAP queue A items 12.6a and 12.6b)
+TRAIN_MODULES = ("repro_torch.optim", "repro_torch.optim.adamw",
+                 "repro_torch.optim.compression", "repro_torch.data",
+                 "repro_torch.data.pipeline", "repro_torch.checkpoint",
+                 "repro_torch.checkpoint.manager",
+                 "repro_torch.launch.steps", "repro_torch.launch.train",
+                 "repro_torch.runtime.elastic")
+
+
+@pytest.mark.parametrize("name", TRAIN_MODULES)
+def test_train_modules_are_scanned(name):
+    path = PORT.joinpath(*name.split(".")[1:])
+    path = path / "__init__.py" if path.is_dir() else path.with_suffix(".py")
+    assert path in SOURCES
+
+
+def test_train_modules_load_neither_jax_nor_the_reference():
+    """Importing the training slice in a fresh interpreter leaves ``jax``
+    and every ``repro`` module unloaded."""
+    code = ("import sys, importlib\n"
+            f"for m in {TRAIN_MODULES!r}: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "print(bad); sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300,
+                          env={**os.environ, "PYTHONPATH": str(REPO / "src")})
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_training_defaults_to_the_card(monkeypatch):
+    """``device=None`` is the card: without one, the trainer, the train
+    builder and the CLI raise rather than fall back to the CPU."""
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_objects
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg, shape = get("qwen3-0.6b").reduced(), ShapeSpec("t", 16, 2, "train")
+    for call in (lambda: train.Trainer(cfg, shape),
+                 lambda: make_train_objects(cfg, shape),
+                 lambda: train.main(["--arch", "qwen3-0.6b", "--reduced",
+                                     "--steps", "1"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

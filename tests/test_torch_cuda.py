@@ -2,8 +2,10 @@
 replay kernels B1 and B2, the attention kernels B3 and B4, the SSD
 intra-chunk kernel B5, every model family through them (the int8 KV cache
 included), the comparators (GA, linear-inertia PSO, prePSO) and one
-re-planning round through B1 and B2, and B1's wrapper under two threads at
-once (as ``run_services`` drives it).
+re-planning round through B1 and B2, B1's wrapper under two threads at
+once (as ``run_services`` drives it), and training: one train step of
+every family on the card against the CPU's (no kernel launched), and the
+kernels' refusal of inputs that require grad.
 
 Run where there is one (no JAX needed):
 
@@ -870,3 +872,85 @@ def test_replay_wrapper_is_safe_under_threads(cuda_device):
             want = b1(*args, X, faithful=bool(t))
             for a, b in zip(got[t][c], want):
                 assert torch.equal(a, b), (t, c)
+
+
+# ---------------------------------------------------------------------------
+# training: the differentiable route, never the kernels
+# ---------------------------------------------------------------------------
+
+def _launch_counts():
+    return (fa.flash_attention_folded.launches,
+            da.decode_attention_folded.launches,
+            ssd_scan.ssd_intra_folded.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma3-27b", "mixtral-8x7b",
+                                  "mamba2-2.7b", "zamba2-7b",
+                                  "internvl2-2b", "whisper-medium"])
+def test_train_step_on_card_equals_cpu(cuda_device, arch):
+    """A reduced float32 model from the same weights and batch: every
+    gradient of ``loss_fn`` within 1e-4 (relative norm) of the CPU's, then
+    one train step's loss, gradient norm and learning rate to 1e-5
+    (float32 sums in other orders, TF32 off); no kernel launched. (The
+    updated parameters are not compared: Adam's first step moves each by
+    about ±lr, the sign of a gradient entry near zero.)"""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import make_stream
+    from repro_torch.launch.steps import make_train_objects
+    from repro_torch.optim import AdamWConfig, adamw_init
+    cfg = get(arch).reduced()
+    shape = ShapeSpec("t", 32, 2, "train")
+    acfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    batch = make_stream(cfg, shape).batch(0)
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out, init = {}, None
+        for dev in (torch.device("cpu"), cuda_device):
+            model, step, _ = make_train_objects(cfg, shape, acfg, device=dev)
+            if init is None:
+                model.init(torch.Generator().manual_seed(0))
+                init = {n: t.clone() for n, t in model.state_dict().items()}
+            else:
+                model.load_state_dict(init)
+            before = _launch_counts()
+            model.loss_fn(batch)[0].backward()
+            grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
+            model.zero_grad(set_to_none=True)
+            _, m = step(adamw_init(dict(model.named_parameters())), batch)
+            assert _launch_counts() == before
+            out[dev.type] = ({k: float(v) for k, v in m.items()}, grads)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    (mc, gc), (mh, gh) = out["cuda"], out["cpu"]
+    for k in mh:
+        assert abs(mc[k] - mh[k]) <= 1e-5 * abs(mh[k]), (k, mc, mh)
+    for name, g in gh.items():
+        assert bool(torch.isfinite(gc[name]).all()), name
+        assert float((gc[name] - g).norm()) <= 1e-4 * float(g.norm()), name
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_inputs_that_require_grad(cuda_device):
+    """B3, B4 and B5 have no backward: an input that requires grad is
+    refused in grad mode, before any launch; under no_grad they run."""
+    q = torch.randn(2, 2, 64, 16, device=cuda_device, requires_grad=True)
+    k = torch.randn(2, 64, 16, device=cuda_device)
+    xc = torch.randn(2, 16, 2, 16, device=cuda_device, requires_grad=True)
+    cum = torch.zeros(2, 16, 2, device=cuda_device)
+    B = torch.randn(2, 16, 16, device=cuda_device)
+    calls = [lambda: fa.flash_attention_folded(q, k, k, causal=True,
+                                               window=0),
+             lambda: da.decode_attention_folded(q[:, :, 0], k, k, 5),
+             lambda: ssd_scan.ssd_intra_folded(xc, cum, B, B)]
+    before = _launch_counts()
+    for call in calls:
+        with pytest.raises(RuntimeError, match="has no backward"):
+            call()
+    assert _launch_counts() == before
+    with torch.no_grad():
+        for call in calls:
+            call()
+    torch.cuda.synchronize()
+    assert _launch_counts() == tuple(n + 1 for n in before)
