@@ -78,6 +78,18 @@ result line):
                trace passes ``scripts/check_trace.py``; (e) walls with
                telemetry off / on / on / off (plans equal), then one
                profiled run (device busy, idle share);
+ 10b. mesh  — every solve sharded over a device mesh (``launch.mesh``):
+               (a) ``resolve_mesh("host")``, an ``nccl`` world of one over
+               the card: qwen3-0.6b's plan and traffic plan, the Fig. 8
+               solve, one congestion replan round and a 3-round
+               congestion service under ``--chaos``, each bit for bit its
+               ``--mesh none`` run with equal B1 / B2 launches, walls
+               printed; (b) two processes (``chip_smoke.py --mesh-rank``)
+               sharing ``cuda:0`` over ``gloo`` with
+               ``elastic_mesh(model=1)``: the plan's 3-problem bucket
+               padded to 4 rows and the traffic plan, bit for bit the plan
+               and traffic phases' results on both ranks, each rank's
+               launches printed;
  11. check-attn — B3 (flash prefill) and B4 (flash decode) against their
                plain versions on CUDA tensors, float32 to 2e-5 and bfloat16
                to 2e-2: qwen3-0.6b's serving shapes (batch 8, prompt 2048,
@@ -143,14 +155,24 @@ result line):
                first call then a counted one (same tokens, launches exact),
                prefill ms, decode tokens/s and peak memory per model, each
                model freed before the next: gemma3-27b (62 layers, prompt
-               2048: 62 B3, 1922 B4), mixtral-8x7b cut to 16 of 32 layers
-               (prompt 2048, 16,384 tokens: capacity 5120 an expert; 16 B3,
-               496 B4), arctic-480b cut to 2 of 35 layers (capacity 320; 2
-               B3, 62 B4), internvl2-2b (24 layers, 1024 vision embeddings +
-               1024 tokens; 24 B3, 744 B4), whisper-medium (24 + 24 layers,
-               1500 frames, 187 decoder tokens; 48 B3, 744 B4, cross
-               attention plain) and qwen3-0.6b with the int8 KV cache (28 B3,
-               868 B4);
+               2048: 62 B3, 1922 B4), arctic-480b cut to 2 of 35 layers
+               (capacity 320; 2 B3, 62 B4), internvl2-2b (24 layers, 1024
+               vision embeddings + 1024 tokens; 24 B3, 744 B4),
+               whisper-medium (24 + 24 layers, 1500 frames, 187 decoder
+               tokens; 48 B3, 744 B4, cross attention plain), qwen3-0.6b
+               with the int8 KV cache (28 B3, 868 B4) and, last, kept for
+               moe-a2a, mixtral-8x7b cut to 16 of 32 layers (prompt 2048,
+               16,384 tokens: capacity 5120 an expert; 16 B3, 496 B4);
+ 20b. moe-a2a — mixtral with ``moe_impl="a2a"`` (experts dispatched by
+               ``all_to_all_single`` over the world-of-one mesh), built by
+               ``make_prefill_objects`` / ``make_decode_objects`` on
+               ``meta`` and given serve-families' 16-layer bf16 weights
+               (no second copy): batch 8 x 2048 (past 8,192 tokens, so
+               entries can drop), 31 decode steps, scatter's tokens, 16 B3
+               + 496 B4, prefill ms, decode tokens/s and peak memory
+               printed; then 2 layers in float32 at full width, batch 2 x
+               1000 and 4 greedy steps: logits and tokens bit for bit
+               scatter's;
  21. serve-check-families — the kernels against the plain path inside each
                new family, as in 13: float32 at full width gemma3 with 7
                layers (one group, one tail layer; batch 2, prompt 1300, past
@@ -556,6 +578,50 @@ def train_run(dev):
           f"non-embedding parameters), peak device memory "
           f"{peak / 1e9:.3f} GB; restored state bit for bit", flush=True)
     print(f"[train] card: {smi_field('name,power.limit')}", flush=True)
+
+
+def mesh_rank(rank: int, tmp: str) -> int:
+    """``--mesh-rank RANK DIR``: one of two ranks that share this card and
+    meet over ``gloo`` (a ``FileStore`` in DIR): qwen3-0.6b's plan and its
+    bursty-traffic plan sharded over ``elastic_mesh(model=1)``, the
+    results written to DIR for the parent to compare."""
+    import torch.distributed as dist
+    dist.init_process_group("gloo", store=dist.FileStore(f"{tmp}/store", 2),
+                            rank=rank, world_size=2)
+    torch.cuda.set_device(0)
+    import repro_torch.core as port
+    from repro_torch.configs import SHAPES, get
+    from repro_torch.kernels import schedule_sim, traffic_sim
+    from repro_torch.launch.plan import DEADLINE_RATIO, DEFAULT_PSO
+    from repro_torch.runtime import elastic_mesh
+    b1, b2 = schedule_sim.schedule_replay, traffic_sim.traffic_replay
+    mesh = elastic_mesh(model=1)
+    requests = [(get("qwen3-0.6b"), s, DEADLINE_RATIO) for s in SHAPES
+                if s.kind != "train"]
+    out = {}
+    for tag, tc in (("plan", None),
+                    ("traffic", port.TrafficConfig(kind="bursty", rate=0.5))):
+        b1.launches = b2.launches = 0
+        t0 = time.perf_counter()
+        plans = port.plan_offload_batch(
+            requests, env=port.tpu_fleet_environment(), pso=DEFAULT_PSO,
+            seed=SEED, traffic=tc, mesh=mesh)
+        torch.cuda.synchronize()
+        print(f"[mesh] rank {rank} of 2 (gloo, cuda:0, mesh "
+              f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}): {tag} in "
+              f"{1e3 * (time.perf_counter() - t0):.1f} ms, launches B1 "
+              f"{b1.launches} B2 {b2.launches}", flush=True)
+        assert b1.launches > 0 and (b2.launches > 0) == (tc is not None)
+        res = [p.result for p in plans]
+        for i, r in enumerate(res):
+            out[f"{tag}.x{i}"] = r.best_x
+        out[f"{tag}.fit"] = np.array([r.best_fitness for r in res])
+        out[f"{tag}.cost"] = np.array([r.best_cost for r in res])
+        out[f"{tag}.it"] = np.array([r.iterations for r in res])
+        out[f"{tag}.feas"] = np.array([r.feasible for r in res])
+    np.savez(f"{tmp}/rank{rank}.npz", **out)
+    dist.destroy_process_group()
+    return 0
 
 
 def main() -> int:
@@ -1495,6 +1561,136 @@ def main() -> int:
         print(f"[service] profiled: {json.dumps(prof)}", flush=True)
     _phase("service", service, failures)
 
+    # 10b. mesh: every solve sharded over a device mesh ----------------------
+    def same_results(tag, got, want):
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert np.array_equal(g.best_x, w.best_x), (tag, i)
+            assert (g.best_fitness, g.best_cost, g.iterations, g.feasible) \
+                == (w.best_fitness, w.best_cost, w.iterations,
+                    w.feasible), (tag, i)
+        assert len(got) == len(want), tag
+
+    def mesh_phase():
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import resolve_mesh
+        from repro_torch.launch.plan import chaos_script
+        mesh = resolve_mesh("host")              # a world of one, nccl
+        assert dist.get_backend() == "nccl" and mesh.device_type == "cuda"
+        print(f"[mesh] solver mesh: "
+              f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} over "
+              f"{mesh.size()} devices ({dist.get_backend()})", flush=True)
+        requests = [(get("qwen3-0.6b"), s, DEADLINE_RATIO) for s in shapes]
+
+        def both(tag, solve, check):
+            """``solve(mesh)`` in turns with ``--mesh none`` and ``host``
+            (none, host, host, none): each result ``check``-ed against the
+            first, its (B1, B2) launches equal; walls printed. Returns the
+            first result."""
+            runs = []
+            for name in ("none", "host", "host", "none"):
+                b1.launches = b2.launches = 0
+                t0 = time.perf_counter()
+                out = solve(mesh if name == "host" else None)
+                torch.cuda.synchronize()
+                runs.append((name, out, (b1.launches, b2.launches),
+                             1e3 * (time.perf_counter() - t0)))
+            for name, out, n, _ in runs[1:]:
+                check(out, runs[0][1])
+                assert n == runs[0][2], (tag, name, n, runs[0][2])
+            walls = {k: [round(w, 1) for nm, _, _, w in runs if nm == k]
+                     for k in ("none", "host")}
+            print(f"[mesh] {tag}: walls --mesh none {walls['none']} ms, "
+                  f"--mesh host {walls['host']} ms (in turns: none, host, "
+                  f"host, none); launches B1 {runs[0][2][0]} B2 "
+                  f"{runs[0][2][1]} each", flush=True)
+            return runs[0][1]
+
+        for tag, tc in (("plan", None), ("traffic", traffic_cfg)):
+            def check(got, want, tag=tag):
+                same_results(tag, [p.result for p in got],
+                             [p.result for p in want])
+                assert [p.traffic for p in got] == [p.traffic for p in want]
+            none = both(tag, lambda m: port.plan_offload_batch(
+                requests, env=tpu_env, pso=DEFAULT_PSO, seed=SEED,
+                traffic=tc, mesh=m), check)
+            same_results(f"{tag} vs phase {tag}", [p.result for p in none],
+                         [p.result for p in planned[tag]])
+        both("fig8", lambda m: port.run_pso_ga_batch(
+            [(fig8_dag, fig8_env)], PAPER_PSO, seed=SEED, mesh=m),
+            lambda got, want: same_results("fig8", got, want))
+        cold = planned["plan"]
+        dags = [p.dag for p in cold]
+        trace = port.sample_trace("congestion", tpu_env, rounds=2, seed=0)
+
+        def same_replan(got, want):
+            for x, y in zip(got.plans, want.plans):
+                assert np.array_equal(x, y)
+            for f in ("replanned", "incumbent_key", "candidate_key", "cost",
+                      "iterations", "moved_layers", "demoted"):
+                assert np.array_equal(getattr(got.rounds[0], f),
+                                      getattr(want.rounds[0], f)), f
+        both("replan congestion round 1", lambda m: port.replan_fleet(
+            dags, trace, port.ReplanConfig(pso=DEFAULT_PSO, mesh=m),
+            initial=[p.result for p in cold]), same_replan)
+        strace = port.sample_trace("congestion", tpu_env, rounds=3, seed=0)
+
+        def serve(m):
+            per_round = []
+
+            def on_round(r, _plans):
+                per_round.append((r.rung, round(1e3 * r.wall_s, 1),
+                                  b1.launches, b2.launches))
+            scfg = port.ServiceConfig(
+                replan=port.ReplanConfig(pso=DEFAULT_PSO, mesh=m),
+                chaos=chaos_script(3))
+            rep = port.run_service(dags, strace, scfg, seed=SEED,
+                                   initial=[p.result for p in cold],
+                                   sleeper=lambda s: None, on_round=on_round)
+            print(f"[mesh] service --mesh {'none' if m is None else 'host'}"
+                  f" per round (rungs, wall ms, cumulative B1, B2): "
+                  f"{per_round}", flush=True)
+            return rep, [(g, n1, n2) for g, _, n1, n2 in per_round]
+
+        def same_service(got, want):
+            (rg, pg), (rw, pw) = got, want
+            assert pg == pw, (pg, pw)
+            assert rg.counters == rw.counters
+            assert rw.counters["crashes"] + rw.counters["retries"] > 0
+            for x, y in zip(rg.plans, rw.plans):
+                assert np.array_equal(x, y)
+        both("service congestion --chaos, 3 rounds", serve, same_service)
+        # (b) two ranks over gloo, both on this card, elastic_mesh(model=1):
+        # the 3-problem bucket padded to 4 rows, 2 a rank
+        with tempfile.TemporaryDirectory() as tmp:
+            procs = [subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank",
+                 str(r), tmp], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True) for r in range(2)]
+            try:
+                logs = [p.communicate(timeout=600)[0] for p in procs]
+            finally:
+                for p in procs:
+                    p.kill()
+            for r, (p, log) in enumerate(zip(procs, logs)):
+                print(log.rstrip(), flush=True)
+                assert p.returncode == 0, f"rank {r} failed"
+            for r in range(2):
+                got = np.load(f"{tmp}/rank{r}.npz")
+                for tag in ("plan", "traffic"):
+                    for i, w in enumerate(planned[tag]):
+                        w = w.result
+                        assert np.array_equal(got[f"{tag}.x{i}"], w.best_x)
+                        assert (float(got[f"{tag}.fit"][i]),
+                                float(got[f"{tag}.cost"][i]),
+                                int(got[f"{tag}.it"][i]),
+                                bool(got[f"{tag}.feas"][i])) == (
+                            w.best_fitness, w.best_cost, w.iterations,
+                            w.feasible), (r, tag, i)
+        print("[mesh] two gloo ranks on cuda:0: the plan and the traffic "
+              "plan equal --mesh none bit for bit on both ranks", flush=True)
+    _phase("mesh", mesh_phase, failures)
+
     # 11. check-attn: B3 and B4 against their plain versions ----------------
     import torch.nn.functional as F
 
@@ -1619,12 +1815,12 @@ def main() -> int:
             return CROSS_FRAMES, None
         return SERVE_PROMPT, cfg.vision_tokens or None
 
-    def serve_model(cfg, cuts=""):
+    def serve_model(cfg, cuts="", keep=None):
         """``Server`` with ``cfg`` at full width (and depth, but for
         ``cuts``), seeded weights on the card: a first call, then a counted
         one, which must launch the kernels ``expected_launches`` says and
         give the same tokens. Returns the counted call's (B3, B4, B5)
-        launches."""
+        launches; ``keep`` (a dict) keeps the server and its tokens."""
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -1673,6 +1869,8 @@ def main() -> int:
                 cfg, 1, 64, np.random.default_rng(SEED)))
         assert lg.shape == (1, 1, cfg.vocab) and bool(torch.isfinite(
             lg).all())
+        if keep is not None:
+            keep.update(server=srv, tokens=toks)
         return got
 
     def serve():
@@ -2055,20 +2253,159 @@ def main() -> int:
 
     # 20. serve-families: every other family at full width ------------------
     #: each run: (config, its depth cut); the card's 80 GB force the cuts
+    #: mixtral runs last, its server kept on the card for moe-a2a
     family_runs = [
         (gemma3, ""),
-        (dataclasses.replace(mixtral, n_layers=16),
-         " (of 32: 32 need 93.4 GB of bf16 weights)"),
         (dataclasses.replace(arctic, n_layers=2),
          " (of 35: a layer of 128 experts holds 13.6 B parameters)"),
         (internvl2, ""), (whisper, " (24 encoder + 24 decoder)"),
-        (dataclasses.replace(qwen, kv_dtype="int8"), "")]
+        (dataclasses.replace(qwen, kv_dtype="int8"), ""),
+        (dataclasses.replace(mixtral, n_layers=16),
+         " (of 32: 32 need 93.4 GB of bf16 weights)")]
+    kept = {}
 
     def serve_families():
         for cfg, cuts in family_runs:
-            got = serve_model(cfg, cuts)
+            got = serve_model(cfg, cuts, keep=kept if cfg.name ==
+                              mixtral.name else None)
             launches[f"serve {cfg.name} {cfg.kv_dtype}"] = got
     _phase("serve-families", serve_families, failures)
+
+    # 20b. moe-a2a: mixtral's experts dispatched with all_to_all ----------
+    def greedy(prefill, decode, batch, prompt, steps):
+        """``prefill(batch)`` and ``steps`` greedy ``decode(caches,
+        {"token", "pos"})`` steps: every step's logits, the tokens, and the
+        prefill and decode walls."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            lg, caches = prefill(batch)
+            logits = [lg]
+            tok = lg[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
+            toks = [tok.cpu().numpy()]
+            t_prefill = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for i in range(steps):
+                lg, caches = decode(caches, {"token": tok, "pos": prompt + i})
+                logits.append(lg)
+                tok = lg[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
+                toks.append(tok.cpu().numpy())
+        return logits, np.concatenate(toks, 1), t_prefill, \
+            time.perf_counter() - t0
+
+    def moe_a2a():
+        from repro_torch.configs.base import ShapeSpec
+        from repro_torch.launch.mesh import make_test_mesh
+        from repro_torch.launch.steps import (make_decode_objects,
+                                              make_prefill_objects)
+        from repro_torch.models.moe import capacity
+        mesh = make_test_mesh()                  # the nccl world of one
+        print(f"[moe-a2a] mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}"
+              f" ({mesh.device_type})", flush=True)
+        # the 16-layer bf16 cell on serve-families' weights (no second
+        # copy: the a2a models are built on meta and take its tensors)
+        srv, want = kept.pop("server"), kept.pop("tokens")
+        cfg, state = srv.cfg, srv.model.state_dict()
+        cache = SERVE_PROMPT + SERVE_NEW
+        shape = ShapeSpec(f"prefill {SERVE_PROMPT} + {SERVE_NEW} cache",
+                          cache, SERVE_BATCH, "prefill")
+        model, prefill_step, _ = make_prefill_objects(
+            cfg, shape, device="meta", mesh=mesh, moe_impl="a2a")
+        model.load_state_dict(state, assign=True)
+        dmodel, serve_step, _ = make_decode_objects(
+            cfg, shape, device="meta", mesh=mesh, moe_impl="a2a")
+        dmodel.load_state_dict(state, assign=True)
+        assert model.device.type == "cuda" and model.moe_impl == "a2a"
+        batch = request_batch(cfg, SERVE_BATCH, SERVE_PROMPT,
+                              np.random.default_rng(SEED))
+        torch.cuda.reset_peak_memory_stats(dev)
+        b3.launches = b4.launches = b5.launches = 0
+        _, toks, t_pre, t_dec = greedy(prefill_step, serve_step, batch,
+                                       SERVE_PROMPT, SERVE_NEW - 1)
+        got = (b3.launches, b4.launches, b5.launches)
+        peak = torch.cuda.max_memory_allocated(dev)
+        n_tok = SERVE_BATCH * SERVE_NEW
+        print(f"[moe-a2a] {cfg.name} {cfg.n_layers} layers {cfg.dtype}, "
+              f"batch {SERVE_BATCH} x {SERVE_PROMPT} (capacity "
+              f"{capacity(cfg, SERVE_BATCH * SERVE_PROMPT)} an expert lane),"
+              f" moe_impl a2a: prefill "
+              f"{1e3 * t_pre:.2f} ms, decode {n_tok} tokens in "
+              f"{1e3 * t_dec:.2f} ms ({n_tok / t_dec:.1f} tok/s), launches "
+              f"B3 {got[0]} B4 {got[1]} B5 {got[2]}, peak device memory "
+              f"{peak / 1e9:.3f} GB; tokens equal scatter's "
+              f"{np.array_equal(toks, want)}", flush=True)
+        assert got == (16, 496, 0), got
+        np.testing.assert_array_equal(toks, want)
+        # scatter and a2a in turns on the same weights (scatter, a2a, a2a,
+        # scatter), every call's tokens scatter's
+        walls = {"scatter": [], "a2a": []}
+        for impl in ("scatter", "a2a", "a2a", "scatter"):
+            if impl == "scatter":
+                o = srv.generate(batch)
+                toks, t_pre, t_dec = o["tokens"], o["prefill_s"], \
+                    o["decode_s"]
+            else:
+                _, toks, t_pre, t_dec = greedy(prefill_step, serve_step,
+                                               batch, SERVE_PROMPT,
+                                               SERVE_NEW - 1)
+            np.testing.assert_array_equal(toks, want)
+            walls[impl].append((round(1e3 * t_pre, 2),
+                                round(n_tok / t_dec, 1)))
+        print(f"[moe-a2a] in turns (prefill ms, decode tok/s): scatter "
+              f"{walls['scatter']}, a2a {walls['a2a']}", flush=True)
+        # where a decode's time goes: 31 steps from one prefill's caches,
+        # profiled (device busy, idle share, top kernels) for each impl
+        from repro_torch.launch.breakdown import profile
+        for impl, (pre, dec) in (
+                ("scatter", (lambda b: srv.model.prefill(b, cache_len=cache),
+                             srv.model.decode_step)),
+                ("a2a", (prefill_step, serve_step))):
+            with torch.inference_mode():
+                lg, caches = pre(batch)
+            tok0 = lg[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
+
+            @torch.inference_mode()
+            def decode_steps(dec=dec, caches=caches, tok0=tok0):
+                tok = tok0
+                for i in range(SERVE_NEW - 1):
+                    lg, _ = dec(caches, {"token": tok,
+                                         "pos": SERVE_PROMPT + i})
+                    tok = lg[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
+                    tok.cpu()
+            prof = profile(f"mixtral-16-decode-{impl}", decode_steps, None)
+            nccl = sum(t["ms"] for t in prof["top"] if "nccl" in
+                       t["kernel"].lower())
+            print(f"[moe-a2a] profiled decode, {impl}: wall "
+                  f"{prof['wall_ms']:.1f} ms, device busy "
+                  f"{prof['device_busy_ms']:.1f} ms, idle share "
+                  f"{prof['idle_share']:.3f}, {prof['device_kernels']} "
+                  f"kernel names, NCCL among the top 8 {nccl:.2f} ms; top "
+                  f"{[(t['kernel'][:40], t['count'], round(t['ms'], 2)) for t in prof['top'][:5]]}",
+                  flush=True)
+            del caches
+        del model, dmodel, state, srv
+        gc.collect()
+        torch.cuda.empty_cache()
+        # 2-layer float32 at full width: a2a against scatter, bit for bit
+        cfg2 = dataclasses.replace(mixtral, n_layers=2, dtype="float32")
+        scatter = build_model(cfg2, device=dev).init(
+            torch.Generator(device=dev).manual_seed(SEED))
+        a2a, _, _ = make_prefill_objects(
+            cfg2, ShapeSpec("check", 1004, 2, "prefill"), device="meta",
+            mesh=mesh, moe_impl="a2a")
+        a2a.load_state_dict(scatter.state_dict(), assign=True)
+        batch = request_batch(cfg2, 2, 1000, np.random.default_rng(SEED))
+        ls, ts, _, _ = greedy(
+            lambda b: scatter.prefill(b, cache_len=1004),
+            scatter.decode_step, batch, 1000, 4)
+        la, ta, _, _ = greedy(lambda b: a2a.prefill(b, cache_len=1004),
+                              a2a.decode_step, batch, 1000, 4)
+        equal = all(torch.equal(x, y) for x, y in zip(ls, la))
+        print(f"[moe-a2a] 2-layer float32 {cfg2.name}, batch 2 x 1000, 4 "
+              f"greedy steps: a2a vs scatter logits equal {equal}, tokens "
+              f"equal {np.array_equal(ts, ta)}", flush=True)
+        assert equal and np.array_equal(ts, ta)
+    _phase("moe-a2a", moe_a2a, failures)
 
     # 21. serve-check-families: kernels against plain inside each family ----
     def serve_check_families():
@@ -2141,4 +2478,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

@@ -1,7 +1,8 @@
 """Fleet-scale batched PSO-GA: solve N heterogeneous offloading problems
 with one fleet of swarms per shape bucket, ported from
 ``repro.core.batch``: cold and warm (incumbent-seeded, migration-aware)
-solves, with or without traffic, on one device (no mesh).
+solves, with or without traffic, on one device or sharded over a device
+mesh (``launch.mesh``).
 
 ``pack_fleet`` groups problems into power-of-two ``(max_p, max_S)``
 buckets and stacks each bucket's members into one ``PaddedProblem`` with
@@ -22,8 +23,13 @@ padded apps never receive a request and padded layers are never walked,
 so that equality holds for traffic solves too. Incumbents, migration
 weights and rescue flags route by original index the same way.
 
+With a ``mesh`` each bucket's rows split over the mesh's data axes as
+the reference's ``shard_map`` splits them (N padded with copies of row 0);
+every data shard runs its own loop to its own convergence, and the host
+results are gathered so every rank returns the whole fleet's.
+
 Public surface: ``run_pso_ga_batch`` (``incumbent=``,
-``migration_weight=``, ``warm_rescue=``, ``return_state=``,
+``migration_weight=``, ``warm_rescue=``, ``return_state=``, ``mesh=``,
 ``telemetry=``),
 ``pack_fleet`` / ``PackedFleet`` / ``FleetBucket``, ``pack_problems``,
 ``pack_arrivals``, ``bucket_size`` and ``SYNC_EVERY``.
@@ -279,6 +285,7 @@ def run_pso_ga_batch(problems: Sequence[ProblemLike],
                      migration_weight: Union[float, Sequence[float]] = 0.0,
                      warm_rescue: Optional[Sequence[bool]] = None,
                      return_state: bool = False,
+                     mesh=None,
                      telemetry: Optional[Telemetry] = None):
     """Solve N offloading problems with one fleet of swarms per bucket,
     on ``device`` (``None`` = the card).
@@ -298,6 +305,17 @@ def run_pso_ga_batch(problems: Sequence[ProblemLike],
     of every moved layer to the key. A ``None`` entry solves that problem
     cold, with weight 0, inside the warm fleet.
 
+    ``mesh`` (a ``DeviceMesh``, ``launch.mesh``) shards each bucket's
+    problems over the mesh's non-"model" axes, as the reference's
+    ``shard_map`` does: the bucket's N is padded to a multiple of the
+    data-shard count with copies of row 0 (each with a generator of its
+    own, seeded like row 0), data shard r solves rows ``[r·N/n, (r+1)·N/n)``
+    (model-axis replicas solve the same rows), and the host results are
+    gathered so every rank of the world returns all of them; a rank
+    outside the mesh solves nothing. Rows are independent and a frozen
+    row never changes, so the sharded solve equals the unsharded one bit
+    for bit. Every rank must call it with the same arguments.
+
     Each bucket's epilogue scores its gBests as a one-row swarm through
     the zero-load replay, so ``best_cost`` and ``feasible`` are the
     zero-load plan's and ``best_fitness`` the key the solve minimised.
@@ -316,13 +334,14 @@ def run_pso_ga_batch(problems: Sequence[ProblemLike],
     return _solve_fleet(problems, cfg, seed, bucket, device, X0, draw_fn,
                         record_history, arrivals, incumbent,
                         migration_weight, warm_rescue, return_state,
-                        tel=tel)
+                        tel=tel, mesh=mesh)
 
 
 def _solve_fleet(problems, cfg, seed, bucket, device, X0, draw_fn,
                  record_history, arrivals, incumbent=None,
                  migration_weight=0.0, warm_rescue=None,
-                 return_state=False, linear_inertia=False, tel=None):
+                 return_state=False, linear_inertia=False, tel=None,
+                 mesh=None):
     """``run_pso_ga_batch``'s body; ``linear_inertia`` serves
     ``baselines.run_pso_linear``; ``tel`` gets one ``fleet_solve`` span
     per bucket."""
@@ -337,61 +356,35 @@ def _solve_fleet(problems, cfg, seed, bucket, device, X0, draw_fn,
     if incumbent is not None and len(incumbent) != n:
         raise ValueError(f"{len(incumbent)} incumbents for {n} problems")
     mig_arr = np.broadcast_to(np.asarray(migration_weight, np.float32), (n,))
+    shards, me = 1, 0
+    if mesh is not None:
+        from ..launch.mesh import data_index, data_shard_count
+        shards, me = data_shard_count(mesh), data_index(mesh)
     fleet = pack_fleet(probs, bucket=bucket, device=dev)
     results: List[Optional[PSOGAResult]] = [None] * n
     states = []
     for b in fleet.buckets:
         nb = len(b.idx)
-        gens = []
-        X0b = torch.zeros((nb, cfg.pop_size, b.max_p), dtype=torch.int32,
-                          device=dev)
-        incb = torch.zeros((nb, b.max_p), dtype=torch.int32, device=dev)
-        migb = torch.zeros((nb,), dtype=torch.float32, device=dev)
-        for j, i in enumerate(b.idx):
-            g = torch.Generator(device=dev)
-            g.manual_seed(seeds[i])
-            gens.append(g)
-            pr = probs[i]
-            inc_i, rescue_i = None, False
-            if incumbent is not None and incumbent[i] is not None:
-                inc_i = np.asarray(incumbent[i], np.int32)
-                if inc_i.shape != (pr.num_layers,):
-                    raise ValueError(
-                        f"incumbent[{i}] has shape {inc_i.shape}, "
-                        f"expected ({pr.num_layers},)")
-                incb[j, :pr.num_layers] = torch.as_tensor(inc_i)
-                migb[j] = float(mig_arr[i])
-                rescue_i = warm_rescue is not None and bool(warm_rescue[i])
-            x0 = init_swarm(pr, cfg, g, dev, incumbent=inc_i,
-                            rescue=rescue_i) if X0 is None else \
-                torch.tensor(np.asarray(X0[i]), dtype=torch.int32,
-                             device=dev)
-            if tuple(x0.shape) != (cfg.pop_size, pr.num_layers):
-                raise ValueError(f"initial swarm {i} has shape "
-                                 f"{tuple(x0.shape)}, expected "
-                                 f"{(cfg.pop_size, pr.num_layers)}")
-            X0b[j, :, :pr.num_layers] = x0
-        draw = None
-        if draw_fn is not None:
-            def draw(step, idx=b.idx):
-                return stack_draws([draw_fn(int(i), step) for i in idx], dev)
-
-        arrb = None if arrivals is None else pack_arrivals(
-            [arrivals[i] for i in b.idx], fleet.max_apps)
-        warm = incumbent is not None
+        per = -(-nb // shards)          # rows per shard of the padded N
+        # the bucket rows this rank solves; a row past nb is a dummy copy
+        # of row 0
+        rows = [] if me is None else [q if q < nb else 0 for q in
+                                      range(me * per, (me + 1) * per)]
         # the span closes once the bucket's results are on the host
         with maybe_span(tel, "fleet_solve", bucket=f"{b.max_p}x{b.max_S}",
-                        n=nb, traffic=arrivals is not None, sharded=False):
-            state, history = _run_fleet(
-                b.ppb, X0b, cfg, draw, gens, record_history, arrb,
-                incumbent=incb if warm else None,
-                mig_weight=migb if warm else None,
-                linear_inertia=linear_inertia)
-            total, feas, _ = schedule_replay(
-                *kernel_args(b.ppb), state.gbest_x[:, None, :].contiguous(),
-                faithful=cfg.faithful_sim)
-            total = total[:, 0].cpu().numpy()
-            feas = feas[:, 0].cpu().numpy()
+                        n=nb, traffic=arrivals is not None,
+                        sharded=mesh is not None):
+            out = None
+            if rows:
+                out = _solve_rows(
+                    b, rows, probs, cfg, seeds, dev, X0, draw_fn,
+                    record_history, arrivals, fleet.max_apps, incumbent,
+                    mig_arr, warm_rescue, linear_inertia)
+            if mesh is not None:
+                out = _gathered(me, out, shards, nb, dev, return_state)
+            state, history, total, feas = out
+            total = total.cpu().numpy()
+            feas = feas.cpu().numpy()
             gbest_x = state.gbest_x.cpu().numpy()
             gbest_f = state.gbest_f.cpu().numpy()
             its = state.it.cpu().numpy()
@@ -408,6 +401,98 @@ def _solve_fleet(problems, cfg, seed, bucket, device, X0, draw_fn,
     if not return_state:
         return results
     return results, _fleet_state(states, n, cfg.pop_size, dev)
+
+
+def _solve_rows(b: FleetBucket, rows: List[int], probs, cfg, seeds, dev,
+                X0, draw_fn, record_history, arrivals, max_apps, incumbent,
+                mig_arr, warm_rescue, linear_inertia):
+    """Solve bucket rows ``rows`` (a row may repeat: a mesh's dummy row
+    copies row 0 and gets a generator of its own) with every per-problem
+    input routed by original index. Returns the final state, the history
+    (or None) and the epilogue's zero-load cost and feasibility, one row
+    each."""
+    ppb = b.ppb
+    if rows != list(range(len(b.idx))):
+        sel = torch.as_tensor(rows, device=dev)
+        ppb = PaddedProblem(*(f[sel] for f in ppb))
+    idx = [int(b.idx[q]) for q in rows]
+    nr = len(idx)
+    gens = []
+    X0b = torch.zeros((nr, cfg.pop_size, b.max_p), dtype=torch.int32,
+                      device=dev)
+    incb = torch.zeros((nr, b.max_p), dtype=torch.int32, device=dev)
+    migb = torch.zeros((nr,), dtype=torch.float32, device=dev)
+    for j, i in enumerate(idx):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seeds[i])
+        gens.append(g)
+        pr = probs[i]
+        inc_i, rescue_i = None, False
+        if incumbent is not None and incumbent[i] is not None:
+            inc_i = np.asarray(incumbent[i], np.int32)
+            if inc_i.shape != (pr.num_layers,):
+                raise ValueError(
+                    f"incumbent[{i}] has shape {inc_i.shape}, "
+                    f"expected ({pr.num_layers},)")
+            incb[j, :pr.num_layers] = torch.as_tensor(inc_i)
+            migb[j] = float(mig_arr[i])
+            rescue_i = warm_rescue is not None and bool(warm_rescue[i])
+        x0 = init_swarm(pr, cfg, g, dev, incumbent=inc_i,
+                        rescue=rescue_i) if X0 is None else \
+            torch.tensor(np.asarray(X0[i]), dtype=torch.int32, device=dev)
+        if tuple(x0.shape) != (cfg.pop_size, pr.num_layers):
+            raise ValueError(f"initial swarm {i} has shape "
+                             f"{tuple(x0.shape)}, expected "
+                             f"{(cfg.pop_size, pr.num_layers)}")
+        X0b[j, :, :pr.num_layers] = x0
+    draw = None
+    if draw_fn is not None:
+        def draw(step):
+            return stack_draws([draw_fn(i, step) for i in idx], dev)
+
+    arrb = None if arrivals is None else pack_arrivals(
+        [arrivals[i] for i in idx], max_apps)
+    warm = incumbent is not None
+    state, history = _run_fleet(
+        ppb, X0b, cfg, draw, gens, record_history, arrb,
+        incumbent=incb if warm else None, mig_weight=migb if warm else None,
+        linear_inertia=linear_inertia)
+    total, feas, _ = schedule_replay(
+        *kernel_args(ppb), state.gbest_x[:, None, :].contiguous(),
+        faithful=cfg.faithful_sim)
+    return state, history, total[:, 0], feas[:, 0]
+
+
+def _gathered(me: Optional[int], out, shards: int, nb: int,
+              dev: torch.device, whole_state: bool):
+    """Every data shard's rows of one bucket, gathered over the world and
+    cut back to the bucket's ``nb`` rows, as ``_solve_rows``' tuple on
+    ``dev`` (the host arrays travel by ``all_gather_object``). Without
+    ``whole_state`` only the gBests and iterations travel; the other
+    state fields come back ``None``."""
+    from ..launch.mesh import gather_objects
+    fields = _SwarmState._fields if whole_state \
+        else ("gbest_x", "gbest_f", "it")
+    host = None
+    if out is not None:
+        state, history, total, feas = out
+        host = {name: getattr(state, name).cpu().numpy() for name in fields}
+        host.update(total=total.cpu().numpy(), feas=feas.cpu().numpy(),
+                    history=None if history is None
+                    else history.cpu().numpy())
+    by_shard = {}
+    for r, part in gather_objects((me, host)):
+        if r is not None:
+            by_shard.setdefault(r, part)
+    parts = [by_shard[r] for r in range(shards)]
+
+    def cat(name):
+        return torch.as_tensor(np.concatenate(
+            [p[name] for p in parts])[:nb], device=dev)
+    state = _SwarmState(**{name: cat(name) if name in fields else None
+                           for name in _SwarmState._fields})
+    history = None if parts[0]["history"] is None else cat("history")
+    return state, history, cat("total"), cat("feas")
 
 
 def _fleet_state(states, n: int, P: int, dev: torch.device) -> _SwarmState:

@@ -24,7 +24,9 @@ launch per shape bucket: B1 at zero load, B2 under traffic, the shape the
 solver's epilogue uses. ``telemetry=`` adds the reference's spans and
 ``online.*`` metrics. The reference's ``runner_cache_stats`` counts JAX's
 compiled fleet runners; the port compiles nothing per shape, so it has no
-counterpart, and ``ReplanConfig`` has no ``mesh`` (one device).
+counterpart. ``ReplanConfig.mesh`` shards every round's solves over a
+device mesh (``launch.mesh``); plans, and so replan decisions, are the
+same as on one device.
 """
 from __future__ import annotations
 
@@ -279,6 +281,10 @@ class ReplanConfig:
     #: request-stream model with the arrival rate scaled by the drift
     #: event's ``load_scale`` (the ``load-surge`` family drifts only that)
     traffic: Optional[TrafficConfig] = None
+    #: device mesh for the fleet solver (a ``DeviceMesh``): every round's
+    #: solve shards its buckets over the mesh's data axes, bit for bit
+    #: the single-device solve
+    mesh: Optional[object] = None
 
 
 class RoundLog(NamedTuple):
@@ -466,7 +472,7 @@ def _replan_round_body(probs, incumbent, cfg, seed, round_no, label,
             probs, cfg.pso, seed=seed, device=device, X0=X0,
             draw_fn=draw_fn, arrivals=arrivals, incumbent=checked,
             migration_weight=cfg.migration_weight, warm_rescue=rescue,
-            return_state=True, telemetry=telemetry)
+            return_state=True, mesh=cfg.mesh, telemetry=telemetry)
     wall = clock() - t0                    # the results are on the host
 
     plans: List[np.ndarray] = []
@@ -559,7 +565,7 @@ def replan_fleet(dags: Sequence[LayerDAG], trace: EnvTrace,
             cold = run_pso_ga_batch(
                 probs0, cfg.pso, seed=seed, device=device,
                 arrivals=_round_arrivals(cfg, dags, trace.events[0], seed),
-                telemetry=telemetry)
+                mesh=cfg.mesh, telemetry=telemetry)
     else:
         if len(initial) != len(dags):
             raise ValueError(f"{len(initial)} initial results for "

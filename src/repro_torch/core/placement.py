@@ -1,6 +1,5 @@
 """The bridge: any assigned architecture -> the paper's offloading
-problem, ported from ``repro.core.placement`` (no warm start or mesh
-yet).
+problem, ported from ``repro.core.placement`` (no warm start yet).
 
 A model config is *lowered* to a layer DAG whose node weights are FLOPs
 (the TPU-fleet environment's server power is effective FLOP/s, so Eq. 4's
@@ -248,7 +247,8 @@ def plan_offload_batch(requests: Sequence[Tuple[ModelConfig, ShapeSpec,
                                                       stall_iters=40),
                        seed: int = 0,
                        device: Optional[Union[str, torch.device]] = None,
-                       traffic: Optional[TrafficConfig] = None
+                       traffic: Optional[TrafficConfig] = None,
+                       mesh=None
                        ) -> List[OffloadPlan]:
     """Plan many serving requests with ONE batched PSO-GA fleet.
 
@@ -264,6 +264,10 @@ def plan_offload_batch(requests: Sequence[Tuple[ModelConfig, ShapeSpec,
     miss budget is the config's, and every returned plan carries its
     held-out queue-aware evaluation (``traffic.eval_arrivals``, the same
     seed) in ``OffloadPlan.traffic``.
+
+    ``mesh`` (a ``DeviceMesh``, e.g. ``launch.mesh.resolve_mesh``): shard
+    the fleet solve's buckets over the mesh's data axes — plans equal to
+    the unsharded solve's bit for bit, on every rank.
     """
     dev = resolve_device(device)
     env = env or tpu_fleet_environment()
@@ -283,7 +287,7 @@ def plan_offload_batch(requests: Sequence[Tuple[ModelConfig, ShapeSpec,
         arrivals = [traffic.solver_arrivals(d.num_apps, seed=seed + 31 * i)
                     for i, d in enumerate(dags)]
     results = run_pso_ga_batch([(d, env) for d in dags], cfg=pso, seed=seed,
-                               device=dev, arrivals=arrivals)
+                               device=dev, arrivals=arrivals, mesh=mesh)
     reports: List[Optional[dict]] = [None] * len(dags)
     if traffic is not None:
         for i, (d, r) in enumerate(zip(dags, results)):

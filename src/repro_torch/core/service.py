@@ -64,8 +64,15 @@ configured rounds, backoff sleeps go through an injectable sleeper, and
 the breaker runs on round numbers, not wall clocks. Every entry point
 solves on ``device`` (``None`` = the card). The reference's
 ``runner_cache.*`` gauges count JAX's compiled fleet runners and have no
-counterpart here (the port compiles nothing per shape);
-``ReplanConfig`` has no ``mesh`` (ROADMAP queue A item 13).
+counterpart here (the port compiles nothing per shape).
+
+With ``cfg.replan.mesh`` every solve is sharded over a device mesh and
+every rank runs the same loop. Only the solve is collective, so each
+host decision that a clock, a thread or a shared cache could make
+differently on two ranks is made on rank 0 and broadcast before it steers
+anything (``launch.mesh.agree``): the rate estimates, the cache lookup's
+verdict and plans, and each round's measured wall (from which the
+watchdog, the straggler detector and the breaker decide).
 """
 from __future__ import annotations
 
@@ -143,7 +150,7 @@ class ChaosConfig:
 @dataclasses.dataclass(frozen=True)
 class ServiceConfig:
     """Knobs of the always-on planning service (DESIGN.md §11). ``replan``
-    is the port's ``ReplanConfig`` (no ``mesh``).
+    is the port's ``ReplanConfig`` (its ``mesh`` shards every solve).
 
     The defaults disable every protection that could change plans —
     ``slo_s`` infinite (watchdog never cuts), ``triage_margin`` 0
@@ -432,6 +439,8 @@ def run_service(dags: Sequence[LayerDAG], trace: EnvTrace,
             tel.inc(f"service.{name}", n)
 
     rcfg = cfg.replan
+    mesh = rcfg.mesh
+    from ..launch.mesh import agree   # launch.mesh imports core: lazy
     burst_rcfg = dataclasses.replace(rcfg, pso=cfg.burst)
     cache = plan_cache
     if cache is None and cfg.plan_cache is not None:
@@ -512,7 +521,7 @@ def run_service(dags: Sequence[LayerDAG], trace: EnvTrace,
                 probs0, rcfg.pso, seed=seed, device=device,
                 arrivals=_round_arrivals(rcfg, dags, trace.events[0],
                                          seed),
-                telemetry=tel)
+                mesh=mesh, telemetry=tel)
     else:
         if len(initial) != len(dags):
             raise ValueError(f"{len(initial)} initial results for "
@@ -557,8 +566,8 @@ def run_service(dags: Sequence[LayerDAG], trace: EnvTrace,
                 for i in range(len(dags)):
                     windows[i].ingest(_observe(k, i)[2])
             ests = [windows[i].rate() for i in range(len(dags))]
-            est_rates = tuple(
-                tc.rate if e is None else float(e) for e in ests)
+            est_rates = agree(mesh, tuple(
+                tc.rate if e is None else float(e) for e in ests))
             if tel is not None:
                 for e in est_rates:
                     tel.observe("service.est_rate", e)
@@ -582,8 +591,10 @@ def run_service(dags: Sequence[LayerDAG], trace: EnvTrace,
             keys_k = [cache.key(fps[i], env_k, scales[i])
                       for i in range(len(dags))]
             cached_plans = cache.lookup_fleet(keys_k, probs)
-            cache_hit = cached_plans is not None
             cache_wall = clock() - t_c
+            cached_plans, cache_wall = agree(mesh,
+                                             (cached_plans, cache_wall))
+            cache_hit = cached_plans is not None
           if tel is not None:
             tel.instant("cache_hit" if cache_hit else "cache_miss",
                         round=k)
@@ -666,6 +677,7 @@ def run_service(dags: Sequence[LayerDAG], trace: EnvTrace,
             wall = cache_wall
         elif cfg.chaos is not None and k in cfg.chaos.stall_rounds:
             wall += cfg.chaos.stall_s
+        wall = agree(mesh, wall)
         if tel is not None:
             tel.observe("service.round_wall_s", wall)
         stalled = False
@@ -807,6 +819,9 @@ def run_services(fleets: Sequence[Sequence[LayerDAG]],
     A shared ``telemetry`` (DESIGN.md §13) gives service ``j`` its own
     Perfetto track (tid ``j``, labeled ``service-j``): the registry and
     tracer are thread-safe, so the N loops interleave into one timeline.
+    A meshed config (``replan.mesh``) is served over a world of one rank
+    only: the loops' collectives are serialised per process
+    (``launch.mesh``), which orders them on one rank but not across ranks.
     """
     n = len(fleets)
     if n == 0:
@@ -823,6 +838,14 @@ def run_services(fleets: Sequence[Sequence[LayerDAG]],
     cfgs_l = _bcast(cfgs if cfgs is not None else ServiceConfig(),
                     "configs")
     seeds_l = _bcast(seeds, "seeds")
+    if n > 1 and any(c.replan.mesh is not None for c in cfgs_l):
+        import torch.distributed as dist
+        if dist.get_world_size() > 1:
+            raise ValueError(
+                "run_services runs its services' meshed solves on threads "
+                "of one process: over more than one rank their collectives "
+                "could pair up out of order across ranks; run one meshed "
+                "service per process, or the mesh over a world of one")
     with ThreadPoolExecutor(max_workers=max_workers or n) as ex:
         futs = [ex.submit(run_service, fleets[j], traces_l[j],
                           cfgs_l[j], seed=seeds_l[j],

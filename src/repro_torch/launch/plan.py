@@ -35,6 +35,12 @@ round (rungs, breaker, wall, B1 / B2 launches), the availability and
 time-to-plan summary and the plan cache's line. ``--trace-out FILE`` and
 ``--metrics-out DIR`` install one telemetry channel for the whole
 planning path and export its Chrome trace and metrics snapshot.
+
+``--mesh host`` shards every solve (plan, re-plan, service) over a device
+mesh of the world's ranks (``launch.mesh.make_test_mesh``), as the
+reference's ``serve --mesh`` does: a world of one on the card (``nccl``)
+unless started by ``torchrun``; plans are bit for bit those of ``--mesh
+none``. ``--mesh prod`` needs a world of 256 ranks.
 """
 from __future__ import annotations
 
@@ -53,6 +59,7 @@ from ..core import (TRACE_KINDS, TRAFFIC_KINDS, ChaosConfig, IngestConfig,
                     tpu_fleet_environment)
 from ..kernels.schedule_sim import schedule_replay
 from ..kernels.traffic_sim import traffic_replay
+from .mesh import resolve_mesh
 
 #: the serve planner's settings (``repro/launch/serve.py``)
 DEADLINE_RATIO = 1.5
@@ -75,18 +82,19 @@ def plan_serving_shapes(cfg, *, device, pop: int = DEFAULT_PSO.pop_size,
                         traffic: Optional[str] = None,
                         traffic_rate: float = 0.5, prefix: str = "plan",
                         replan: Optional[str] = None, replan_rounds: int = 4,
-                        telemetry=None):
+                        telemetry=None, mesh=None):
     """Plan ``cfg``'s serving shapes as one batched fleet solve and print
     each plan, as ``serve --plan`` does; with ``replan`` (a drift family
     of ``TRACE_KINDS``) re-plan them through a trace of ``replan_rounds``
-    rounds (``telemetry`` goes to ``replan_fleet``). Returns the plans
-    (and, with ``replan``, the ``OnlineReport``)."""
+    rounds (``telemetry`` goes to ``replan_fleet``). ``mesh`` shards every
+    solve. Returns the plans (and, with ``replan``, the ``OnlineReport``).
+    """
     shapes = [s for s in SHAPES if s.kind != "train"]
     pso, tc = solver_configs(pop, iters, traffic, traffic_rate)
     t0 = time.perf_counter()
     plans = plan_offload_batch([(cfg, s, DEADLINE_RATIO) for s in shapes],
                                env=tpu_fleet_environment(), pso=pso,
-                               device=device, traffic=tc)
+                               device=device, traffic=tc, mesh=mesh)
     wall = time.perf_counter() - t0
     tag = f" under {traffic} traffic" if traffic else ""
     for shape, plan in zip(shapes, plans):
@@ -98,18 +106,18 @@ def plan_serving_shapes(cfg, *, device, pop: int = DEFAULT_PSO.pop_size,
         return plans
     return plans, replan_plans(plans, replan, replan_rounds, pso, tc,
                                device=device, prefix=prefix,
-                               telemetry=telemetry)
+                               telemetry=telemetry, mesh=mesh)
 
 
 def replan_plans(plans, scenario: str, rounds: int, pso: PSOGAConfig,
                  traffic: Optional[TrafficConfig], *, device,
-                 prefix: str = "plan", telemetry=None):
+                 prefix: str = "plan", telemetry=None, mesh=None):
     """Warm re-plan ``plans`` through ``rounds`` rounds of the drift trace
     ``scenario`` over the TPU fleet (seed 0), with the cold solve's config
     (and, under ``traffic``, its request stream and miss budget), as the
     reference's ``serve --plan --replan`` does. Prints one line per round,
     with its B1 and B2 launches; returns the ``OnlineReport``.
-    ``telemetry`` goes to ``replan_fleet``."""
+    ``telemetry`` goes to ``replan_fleet``; ``mesh`` shards its solves."""
     trace = sample_trace(scenario, tpu_fleet_environment(), rounds=rounds,
                          seed=0)
     if traffic is not None:
@@ -126,7 +134,7 @@ def replan_plans(plans, scenario: str, rounds: int, pso: PSOGAConfig,
 
     schedule_replay.launches = traffic_replay.launches = 0
     return replan_fleet([p.dag for p in plans], trace,
-                        ReplanConfig(pso=pso, traffic=traffic),
+                        ReplanConfig(pso=pso, traffic=traffic, mesh=mesh),
                         initial=[p.result for p in plans], device=device,
                         on_round=report, telemetry=telemetry)
 
@@ -147,18 +155,20 @@ def serve_plans(plans, scenario: str, rounds: int, pso: PSOGAConfig,
                 triage_margin: float = 0.0, estimate_rates: bool = False,
                 plan_cache: bool = False,
                 async_ingest: Optional[int] = None, telemetry=None,
-                prefix: str = "plan"):
+                prefix: str = "plan", mesh=None):
     """Run the always-on planning service on ``plans`` through ``rounds``
     rounds of the drift trace ``scenario`` over the TPU fleet (seed 0),
     as the reference's ``serve --plan --serve`` block does. Prints one
     line per round (with its B1 and B2 launches), the summary and, with
-    ``plan_cache``, the cache's line; returns the ``ServiceReport``."""
+    ``plan_cache``, the cache's line; returns the ``ServiceReport``.
+    ``mesh`` shards its solves."""
     trace = sample_trace(scenario, tpu_fleet_environment(), rounds=rounds,
                          seed=0)
     if traffic is not None:
         pso = dataclasses.replace(pso, miss_budget=traffic.miss_budget)
     scfg = ServiceConfig(
-        replan=ReplanConfig(pso=pso, traffic=traffic), slo_s=slo_s,
+        replan=ReplanConfig(pso=pso, traffic=traffic, mesh=mesh),
+        slo_s=slo_s,
         triage_margin=triage_margin, estimate_rates=estimate_rates,
         chaos=chaos_script(rounds) if chaos else None,
         plan_cache=PlanCacheConfig() if plan_cache else None,
@@ -202,16 +212,21 @@ def plan_from_args(cfg, args, *, device, prefix: str = "plan"):
     ``cfg``'s serving shapes, then re-plan (``--replan``) and serve them
     (``--serve``), under one telemetry channel installed globally for
     the planning path when ``--trace-out`` / ``--metrics-out`` is given,
-    exported at the end. Returns the ``ServiceReport`` with ``--serve``,
-    else None."""
+    exported at the end; ``--mesh`` shards every solve. Returns the
+    ``ServiceReport`` with ``--serve``, else None."""
     tel = Telemetry() if (args.trace_out or args.metrics_out) else None
+    mesh = resolve_mesh(args.mesh, device=device)
+    if mesh is not None:
+        print(f"[{prefix}] solver mesh: "
+              f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} over "
+              f"{mesh.size()} devices")
     rep = None
     with telemetry_scope(tel):
         out = plan_serving_shapes(
             cfg, device=device, pop=args.pop, iters=args.iters,
             traffic=args.traffic, traffic_rate=args.traffic_rate,
             prefix=prefix, replan=args.replan,
-            replan_rounds=args.replan_rounds, telemetry=tel)
+            replan_rounds=args.replan_rounds, telemetry=tel, mesh=mesh)
         if args.serve_scenario:
             plans = out[0] if args.replan else out
             pso, tc = solver_configs(args.pop, args.iters, args.traffic,
@@ -222,7 +237,7 @@ def plan_from_args(cfg, args, *, device, prefix: str = "plan"):
                 triage_margin=args.triage_margin,
                 estimate_rates=args.estimate_rates,
                 plan_cache=args.plan_cache, async_ingest=args.async_ingest,
-                telemetry=tel, prefix=prefix)
+                telemetry=tel, prefix=prefix, mesh=mesh)
     if tel is not None:
         if args.trace_out:
             tel.export_trace(args.trace_out)
@@ -288,6 +303,13 @@ def add_plan_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--trace-out", default=None, metavar="FILE",
                     help="write a Chrome trace-event JSON of the planning "
                          "spans (Perfetto / chrome://tracing)")
+    ap.add_argument("--mesh", default="none",
+                    choices=("none", "host", "prod"),
+                    help="device mesh for the fleet solver: shard every "
+                         "solve over the mesh's data axes. 'host' builds "
+                         "the test mesh over the world's ranks; 'prod' "
+                         "needs a world of 256. Plans are bit for bit "
+                         "those of --mesh none.")
     ap.add_argument("--metrics-out", default=None, metavar="DIR",
                     help="write the telemetry registry snapshot "
                          "(metrics.jsonl + metrics.prom) to DIR")

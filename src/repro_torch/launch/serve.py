@@ -37,7 +37,9 @@ plans instead (``core/service.py``: watchdog, ladder, breaker, triage,
 rate estimation, plan cache; ``--chaos`` injects faults) and, like the
 reference, returns without serving the LM: it is the serving loop.
 ``--trace-out`` / ``--metrics-out`` export the planning path's
-telemetry. The solver's ``--mesh`` waits for ROADMAP queue A item 13.
+telemetry; ``--plan --mesh host`` shards every solve over a device mesh
+(``launch/plan.py``). The LM server itself runs on one device (a server on
+a mesh is ROADMAP queue A item 13b).
 """
 from __future__ import annotations
 

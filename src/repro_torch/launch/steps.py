@@ -5,12 +5,14 @@ Each builder returns ``(model, step_fn, batch_specs)``: the model on its
 device (``cuda`` unless told), the step, and its inputs as meta tensors
 (``models.input_specs``). The parameters live in the model and the train
 step updates them in place, where the reference's jitted step takes and
-returns them (donated). The reference's shardings (``named``, in/out
-shardings, ZeRO-1 specs) wait for ROADMAP queue A item 13.
+returns them (donated). ``mesh``, ``data_axes`` and ``moe_impl`` go to
+``build_model``, so an MoE model's ``a2a`` dispatch is reached through
+these builders as in the reference; the reference's shardings (``named``,
+in/out shardings, ZeRO-1 specs) wait for ROADMAP queue A item 13b.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -36,7 +38,9 @@ def _micro(batch: Mapping, accum: int, i: int) -> Dict:
 
 def make_train_objects(cfg: ModelConfig, shape: ShapeSpec,
                        acfg: AdamWConfig = AdamWConfig(), accum: int = 1,
-                       compress: bool = False, device=None):
+                       compress: bool = False, device=None, mesh=None,
+                       data_axes: Tuple[str, ...] = ("data",),
+                       moe_impl: str = "scatter"):
     """The full train step: forward and backward through the model's
     ``loss_fn`` (its differentiable route), then ``adamw_update``.
 
@@ -47,8 +51,11 @@ def make_train_objects(cfg: ModelConfig, shape: ShapeSpec,
     split into ``accum`` micro-batches whose gradients are summed in
     float32 and averaged (and their losses), as the reference's scan does.
     The model's parameters get ``requires_grad``; serving models keep
-    theirs off."""
-    model = build_model(cfg, device=device)
+    theirs off. Under ``moe_impl="a2a"`` every rank of ``mesh`` takes the
+    same step on the same global batch, and its gradients are the
+    unsharded model's (its expert slices)."""
+    model = build_model(cfg, device=device, mesh=mesh, data_axes=data_axes,
+                        moe_impl=moe_impl)
     model.requires_grad_(True)
     params = dict(model.named_parameters())
 
@@ -86,11 +93,14 @@ def make_train_objects(cfg: ModelConfig, shape: ShapeSpec,
     return model, train_step, input_specs(cfg, shape)
 
 
-def make_prefill_objects(cfg: ModelConfig, shape: ShapeSpec, device=None):
+def make_prefill_objects(cfg: ModelConfig, shape: ShapeSpec, device=None,
+                         mesh=None, data_axes: Tuple[str, ...] = ("data",),
+                         moe_impl: str = "scatter"):
     """Prefill step: forward, the caches grown to the shape's length, and
     the last token's logits (``prefill_step(batch) -> (logits,
     caches)``)."""
-    model = build_model(cfg, device=device)
+    model = build_model(cfg, device=device, mesh=mesh, data_axes=data_axes,
+                        moe_impl=moe_impl)
     cache_len = cache_len_for(cfg, shape)
 
     @torch.no_grad()
@@ -100,12 +110,15 @@ def make_prefill_objects(cfg: ModelConfig, shape: ShapeSpec, device=None):
     return model, prefill_step, input_specs(cfg, shape)
 
 
-def make_decode_objects(cfg: ModelConfig, shape: ShapeSpec, device=None):
+def make_decode_objects(cfg: ModelConfig, shape: ShapeSpec, device=None,
+                        mesh=None, data_axes: Tuple[str, ...] = ("data",),
+                        moe_impl: str = "scatter"):
     """One-token serve step against caches of the shape's length
     (``serve_step(caches, {"token", "pos"}) -> (logits, caches)``, the
     caches updated in place; ``model.init_caches(batch, cache_len_for(cfg,
     shape))`` makes empty ones)."""
-    model = build_model(cfg, device=device)
+    model = build_model(cfg, device=device, mesh=mesh, data_axes=data_axes,
+                        moe_impl=moe_impl)
 
     @torch.no_grad()
     def serve_step(caches, batch):

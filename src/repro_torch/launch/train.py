@@ -21,7 +21,7 @@ inputs that require grad). Parameters start from a seeded
 ``torch.Generator`` draw, or from ``init_params`` (a state dict: how the
 parity tests start from the reference's ``model.init(PRNGKey(seed))``).
 The reference's device mesh (``--model-axis`` other than 1, its elastic
-mesh and ZeRO-1 sharding) waits for ROADMAP queue A item 13.
+mesh and ZeRO-1 sharding) waits for ROADMAP queue A item 13b.
 """
 from __future__ import annotations
 
@@ -70,7 +70,7 @@ class Trainer:
         if tcfg.model_axis != 1:
             raise NotImplementedError(
                 f"model_axis={tcfg.model_axis}: tensor parallelism over a "
-                f"device mesh waits for ROADMAP queue A item 13")
+                f"device mesh waits for ROADMAP queue A item 13b")
         self.cfg, self.shape, self.tcfg, self.acfg = cfg, shape, tcfg, acfg
         self.device = resolve_device(device)
         self.stream = make_stream(cfg, shape, data)

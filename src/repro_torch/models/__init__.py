@@ -7,7 +7,7 @@ reference's parameters."""
 from .attention import (attn_decode, attn_prefill, cross_attn_apply,
                         cross_kv, dequantize_kv, grow_cache, init_cache,
                         quantize_kv)
-from .convert import params_from_reference
+from .convert import expert_shard, params_from_reference
 from .encdec import CROSS_FRAMES, EncDecLM
 from .hybrid import MambaLM, Zamba2LM
 from .layers import mlp_apply, rms_norm, rope
@@ -19,7 +19,8 @@ from .transformer import TransformerLM
 
 __all__ = ["attn_decode", "attn_prefill", "cross_attn_apply", "cross_kv",
            "dequantize_kv", "grow_cache", "init_cache", "quantize_kv",
-           "params_from_reference", "CROSS_FRAMES", "EncDecLM", "mlp_apply",
+           "params_from_reference", "expert_shard", "CROSS_FRAMES",
+           "EncDecLM", "mlp_apply",
            "rms_norm", "rope", "build_model", "cache_len_for",
            "input_specs", "model_flops", "param_count",
            "skip_reason", "supports_shape", "moe_apply", "TransformerLM",

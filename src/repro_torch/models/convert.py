@@ -40,6 +40,11 @@ layer-stacked layout, and returns the state dict of the port's model for
 Nothing is transposed or re-laid out; bfloat16 arrays keep their bits and
 the float32 ``A_log``, ``D``, ``dt_bias`` and MoE ``router`` of a
 bfloat16 model stay float32.
+
+``expert_shard(cfg, state, mesh)`` cuts such a state dict down to what
+one rank of an ``a2a`` model holds: each expert bank (``*.moe.{wi, wg,
+wo}``) sliced to the rank's ``E/m`` experts (``moe.expert_range``), every
+other tensor whole.
 """
 from __future__ import annotations
 
@@ -50,7 +55,7 @@ import torch
 
 from ..configs.base import ModelConfig
 
-__all__ = ["params_from_reference"]
+__all__ = ["params_from_reference", "expert_shard"]
 
 
 def _tensor(a: Any) -> torch.Tensor:
@@ -112,3 +117,15 @@ def params_from_reference(cfg: ModelConfig, tree: Mapping[str, Any]
         _stacked(tree["tail"], "tail", (n_tail,), out)
     _flatten(tree["shared_attn"], "shared_attn", out)
     return out
+
+
+def expert_shard(cfg: ModelConfig, state: Mapping[str, torch.Tensor],
+                 mesh, model_axis: str = "model"
+                 ) -> Dict[str, torch.Tensor]:
+    """``state`` (a whole model's, e.g. ``params_from_reference``'s) with
+    every expert bank cut to this rank's experts on ``mesh``."""
+    from .moe import expert_range
+    lo, hi = expert_range(cfg, mesh, model_axis)
+    banks = (".moe.wi", ".moe.wg", ".moe.wo")
+    return {n: t[lo:hi] if n.endswith(banks) else t
+            for n, t in state.items()}

@@ -9,11 +9,11 @@ hybrid (``Zamba2LM``) and the enc-dec model (``EncDecLM``).
 ``input_specs`` gives the inputs of the step a shape exercises as tensors
 on the ``meta`` device (shapes and dtypes, no storage), where the
 reference gives ``jax.ShapeDtypeStruct``s; ``batch_pspecs`` (their
-shardings) waits for ROADMAP queue A item 13.
+shardings) waits for ROADMAP queue A item 13b.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -26,10 +26,16 @@ __all__ = ["build_model", "input_specs", "cache_len_for", "supports_shape",
            "skip_reason", "model_flops", "param_count"]
 
 
-def build_model(cfg: ModelConfig, device=None):
-    """The model for ``cfg`` on ``device`` (``cuda`` unless told)."""
+def build_model(cfg: ModelConfig, device=None, mesh=None,
+                data_axes: Tuple[str, ...] = ("data",),
+                moe_impl: str = "scatter"):
+    """The model for ``cfg`` on ``device`` (``cuda`` unless told). An MoE
+    model with ``moe_impl="a2a"`` dispatches over ``mesh`` (tokens over
+    ``data_axes``) and holds this rank's experts; the other families take
+    no mesh yet (their shardings are ROADMAP queue A item 13b)."""
     if cfg.family in ("dense", "moe", "vlm"):
-        return TransformerLM(cfg, device=device)
+        return TransformerLM(cfg, device=device, moe_impl=moe_impl,
+                             mesh=mesh, data_axes=data_axes)
     if cfg.family == "ssm":
         return MambaLM(cfg, device=device)
     if cfg.family == "hybrid":

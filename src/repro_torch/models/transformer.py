@@ -64,7 +64,8 @@ class DenseBlock(nn.Module):
     not initialised (``init`` fills them)."""
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype,
-                 device: torch.device):
+                 device: torch.device,
+                 experts: Optional[Tuple[int, int]] = None):
         super().__init__()
         d, h, k, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
@@ -81,7 +82,7 @@ class DenseBlock(nn.Module):
             a["q_norm"], a["k_norm"] = zeros(hd), zeros(hd)
         self.attn = nn.ParameterDict(a)
         if cfg.n_experts:
-            self.moe = moe_mod.MoE(cfg, dtype, device)
+            self.moe = moe_mod.MoE(cfg, dtype, device, experts)
         else:
             self.mlp = mlp_params(d, cfg.d_ff, cfg.act, dtype, device)
         self.cfg = cfg
@@ -112,14 +113,17 @@ class DenseBlock(nn.Module):
         else:
             init_mlp(self.mlp, gen)
 
-    def ffn(self, x: torch.Tensor, moe_impl: str = "scatter"
+    def ffn(self, x: torch.Tensor, moe_impl: str = "scatter", mesh=None,
+            data_axes: Tuple[str, ...] = ("data",)
             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """The pre-normed MLP (or MoE) branch and its aux loss (None for an
-        MLP)."""
+        MLP); ``moe_impl``, ``mesh`` and ``data_axes`` go to
+        ``moe_apply``."""
         cfg = self.cfg
         hn = rms_norm(x, self.ln2, cfg.norm_eps)
         if cfg.n_experts:
-            return moe_mod.moe_apply(self.moe, hn, cfg, moe_impl)
+            return moe_mod.moe_apply(self.moe, hn, cfg, moe_impl, mesh,
+                                     data_axes)
         return mlp_apply(self.mlp, hn, cfg.act), None
 
 
@@ -131,12 +135,18 @@ class LMBase(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         self.cfg = cfg
-        self.device = resolve_device(device)
+        dev = resolve_device(device)
         self.dtype = DTYPES[cfg.dtype]
         self.embed = _param(torch.empty((cfg.vocab, cfg.d_model),
-                                        dtype=self.dtype, device=self.device))
+                                        dtype=self.dtype, device=dev))
         self.final_norm = _param(torch.zeros(cfg.d_model, dtype=self.dtype,
-                                             device=self.device))
+                                             device=dev))
+
+    @property
+    def device(self) -> torch.device:
+        """Where the weights are: a model built on ``meta`` and loaded
+        with ``load_state_dict(..., assign=True)`` runs where they were."""
+        return self.embed.device
 
     def init_embed(self, gen: torch.Generator) -> None:
         embed_init(gen, self.cfg.vocab, self.cfg.d_model, self.dtype,
@@ -173,17 +183,20 @@ class TransformerLM(LMBase):
     """cfg.family in {dense, moe, vlm}."""
 
     def __init__(self, cfg: ModelConfig, device=None,
-                 moe_impl: str = "scatter"):
+                 moe_impl: str = "scatter", mesh=None,
+                 data_axes: Tuple[str, ...] = ("data",)):
         if cfg.family not in ("dense", "moe", "vlm"):
             raise ValueError(f"TransformerLM serves the dense, moe and vlm "
                              f"families, not {cfg.family!r}")
-        moe_mod.check_impl(moe_impl)
+        moe_mod.check_impl(moe_impl, mesh)
         super().__init__(cfg, device)
-        self.moe_impl = moe_impl
+        self.moe_impl, self.mesh, self.data_axes = moe_impl, mesh, data_axes
         dev, dt = self.device, self.dtype
+        experts = moe_mod.expert_range(cfg, mesh) \
+            if cfg.n_experts and moe_impl == "a2a" else None
 
         def block():
-            return DenseBlock(cfg, dt, dev)
+            return DenseBlock(cfg, dt, dev, experts)
         period = cfg.local_global_period
         # layers: (block, is_global, where its cache lives); stacks: each
         # cache dict's path -> (leading axes, is_global)
@@ -266,7 +279,7 @@ class TransformerLM(LMBase):
             blk.attn, rms_norm(x, blk.ln1, cfg.norm_eps), positions, cfg,
             is_global, with_cache, train=train)
         x = x + h
-        y, a = blk.ffn(x, self.moe_impl)
+        y, a = blk.ffn(x, self.moe_impl, self.mesh, self.data_axes)
         return x + y, c, a
 
     def forward(self, batch: Dict, with_cache: bool = False,
@@ -347,7 +360,8 @@ class TransformerLM(LMBase):
                 blk.attn, rms_norm(x, blk.ln1, cfg.norm_eps), layer, pos,
                 cfg, is_global)
             x = x + h
-            x = x + blk.ffn(x, self.moe_impl)[0]
+            x = x + blk.ffn(x, self.moe_impl, self.mesh,
+                            self.data_axes)[0]
         return self.logits(x), caches
 
     # ------------------------------------------------------------- caches

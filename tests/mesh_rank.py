@@ -1,0 +1,364 @@
+"""One rank of the port's CPU mesh tests, as its own process:
+
+    python tests/mesh_rank.py TASK RANK WORLD STORE OUT [IN]
+
+The ranks of a world meet over ``gloo`` through a ``FileStore`` at STORE
+and each writes its results to ``OUT`` with ``-<rank>.npz`` appended;
+``IN`` is an ``.npz`` of inputs the test made. TASK:
+
+* ``solve`` — the fleet solver on a mesh (world 2: ``elastic_mesh(model=
+  1)``, world 4: ``make_test_mesh()``): cold, warm and traffic solves of
+  ``fleet()``, three problems of one bucket (padded to 4) on the port's
+  stream and on the reference's draws from IN; at world 4 also a cold
+  solve on a mesh of 3 of the 4 ranks, at world 2 a replan round and a
+  3-round chaos service under a fake clock;
+* ``moe`` — reduced mixtral's ``moe_apply(impl="a2a")`` and ``loss_fn``
+  on ``make_test_mesh()`` from the reference's parameters in IN, and the
+  layer again on the multi-pod test mesh over ``("pod", "data")``;
+* ``ref-moe`` (no rank: RANK WORLD STORE are ignored) — the reference's
+  a2a on 4 forced host devices, for the ``moe`` comparison; the only task
+  that imports JAX, with ``XLA_FLAGS`` set by the test.
+
+Imported by the tests for ``spawn``, the problems, the configs and the
+input makers.
+"""
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+
+HELPER = Path(__file__).resolve()
+#: seconds a spawned world may take (import, meet, solve, write)
+SPAWN_TIMEOUT_S = 120
+
+#: the solver tests' config: small, with every problem freezing at its
+#: own iteration
+CFG_KW = dict(pop_size=12, max_iters=24, stall_iters=8)
+#: reduced mixtral's layer inputs: 64 tokens (every entry kept) and 10,240
+#: (> 8,192: capacity dropping), in (batch, seq)
+MOE_SHAPES = {"exact": (4, 16), "drop": (4, 2560)}
+AUX_WEIGHT = 3.0
+
+
+def child_env(**extra):
+    """This environment with the repo's ``src`` on ``PYTHONPATH`` and
+    ``extra`` on top, for a spawned process."""
+    path = os.pathsep.join([str(HELPER.parent.parent / "src"),
+                            os.environ.get("PYTHONPATH", "")])
+    return {**os.environ, "PYTHONPATH": path, **extra}
+
+
+def spawn(task, world, tmp, inputs):
+    """Run ``world`` ranks of this script's TASK; their ``.npz`` results
+    in rank order. A rank that fails or hangs fails the caller."""
+    out = tmp / "out"
+    procs = [subprocess.Popen(
+        [sys.executable, str(HELPER), task, str(r), str(world),
+         str(tmp / "store"), str(out), str(inputs)],
+        env=child_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=SPAWN_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    for r, p in enumerate(procs):
+        assert p.returncode == 0, f"rank {r} of {world}:\n{logs[r]}"
+    return [dict(np.load(f"{out}-{r}.npz")) for r in range(world)]
+
+
+def fleet(lib):
+    """Five problems in two buckets: alexnet x3 (11 layers -> 16, not a
+    multiple of 2 shards) and vgg19 x2 (25 -> 32)."""
+    env = lib.paper_environment()
+    out = []
+    for i, (net, ratio) in enumerate((("alexnet", 2.0), ("vgg19", 1.5),
+                                      ("alexnet", 3.0), ("vgg19", 2.5),
+                                      ("alexnet", 1.2))):
+        dag = lib.zoo.build(net, pin_server=i % 3)
+        h, _ = lib.heft_makespan(dag, env)
+        out.append((dag.with_deadline(np.array([ratio * h])), env))
+    return out
+
+
+def trio(lib):
+    """Three alexnets of one bucket: N = 3 on 2 shards pads one row."""
+    return fleet(lib)[0::2]
+
+
+def arrivals_for(n, seed=23):
+    rng = np.random.default_rng(seed)
+    return [np.sort(rng.uniform(0.0, 8.0, size=(2, 1, 3)), axis=-1)
+            for _ in range(n)]
+
+
+def moe_cfg(get):
+    return dataclasses.replace(get("mixtral-8x7b").reduced(),
+                               dtype="float32")
+
+
+def moe_inputs(d_model, vocab):
+    """Layer inputs and cotangent weights per regime, and a token batch
+    for ``loss_fn`` (4 x 17: 64 positions after the labels' shift)."""
+    rng = np.random.default_rng(5)
+    out = {}
+    for tag, (b, s) in MOE_SHAPES.items():
+        out[f"x_{tag}"] = rng.standard_normal((b, s, d_model)).astype(
+            np.float32)
+        out[f"w_{tag}"] = rng.standard_normal((b, s, d_model)).astype(
+            np.float32)
+    out["tokens"] = rng.integers(2, vocab, (4, 17)).astype(np.int32)
+    return out
+
+
+def _results(prefix, res, out):
+    out[f"{prefix}.fit"] = np.array([r.best_fitness for r in res])
+    out[f"{prefix}.cost"] = np.array([r.best_cost for r in res])
+    out[f"{prefix}.it"] = np.array([r.iterations for r in res])
+    out[f"{prefix}.feas"] = np.array([r.feasible for r in res])
+    for i, r in enumerate(res):
+        out[f"{prefix}.x{i}"] = np.asarray(r.best_x)
+
+
+def run_solve(rank, world, mesh):
+    import repro_torch.core as port
+    from repro_torch.core.pso_ga import SwarmDraws
+    from repro_torch.launch.plan import chaos_script
+    cfg = port.PSOGAConfig(**CFG_KW)
+    probs = fleet(port)
+    n = len(probs)
+    out = construct(world)
+    cold = port.run_pso_ga_batch(probs, cfg, seed=list(range(n)),
+                                 device="cpu", mesh=mesh)
+    _results("cold", cold, out)
+    if world == 4:
+        # a mesh of 3 ranks: rank 3 solves nothing and gets every result
+        from repro_torch.runtime import elastic_mesh
+        three = elastic_mesh(1, devices=range(3), device="cpu")
+        _results("outside", port.run_pso_ga_batch(
+            probs, cfg, seed=list(range(n)), device="cpu", mesh=three), out)
+    inc = [r.best_x for r in cold]
+    rescue = [i % 2 == 0 for i in range(n)]
+    warm, state = port.run_pso_ga_batch(
+        probs, cfg, seed=9, device="cpu", incumbent=inc,
+        migration_weight=1.0, warm_rescue=rescue, return_state=True,
+        mesh=mesh)
+    _results("warm", warm, out)
+    out["warm.stall"] = state.stall.numpy()
+    out["warm.X"] = state.X.numpy()
+    traffic = port.run_pso_ga_batch(probs, cfg, seed=6, device="cpu",
+                                    arrivals=arrivals_for(n), mesh=mesh)
+    _results("traffic", traffic, out)
+    three = trio(port)
+    _results("trio", port.run_pso_ga_batch(three, cfg, seed=[1, 2, 3],
+                                           device="cpu", mesh=mesh), out)
+    inp = np.load(sys.argv[6])
+
+    def draw_fn(i, step):
+        return SwarmDraws(*(inp[f"draw{i}.{f}"][step]
+                            for f in SwarmDraws._fields))
+    _results("legacy", port.run_pso_ga_batch(
+        three, cfg, seed=[1, 2, 3], device="cpu",
+        X0=[inp[f"X0.{i}"] for i in range(3)], draw_fn=draw_fn,
+        mesh=mesh), out)
+    if world == 2:
+        env, dags = probs[0][1], [d for d, _ in probs]
+        drifted = port.sample_trace("congestion", env, rounds=2, seed=3)
+        sp = [port.SimProblem.build(d, drifted.env_at(1)) for d in dags]
+        plans, log = port.replan_round(
+            sp, inc, port.ReplanConfig(pso=cfg, mesh=mesh), seed=5,
+            round_no=1, device="cpu")
+        for i, x in enumerate(plans):
+            out[f"replan.x{i}"] = np.asarray(x)
+        for f in ("replanned", "incumbent_key", "candidate_key", "cost",
+                  "iterations", "demoted"):
+            out[f"replan.{f}"] = np.asarray(getattr(log, f))
+        rep = run_service(port, dags, env, cfg, mesh, chaos_script)
+        for i, x in enumerate(rep.plans):
+            out[f"service.x{i}"] = np.asarray(x)
+        out["service.rungs"] = np.array([r.rung for r in rep.rounds])
+        out["service.walls"] = np.array([r.wall_s for r in rep.rounds])
+        out["service.counters"] = np.array(sorted(rep.counters.items()))
+    return out
+
+
+def construct(world):
+    """The meshes of this world: ``elastic_mesh`` with model 1 and 2, over
+    the first 3 ranks, and the multi-pod test mesh (or its error)."""
+    from repro_torch.launch.mesh import (data_index, data_shard_count,
+                                         make_test_mesh)
+    from repro_torch.runtime import elastic_mesh
+    out = {}
+    for tag, build in (("elastic1", lambda: elastic_mesh(1, device="cpu")),
+                       ("elastic2", lambda: elastic_mesh(2, device="cpu")),
+                       ("elastic3", lambda: elastic_mesh(
+                           1, devices=range(min(3, world)), device="cpu")),
+                       ("pod", lambda: make_test_mesh(multi_pod=True,
+                                                      device="cpu"))):
+        try:
+            m = build()
+        except ValueError as e:
+            out[f"{tag}.error"] = np.array(str(e))
+            continue
+        out[f"{tag}.shape"] = np.array(m.shape)
+        out[f"{tag}.names"] = np.array(m.mesh_dim_names)
+        out[f"{tag}.shards"] = np.array(data_shard_count(m))
+        idx = data_index(m)
+        out[f"{tag}.index"] = np.array(-1 if idx is None else idx)
+    return out
+
+
+def run_service(port, dags, env, cfg, mesh, chaos_script):
+    """A 3-round congestion service under the ``--chaos`` script with the
+    plan cache, walls from a fake clock."""
+    class FakeClock:
+        t = 0.0
+
+        def __call__(self):
+            self.t += 0.001
+            return self.t
+    trace = port.sample_trace("congestion", env, rounds=3, seed=0)
+    scfg = port.ServiceConfig(
+        replan=port.ReplanConfig(pso=cfg, mesh=mesh),
+        chaos=chaos_script(3), plan_cache=port.PlanCacheConfig())
+    return port.run_service(dags, trace, scfg, seed=0, device="cpu",
+                            sleeper=lambda s: None,
+                            telemetry=port.Telemetry(clock=FakeClock()))
+
+
+def run_moe(rank, world, mesh):
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import build_model, expert_shard, moe_apply
+    from repro_torch.models.moe import MoE, expert_range
+    cfg = moe_cfg(get)
+    inp = np.load(sys.argv[6])
+    out = {}
+    layer = MoE(cfg, torch.float32, torch.device("cpu"),
+                experts=expert_range(cfg, mesh))
+    full = {k[len("layer."):]: torch.from_numpy(inp[k])
+            for k in inp.files if k.startswith("layer.")}
+    pre = "blocks.0.moe."
+    sliced = expert_shard(cfg, {pre + k: v for k, v in full.items()}, mesh)
+    layer.load_state_dict({k[len(pre):]: v for k, v in sliced.items()})
+    for w in layer.parameters():
+        w.requires_grad_(True)
+    # the (2, 2) test mesh over ("data",), and the multi-pod test mesh
+    # (pod 2, data 1, model 2) over ("pod", "data"): the same split
+    pod = make_test_mesh(multi_pod=True, device="cpu")
+    for mesh_, axes, prefix in ((mesh, ("data",), ""),
+                                (pod, ("pod", "data"), "pod.")):
+        for tag in MOE_SHAPES:
+            x = torch.from_numpy(inp[f"x_{tag}"]).requires_grad_(True)
+            y, aux = moe_apply(layer, x, cfg, impl="a2a", mesh=mesh_,
+                               data_axes=axes)
+            (torch.sum(y * torch.from_numpy(inp[f"w_{tag}"]))
+             + AUX_WEIGHT * aux).backward()
+            tag = prefix + tag
+            out[f"{tag}.y"], out[f"{tag}.aux"] = y.detach().numpy(), \
+                aux.detach().numpy()
+            out[f"{tag}.gx"] = x.grad.numpy()
+            for name, w in layer.named_parameters():
+                out[f"{tag}.g.{name}"] = w.grad.numpy()
+                w.grad = None
+    model = build_model(cfg, device="cpu", mesh=mesh, moe_impl="a2a")
+    state = {k[len("model."):]: torch.from_numpy(inp[k])
+             for k in inp.files if k.startswith("model.")}
+    model.load_state_dict(expert_shard(cfg, state, mesh))
+    model.requires_grad_(True)
+    loss, metrics = model.loss_fn({"tokens": inp["tokens"]})
+    loss.backward()
+    out["loss"], out["loss.aux"] = loss.detach().numpy(), \
+        metrics["aux"].detach().numpy()
+    for name, w in model.named_parameters():
+        out[f"grad.{name}"] = w.grad.numpy()
+    return out
+
+
+def run_ref_moe(inp_path, out_path):
+    """The reference's a2a on a (2, 2) mesh of forced host devices."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get
+    from repro.launch.mesh import make_test_mesh
+    from repro.models import build_model
+    from repro.models import moe as ref_moe
+    assert jax.device_count() == 4, jax.devices()
+    cfg = moe_cfg(get)
+    mesh = make_test_mesh()
+    inp = np.load(inp_path)
+    p = {k[len("layer."):]: jnp.asarray(inp[k]) for k in inp.files
+         if k.startswith("layer.")}
+    out = {}
+    for tag in MOE_SHAPES:
+        x, w = jnp.asarray(inp[f"x_{tag}"]), jnp.asarray(inp[f"w_{tag}"])
+
+        def f(p, x):
+            y, aux = ref_moe.moe_apply(p, x, cfg, impl="a2a", mesh=mesh)
+            return jnp.sum(y * w) + AUX_WEIGHT * aux, (y, aux)
+        with mesh:
+            (_, (y, aux)), (gp, gx) = jax.jit(jax.value_and_grad(
+                f, argnums=(0, 1), has_aux=True))(p, x)
+        out[f"{tag}.y"], out[f"{tag}.aux"] = np.asarray(y), np.asarray(aux)
+        out[f"{tag}.gx"] = np.asarray(gx)
+        for name, g in gp.items():
+            out[f"{tag}.g.{name}"] = np.asarray(g)
+    model = build_model(cfg, mesh=mesh, data_axes=("data",),
+                        moe_impl="a2a")
+    params = jax.tree.map(jnp.asarray, _unflatten(
+        {k[len("tree."):]: inp[k] for k in inp.files
+         if k.startswith("tree.")}))
+    with mesh:
+        (loss, metrics), grads = jax.jit(jax.value_and_grad(
+            model.loss_fn, has_aux=True))(
+                params, {"tokens": jnp.asarray(inp["tokens"])})
+    out["loss"], out["loss.aux"] = np.asarray(loss), \
+        np.asarray(metrics["aux"])
+    for path, g in jax.tree_util.tree_flatten_with_path(grads)[0]:
+        out["tree." + "/".join(k.key for k in path)] = np.asarray(g)
+    np.savez(out_path, **out)
+
+
+def _unflatten(flat):
+    tree = {}
+    for key, v in flat.items():
+        node = tree
+        *head, last = key.split("/")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = v
+    return tree
+
+
+def main():
+    task = sys.argv[1]
+    if task == "ref-moe":
+        run_ref_moe(sys.argv[6], sys.argv[5])
+        return
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    rank, world = int(sys.argv[2]), int(sys.argv[3])
+    dist.init_process_group("gloo", store=dist.FileStore(sys.argv[4], world),
+                            rank=rank, world_size=world)
+    from repro_torch.launch.mesh import data_index, make_test_mesh
+    from repro_torch.runtime import elastic_mesh
+    mesh = elastic_mesh(model=1, device="cpu") if world == 2 \
+        else make_test_mesh(device="cpu")
+    out = (run_solve if task == "solve" else run_moe)(rank, world, mesh)
+    out["data_index"] = np.array(data_index(mesh))
+    out["mesh_shape"] = np.array(mesh.shape)
+    np.savez(f"{sys.argv[5]}-{rank}.npz", **out)
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()

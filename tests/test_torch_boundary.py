@@ -141,6 +141,49 @@ def test_model_modules_load_neither_jax_nor_the_reference():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+#: the device mesh's modules (ROADMAP queue A item 13a)
+MESH_MODULES = ("repro_torch.launch.mesh", "repro_torch.runtime.elastic",
+                "repro_torch.models.moe", "repro_torch.core.batch")
+
+
+@pytest.mark.parametrize("name", MESH_MODULES)
+def test_mesh_modules_are_scanned(name):
+    assert PORT.joinpath(*name.split(".")[1:]).with_suffix(".py") in SOURCES
+
+
+def test_mesh_modules_load_neither_jax_nor_the_reference():
+    """Importing the mesh, the elastic mesh, the a2a MoE and the sharded
+    solver in a fresh interpreter leaves ``jax`` and every ``repro``
+    module unloaded, and starts no process group."""
+    code = ("import sys, importlib\n"
+            f"for m in {MESH_MODULES!r}: importlib.import_module(m)\n"
+            "import torch.distributed as dist\n"
+            "assert not dist.is_initialized()\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "print(bad); sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300,
+                          env={**os.environ, "PYTHONPATH": str(REPO / "src")})
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_mesh_defaults_to_the_card(monkeypatch):
+    """``device=None`` is the card: without one, building a mesh raises
+    rather than start a ``gloo`` world on the CPU."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import resolve_mesh
+    from repro_torch.runtime import elastic_mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: resolve_mesh("host"),
+                 lambda: elastic_mesh(model=1)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert not dist.is_initialized()
+
+
 #: the training slice's modules (ROADMAP queue A items 12.6a and 12.6b)
 TRAIN_MODULES = ("repro_torch.optim", "repro_torch.optim.adamw",
                  "repro_torch.optim.compression", "repro_torch.data",

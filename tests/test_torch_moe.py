@@ -154,13 +154,16 @@ def test_moe_apply_drops_entries_above_the_exact_line():
 
 
 def test_a2a_dispatch_raises():
-    """Only the scatter dispatch is ported; expert parallelism waits for
-    ROADMAP queue A item 13."""
+    """The a2a dispatch needs a device mesh (the reference asserts one);
+    an unknown dispatch is refused. ``tests/test_torch_moe_a2a.py`` runs
+    a2a over meshes."""
     _, cfg = _cfgs("mixtral-8x7b")
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(ValueError, match="needs a device mesh"):
         TransformerLM(cfg, device="cpu", moe_impl="a2a")
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(ValueError, match="needs a device mesh"):
         moe_apply(None, torch.zeros(1, 1, cfg.d_model), cfg, impl="a2a")
+    with pytest.raises(ValueError, match="unknown moe_impl"):
+        TransformerLM(cfg, device="cpu", moe_impl="gather")
 
 
 # ---------------------------------------------------------------------------

@@ -126,16 +126,17 @@ def test_malformed_events_and_traces_rejected():
 
 
 def test_config_and_log_fields_match_reference():
-    """``RoundLog`` and ``OnlineReport`` keep the reference's fields;
-    ``ReplanConfig`` all but ``mesh`` (one device)."""
+    """``RoundLog``, ``OnlineReport`` and ``ReplanConfig`` keep the
+    reference's fields (``mesh`` a ``DeviceMesh``, ``None`` by default:
+    one device)."""
     assert port.RoundLog._fields == ref.RoundLog._fields
     assert [f.name for f in dataclasses.fields(port.OnlineReport)] == \
         [f.name for f in dataclasses.fields(ref.OnlineReport)]
-    names = [f.name for f in dataclasses.fields(ref.ReplanConfig)]
     assert [f.name for f in dataclasses.fields(port.ReplanConfig)] == \
-        [n for n in names if n != "mesh"]
+        [f.name for f in dataclasses.fields(ref.ReplanConfig)]
     a, b = ref.ReplanConfig(), port.ReplanConfig()
     assert b.migration_weight == a.migration_weight and b.traffic is None
+    assert b.mesh is None
     assert port_cfg(a.pso) == b.pso
     report = port.OnlineReport(
         cold=[port.PSOGAResult(np.zeros(2, np.int32), 1.0, 1.0, True, 1)],
