@@ -117,6 +117,24 @@ result line):
                and decode logits against the prefill logits of the longer
                prompt (teacher-forced, 2e-3); in bfloat16 (the tensor-core B3
                route) logits to 2e-2 + 2e-2 |plain|, token equality printed;
+ 13b. serve-mesh — the server on a device mesh (tensor parallelism, ROADMAP
+               item 13b): (a) ``Server(mesh=elastic_mesh(model=1))``, an
+               ``nccl`` world of one, qwen3-0.6b at full width and depth in
+               bfloat16 (batch 8 x 2048, 32 new), in turns with the meshless
+               Server (none, mesh, mesh, none): tokens bit for bit, 28 B3 +
+               868 B4 each call; (b) two processes (``chip_smoke.py
+               --serve-rank``) sharing ``cuda:0`` over ``gloo`` on
+               ``elastic_mesh(model=2)`` = ``(data 1, model 2)``: the same
+               qwen3 on each rank's half of the heads (28 B3 at 8 q / 4 kv
+               heads, 868 B4 at 4 kv heads, the heads recorded at the
+               kernels' layout wrappers), prefill ms, decode tokens/s and
+               peak memory a rank, tokens against the world of one's
+               (printed); float32 at full width, batch 2 x 1000 and 4 greedy
+               steps, qwen3 (2 layers), mamba2 (2 blocks, B5 at 40 heads a
+               rank) and mixtral (2 layers, 4 experts a rank) against the
+               meshless runs on the card (logits 1e-4, tokens equal) and
+               against the plain kernels on each rank (1e-4); qwen3 on
+               ``(data 2, model 1)``, a row a rank, against the meshless run;
  14. time-attn — B3 and B4 per launch at qwen3-0.6b's and zamba2-7b's
                serving shapes (CUDA events over calls queued behind a device
                sleep, five rounds in turns with one
@@ -424,10 +442,8 @@ def free_card():
 
 def _kernel_launches():
     """(B3, B4, B5) launch counters."""
-    from repro_torch.kernels import decode_attention, flash_attention, ssd_scan
-    return (flash_attention.flash_attention_folded.launches,
-            decode_attention.decode_attention_folded.launches,
-            ssd_scan.ssd_intra_folded.launches)
+    from repro_torch.launch.serve import kernel_launches
+    return kernel_launches()
 
 
 def train_check(dev):
@@ -620,6 +636,167 @@ def mesh_rank(rank: int, tmp: str) -> int:
         out[f"{tag}.it"] = np.array([r.iterations for r in res])
         out[f"{tag}.feas"] = np.array([r.feasible for r in res])
     np.savez(f"{tmp}/rank{rank}.npz", **out)
+    dist.destroy_process_group()
+    return 0
+
+
+#: serve-mesh's float32 checks: (tag, arch, layers), full width, batch 2 x
+#: MESH_PROMPT tokens and MESH_STEPS greedy steps (mixtral's 2,000 tokens
+#: keep every routed entry)
+MESH_CHECKS = (("qwen3", "qwen3-0.6b", 2), ("mamba2", "mamba2-2.7b", 2),
+               ("mixtral", "mixtral-8x7b", 2))
+MESH_PROMPT, MESH_STEPS = 1000, 4
+
+
+def mesh_check_cfg(arch, layers):
+    from repro_torch.configs import get
+    return dataclasses.replace(get(arch), n_layers=layers, dtype="float32")
+
+
+def greedy_run(model, batch, steps, force=None):
+    """The prefill of ``batch`` and ``steps`` greedy decode steps (fed
+    back, or ``force``'s tokens): every step's logits (B, 1 + steps, V) as
+    float32 and the tokens (B, steps)."""
+    s0 = sum(batch[k].shape[1] for k in ("vision", "tokens") if k in batch)
+    with torch.inference_mode():
+        lg, c = model.prefill(batch, cache_len=s0 + steps)
+        logits, toks = [lg], []
+        for j in range(steps):
+            toks.append(logits[-1][:, -1].argmax(-1)[:, None])
+            feed = toks[-1] if force is None else force[:, j:j + 1]
+            lg, c = model.decode_step(c, {"token": feed, "pos": s0 + j})
+            logits.append(lg)
+    return torch.cat(logits, 1).float(), torch.cat(toks, 1)
+
+
+def serve_rank(rank: int, tmp: str) -> int:
+    """``--serve-rank RANK DIR``: one of two ranks that share this card and
+    meet over ``gloo`` (a ``FileStore`` in DIR), serving on
+    ``elastic_mesh(model=2)``, ``(data 1, model 2)``: qwen3-0.6b at full
+    width and depth in bfloat16 (its launches, the heads each kernel call
+    saw, prefill, decode and peak memory; tokens against the world of
+    one's in DIR), the float32 ``MESH_CHECKS`` against the meshless runs
+    in DIR and against the plain kernels on this rank, and qwen3 on
+    ``(data 2, model 1)``; results to DIR for the parent to check."""
+    import torch.distributed as dist
+    dist.init_process_group("gloo", store=dist.FileStore(f"{tmp}/store", 2),
+                            rank=rank, world_size=2)
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import get
+    from repro_torch.kernels import ops
+    from repro_torch.launch.breakdown import (SERVE_BATCH, SERVE_NEW,
+                                              SERVE_PROMPT)
+    from repro_torch.launch.serve import Server, request_batch
+    from repro_torch.models import build_model
+    from repro_torch.runtime import elastic_mesh
+    mesh = elastic_mesh(model=2)
+    where = f"rank {rank} of 2 (gloo, cuda:0, mesh " \
+        f"{dict(zip(mesh.mesh_dim_names, mesh.shape))})"
+    ref = np.load(f"{tmp}/want.npz")
+    out = {}
+    # (1) qwen3-0.6b, full width and depth, bfloat16: the heads each B3 /
+    # B4 call saw, recorded around the layout wrappers
+    seen = set()
+    flash, decode = ops.flash_attention, ops.decode_attention
+
+    def rec_flash(q, k, v, **kw):
+        seen.add(("B3", q.shape[2] * q.shape[3], k.shape[2]))
+        return flash(q, k, v, **kw)
+
+    def rec_decode(q, k, v, valid_len):
+        seen.add(("B4", q.shape[1] * q.shape[2], k.shape[2]))
+        return decode(q, k, v, valid_len)
+    qwen = get("qwen3-0.6b")
+    srv = Server(qwen, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, eos_id=-1,
+                 mesh=mesh, device=dev)
+    srv.init_params(SEED)
+    batch = request_batch(qwen, SERVE_BATCH, SERVE_PROMPT,
+                          np.random.default_rng(SEED))
+    first = srv.generate(batch)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.flash_attention, ops.decode_attention = rec_flash, rec_decode
+    b0 = _kernel_launches()
+    try:
+        res = srv.generate(batch)
+    finally:
+        ops.flash_attention, ops.decode_attention = flash, decode
+    got = tuple(a - b for a, b in zip(_kernel_launches(), b0))
+    peak = torch.cuda.max_memory_allocated(dev)
+    same = bool(np.array_equal(res["tokens"], ref["bf16.tokens"]))
+    print(f"[serve-mesh] {where}: qwen3-0.6b {qwen.n_layers} layers "
+          f"bfloat16, batch "
+          f"{SERVE_BATCH} x {SERVE_PROMPT}, {SERVE_NEW} new: prefill "
+          f"{1e3 * res['prefill_s']:.2f} ms, decode "
+          f"{res['tokens_generated']} tokens in {1e3 * res['decode_s']:.2f} "
+          f"ms ({res['decode_tok_per_s']:.1f} tok/s; first call "
+          f"{1e3 * first['prefill_s']:.2f} ms, "
+          f"{first['decode_tok_per_s']:.1f} tok/s), launches B3 {got[0]} "
+          f"B4 {got[1]} B5 {got[2]}, (kernel, q heads, kv heads) "
+          f"{sorted(seen)}, peak device memory {peak / 1e9:.3f} GB; tokens "
+          f"equal the world of one's {same}", flush=True)
+    out["bf16.launches"] = np.array(got)
+    out["bf16.heads"] = np.array(sorted({(h, k) for _, h, k in seen}))
+    out["bf16.tokens"] = res["tokens"]
+    out["bf16.repeat"] = np.array(np.array_equal(res["tokens"],
+                                                 first["tokens"]))
+    del srv
+    free_card()
+    # (2) float32 at full width against the meshless runs, and each
+    # rank's kernels against their plain versions inside the model
+    for tag, arch, layers in MESH_CHECKS:
+        cfg = mesh_check_cfg(arch, layers)
+        model = build_model(cfg, device=dev, mesh=mesh).init(
+            torch.Generator(device=dev).manual_seed(SEED))
+        batch = request_batch(cfg, 2, MESH_PROMPT,
+                              np.random.default_rng(SEED + 1))
+        b0 = _kernel_launches()
+        lk, tk = greedy_run(model, batch, MESH_STEPS)
+        n = tuple(a - b for a, b in zip(_kernel_launches(), b0))
+        with plain_kernels():
+            lp, tp = greedy_run(model, batch, MESH_STEPS, force=tk)
+        err = float((lk.cpu() - torch.from_numpy(ref[f"{tag}.logits"]))
+                    .abs().max())
+        plain = float((lk - lp).abs().max())
+        blk = model.blocks[0]
+        heads = blk.mamba["A_log"].shape[0] if cfg.family == "ssm" \
+            else blk.attn["wq"].shape[1]
+        print(f"[serve-mesh] {where}: float32 {layers}-layer {cfg.name}, "
+              f"batch 2 x {MESH_PROMPT}, {MESH_STEPS} greedy steps, "
+              f"{heads} heads a rank: logits vs meshless max_abs_err "
+              f"{err:.3g}, tokens equal "
+              f"{np.array_equal(tk.cpu().numpy(), ref[f'{tag}.tokens'])}; "
+              f"kernels vs plain max_abs_err {plain:.3g}, tokens equal "
+              f"{bool(torch.equal(tk, tp))}; launches (B3, B4, B5) {n}",
+              flush=True)
+        out[f"{tag}.logits"] = lk.cpu().numpy()
+        out[f"{tag}.tokens"] = tk.cpu().numpy()
+        out[f"{tag}.plain"] = lp.cpu().numpy()
+        out[f"{tag}.plain_tokens"] = tp.cpu().numpy()
+        out[f"{tag}.heads"] = np.array(heads)
+        out[f"{tag}.launches"] = np.array(n)
+        del model
+        free_card()
+    # (3) (data 2, model 1): each rank serves one of the two rows
+    data2 = elastic_mesh(model=1)
+    cfg = mesh_check_cfg("qwen3-0.6b", 2)
+    model = build_model(cfg, device=dev, mesh=data2).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+    lk, tk = greedy_run(model, request_batch(
+        cfg, 2, MESH_PROMPT, np.random.default_rng(SEED + 1)), MESH_STEPS)
+    err = float((lk.cpu() - torch.from_numpy(ref["qwen3.logits"]))
+                .abs().max())
+    print(f"[serve-mesh] rank {rank} of 2 (gloo, cuda:0, mesh "
+          f"{dict(zip(data2.mesh_dim_names, data2.shape))}): float32 "
+          f"2-layer qwen3-0.6b, one of 2 rows a rank: logits vs meshless "
+          f"max_abs_err {err:.3g}, tokens equal "
+          f"{np.array_equal(tk.cpu().numpy(), ref['qwen3.tokens'])}",
+          flush=True)
+    out["data2.logits"] = lk.cpu().numpy()
+    out["data2.tokens"] = tk.cpu().numpy()
+    np.savez(f"{tmp}/serve{rank}.npz", **out)
     dist.destroy_process_group()
     return 0
 
@@ -1967,6 +2144,111 @@ def main() -> int:
         serve_check([qwen2], "bfloat16")
     _phase("serve-check", serve_checks, failures)
 
+    # 13b. serve-mesh: the server tensor-parallel on a device mesh --------
+    def serve_mesh():
+        import torch.distributed as dist
+
+        from repro_torch.runtime import elastic_mesh
+        # (a) an nccl world of one: Server(mesh=elastic_mesh(model=1)) in
+        # turns with the meshless Server, bit for bit
+        mesh = elastic_mesh(model=1)
+        assert dist.get_backend() == "nccl" and mesh.device_type == "cuda"
+        free_card()
+        batch = request_batch(qwen, SERVE_BATCH, SERVE_PROMPT,
+                              np.random.default_rng(SEED))
+        servers = {}
+        for name, m in (("none", None), ("mesh", mesh)):
+            servers[name] = Server(qwen, SERVE_BATCH, SERVE_PROMPT,
+                                   SERVE_NEW, eos_id=-1, mesh=m, device=dev)
+            servers[name].init_params(SEED)
+        runs = []
+        for name in ("none", "mesh", "mesh", "none"):
+            b3.launches = b4.launches = b5.launches = 0
+            o = servers[name].generate(batch)
+            runs.append((name, o["tokens"], (b3.launches, b4.launches,
+                                              b5.launches),
+                         round(1e3 * o["prefill_s"], 2),
+                         round(o["decode_tok_per_s"], 1)))
+        want = expected_launches(qwen, SERVE_NEW - 1)
+        for name, toks, n, _, _ in runs:
+            assert n == want, (name, n, want)
+            np.testing.assert_array_equal(toks, runs[0][1])
+        print(f"[serve-mesh] (a) qwen3-0.6b bfloat16 on "
+              f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} (nccl) in turns "
+              f"with the meshless Server (prefill ms, decode tok/s): "
+              f"{[(nm, p, t) for nm, _, _, p, t in runs]}; tokens bit for "
+              f"bit, launches B3 {want[0]} B4 {want[1]} each", flush=True)
+        bf16_tokens = runs[0][1]
+        del servers
+        free_card()
+        # (b) two gloo ranks on cuda:0, elastic_mesh(model=2): the
+        # meshless float32 runs first, on this card, for the ranks to meet
+        want_np = {"bf16.tokens": bf16_tokens}
+        for tag, arch, layers in MESH_CHECKS:
+            cfg = mesh_check_cfg(arch, layers)
+            model = build_model(cfg, device=dev).init(
+                torch.Generator(device=dev).manual_seed(SEED))
+            lg, tk = greedy_run(model, request_batch(
+                cfg, 2, MESH_PROMPT, np.random.default_rng(SEED + 1)),
+                MESH_STEPS)
+            want_np[f"{tag}.logits"] = lg.cpu().numpy()
+            want_np[f"{tag}.tokens"] = tk.cpu().numpy()
+            del model
+            free_card()
+        with tempfile.TemporaryDirectory() as tmp:
+            np.savez(f"{tmp}/want.npz", **want_np)
+            procs = [subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--serve-rank",
+                 str(r), tmp], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True) for r in range(2)]
+            try:
+                logs = [p.communicate(timeout=600)[0] for p in procs]
+            finally:
+                for p in procs:
+                    p.kill()
+            for r, (p, log) in enumerate(zip(procs, logs)):
+                print(log.rstrip(), flush=True)
+                assert p.returncode == 0, f"rank {r} failed"
+            got = [dict(np.load(f"{tmp}/serve{r}.npz")) for r in range(2)]
+        heads = {"qwen3": qwen.n_heads // 2, "mixtral": mixtral.n_heads // 2,
+                 "mamba2": mamba2.ssm_heads // 2}
+        for r, o in enumerate(got):
+            assert tuple(o["bf16.launches"]) == want, (r, o["bf16.launches"])
+            assert o["bf16.heads"].tolist() == [[H // 2, KV // 2]], \
+                o["bf16.heads"]
+            assert bool(o["bf16.repeat"])
+            np.testing.assert_array_equal(o["bf16.tokens"],
+                                          got[0]["bf16.tokens"])
+            for tag, arch, layers in MESH_CHECKS:
+                cfg = mesh_check_cfg(arch, layers)
+                assert int(o[f"{tag}.heads"]) == heads[tag], tag
+                assert tuple(o[f"{tag}.launches"]) == expected_launches(
+                    cfg, MESH_STEPS), (tag, o[f"{tag}.launches"])
+                # float32 partial sums add in another order
+                np.testing.assert_allclose(o[f"{tag}.logits"],
+                                           want_np[f"{tag}.logits"],
+                                           rtol=1e-4, atol=1e-4, err_msg=tag)
+                np.testing.assert_array_equal(o[f"{tag}.tokens"],
+                                              want_np[f"{tag}.tokens"])
+                np.testing.assert_allclose(o[f"{tag}.logits"],
+                                           o[f"{tag}.plain"], rtol=1e-4,
+                                           atol=1e-4, err_msg=tag)
+                np.testing.assert_array_equal(o[f"{tag}.tokens"],
+                                              o[f"{tag}.plain_tokens"])
+            np.testing.assert_allclose(o["data2.logits"],
+                                       want_np["qwen3.logits"], rtol=1e-4,
+                                       atol=1e-4)
+            np.testing.assert_array_equal(o["data2.tokens"],
+                                          want_np["qwen3.tokens"])
+        print(f"[serve-mesh] (b) two gloo ranks on cuda:0: qwen3-0.6b "
+              f"bfloat16 launches B3 {want[0]} B4 {want[1]} a rank at "
+              f"{H // 2} q / {KV // 2} kv heads, tokens equal the world of "
+              f"one's {np.array_equal(got[0]['bf16.tokens'], bf16_tokens)}; "
+              f"float32 qwen3, mamba2, mixtral and (data 2, model 1) within "
+              f"1e-4 of the meshless runs, tokens equal, kernels vs plain "
+              f"within 1e-4 on both ranks", flush=True)
+    _phase("serve-mesh", serve_mesh, failures)
+
     # 14. time-attn: B3 and B4 at the serving shapes ------------------------
     def in_turns(tag, kernel, library, plain, reps, plain_reps, rounds=5):
         """Kernel and library call timed in turns, ``rounds`` times each,
@@ -2480,4 +2762,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-rank"]:
         sys.exit(mesh_rank(int(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:2] == ["--serve-rank"]:
+        sys.exit(serve_rank(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

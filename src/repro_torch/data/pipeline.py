@@ -9,7 +9,7 @@ Design requirements at scale:
     state to persist. This is the data-side half of fault tolerance.
   * **Per-host sharding** — every host materializes only its
     ``global_batch / num_processes`` slice (``host_slice``; one process
-    here, the API kept for ROADMAP queue A item 13b).
+    here, the API kept for ROADMAP queue A item 13c).
   * **Modality-aware** — LM families get packed token streams; encdec
     gets (audio_embeds, tokens); vlm gets (vision, tokens) — matching
     ``models.model_zoo.input_specs`` exactly.

@@ -13,8 +13,11 @@ GPU), and the solver still runs on the card in each.
 
 Besides the reference's constructors and axis helpers this module holds
 the few collectives the fleet solver and the planning service make over
-a mesh (``gather_objects``, ``agree``) and the process groups of a mesh's
-data axes (``data_group``). Importing it starts nothing.
+a mesh (``gather_objects``, ``agree``). The process groups of a mesh's
+data and model axes (``data_group``, ``model_group``) and the tensor
+collectives of a model's forward (``all_reduce``, ``all_gather``) live in
+``core.collectives``, which the model layer reads too; they are named
+here as well. Importing it starts nothing.
 """
 from __future__ import annotations
 
@@ -27,11 +30,14 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
+from ..core.collectives import (all_gather, all_reduce, data_axes_of,
+                                data_group, data_index, model_group)
 from ..core.device import resolve_device
 
 __all__ = ["make_production_mesh", "make_test_mesh", "data_axes_of",
            "data_shard_count", "resolve_mesh", "init_world", "build_mesh",
-           "world_devices", "data_index", "data_group", "gather_objects", "agree"]
+           "world_devices", "data_index", "data_group", "model_group",
+           "all_reduce", "all_gather", "gather_objects", "agree"]
 
 #: serialises the port's object collectives, all on the world's group:
 #: services on threads share it, and two threads' collectives must not
@@ -125,50 +131,12 @@ def make_test_mesh(*, multi_pod: bool = False, devices=None,
     return build_mesh(devices, shape, axes, device)
 
 
-def data_axes_of(mesh: DeviceMesh) -> Tuple[str, ...]:
-    """Batch-sharding axes: ("pod", "data") on a multi-pod mesh."""
-    return tuple(a for a in mesh.mesh_dim_names if a != "model")
-
-
 def data_shard_count(mesh: DeviceMesh) -> int:
     """How many ways the problem axis splits on ``mesh``: the product of
     every non-"model" axis size."""
     names = mesh.mesh_dim_names
     return math.prod(int(mesh.shape[names.index(a)])
                      for a in data_axes_of(mesh))
-
-
-def data_index(mesh: DeviceMesh,
-               axes: Optional[Tuple[str, ...]] = None) -> Optional[int]:
-    """This rank's flat coordinate over the data axes (``axes``, default
-    every non-"model" axis), row-major as the reference's
-    ``P(data_axes)`` splits; ``None`` for a rank outside the mesh."""
-    coord = mesh.get_coordinate()
-    if coord is None:
-        return None
-    names = mesh.mesh_dim_names
-    idx = 0
-    for a in (data_axes_of(mesh) if axes is None else axes):
-        i = names.index(a)
-        idx = idx * int(mesh.shape[i]) + int(coord[i])
-    return idx
-
-
-def data_group(mesh: DeviceMesh, axes: Tuple[str, ...]):
-    """The process group over the ``axes`` of ``mesh`` through this rank
-    (one axis: the mesh's own group; several: one group per fixed
-    coordinate of the others, made once per mesh, collectively)."""
-    if len(axes) == 1:
-        return mesh.get_group(axes[0])
-    cache = mesh.__dict__.setdefault("_repro_groups", {})
-    if axes not in cache:
-        names = mesh.mesh_dim_names
-        keep = [names.index(a) for a in axes]
-        rest = [i for i in range(len(names)) if i not in keep]
-        ranks = mesh.mesh.permute(*rest, *keep).reshape(
-            -1, math.prod(int(mesh.shape[i]) for i in keep))
-        cache[axes], _ = dist.new_subgroups_by_enumeration(ranks.tolist())
-    return cache[axes]
 
 
 def gather_objects(obj: Any) -> List[Any]:

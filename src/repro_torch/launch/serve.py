@@ -10,6 +10,8 @@ per-slot completion — the port of ``repro/launch/serve.py``'s ``Server``.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-27b \
         --reduced --device cpu
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+        --arch mixtral-8x7b --model-axis 4
 
 Static slot batching, as in the reference: a batch of B same-length
 prompts is prefilled together, then decoded in lock-step at one shared
@@ -38,25 +40,47 @@ rate estimation, plan cache; ``--chaos`` injects faults) and, like the
 reference, returns without serving the LM: it is the serving loop.
 ``--trace-out`` / ``--metrics-out`` export the planning path's
 telemetry; ``--plan --mesh host`` shards every solve over a device mesh
-(``launch/plan.py``). The LM server itself runs on one device (a server on
-a mesh is ROADMAP queue A item 13b).
+(``launch/plan.py``).
+
+The LM server runs on one device, or on a device mesh: ``Server(mesh=)``,
+or, without one, the reference's ``elastic_mesh(model=model_axis)`` over
+the world's ranks when ``model_axis > 1`` or the process is one of
+several under ``torchrun`` (``--model-axis N``: a world of W ranks serves
+on ``(W / N, N)``). Each rank holds its slices of the model
+(``models.build_model(mesh=)``): tensor parallelism over the model axis,
+B3, B4 and B5 on the rank's heads, the batch's rows split over the data
+axis; every rank returns the same tokens and only rank 0 prints. A batch
+of 1 over more than one data shard needs sequence-parallel decode,
+ROADMAP queue A item 13c. Outside ``torchrun``, without a mesh and with
+``model_axis=1``, the server issues no collective.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..configs import get
 from ..configs.base import ModelConfig
 from ..core.device import resolve_device
 from ..models import build_model
+from .mesh import data_axes_of, data_shard_count
 from .plan import add_plan_args, check_plan_args, plan_from_args
 
-__all__ = ["Server", "main", "request_batch"]
+__all__ = ["Server", "main", "request_batch", "kernel_launches"]
+
+
+def kernel_launches() -> tuple:
+    """The (B3, B4, B5) launch counters."""
+    from ..kernels import decode_attention, flash_attention, ssd_scan
+    return (flash_attention.flash_attention_folded.launches,
+            decode_attention.decode_attention_folded.launches,
+            ssd_scan.ssd_intra_folded.launches)
 
 
 def request_batch(cfg: ModelConfig, batch: int, prompt_len: int,
@@ -84,11 +108,16 @@ def request_batch(cfg: ModelConfig, batch: int, prompt_len: int,
 
 class Server:
     """Greedy batched generation for ``cfg`` on one device (``cuda``
-    unless told). ``self.model`` holds the weights: ``init_params`` draws
-    them from a seed, or ``self.model.load_state_dict`` loads them."""
+    unless told), or on a device ``mesh`` (without one:
+    ``elastic_mesh(model=model_axis)`` over the world when ``model_axis >
+    1`` or under a ``torchrun`` of several ranks). ``self.model``
+    holds the weights (on a mesh this rank's slices): ``init_params``
+    draws them from a seed, or ``self.model.load_state_dict`` loads
+    them."""
 
     def __init__(self, cfg: ModelConfig, batch: int, prompt_len: int,
-                 max_new: int, eos_id: int = 1, device=None):
+                 max_new: int, eos_id: int = 1, mesh=None,
+                 model_axis: int = 1, device=None):
         self.cfg = cfg
         self.eos = eos_id
         self.max_new = max_new
@@ -96,7 +125,21 @@ class Server:
         self.prompt_len = prompt_len
         self.cache_len = prompt_len + max_new
         self.device = resolve_device(device)
-        self.model = build_model(cfg, device=self.device)
+        if mesh is None and (model_axis > 1 or int(
+                os.environ.get("WORLD_SIZE", "1")) > 1):
+            from ..runtime import elastic_mesh
+            mesh = elastic_mesh(model=model_axis, device=self.device)
+        self.mesh = mesh
+        data_axes = ("data",)
+        if mesh is not None:
+            data_axes = data_axes_of(mesh)
+            if batch == 1 and data_shard_count(mesh) > 1:
+                raise NotImplementedError(
+                    "a batch of 1 on a data axis > 1 needs sequence-parallel "
+                    "decode (the reference's shard_seq), ROADMAP queue A "
+                    "item 13c")
+        self.model = build_model(cfg, device=self.device, mesh=mesh,
+                                 data_axes=data_axes)
 
     def init_params(self, seed: int = 0) -> Dict[str, torch.Tensor]:
         """Seeded random weights on the model's device; returns its state
@@ -156,6 +199,14 @@ def main(argv=None) -> None:
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--device", default=None,
                     help="cuda (default) | cpu: the plain PyTorch path")
+    ap.add_argument("--model-axis", type=int, default=1,
+                    help="serve on elastic_mesh(model=N) over the world's "
+                         "ranks (under torchrun: W ranks serve on (W/N, "
+                         "N)); 1 without torchrun: one device, no mesh")
+    ap.add_argument("--repeat", type=int, default=1,
+                    help="serve the batch this many times (each call "
+                         "printed; on the card with each rank's kernel "
+                         "launches and peak device memory)")
     ap.add_argument("--plan", action="store_true",
                     help="print the PSO-GA fleet placement first")
     add_plan_args(ap)
@@ -180,16 +231,39 @@ def main(argv=None) -> None:
     if args.reduced:
         cfg = cfg.reduced()
     srv = Server(cfg, args.batch, args.prompt_len, args.max_new,
-                 device=device)
+                 model_axis=args.model_axis, device=device)
+    mesh = srv.mesh
     srv.init_params()
     batch = request_batch(cfg, args.batch, args.prompt_len,
                           np.random.default_rng(0))
-    out = srv.generate(batch)
-    print(f"[serve] {cfg.name} on {device}: prefill "
-          f"{out['prefill_s'] * 1e3:.0f}ms  decode {out['tokens_generated']} "
-          f"tokens in {out['decode_s'] * 1e3:.0f}ms "
-          f"({out['decode_tok_per_s']:.1f} tok/s)")
-    print("[serve] first row:", out["tokens"][0][:16])
+    rank0 = mesh is None or dist.get_rank() == 0
+    where = f"{device}" if mesh is None else (
+        f"a mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} of "
+        f"{dist.get_world_size()} ranks ({dist.get_backend()})")
+    for call in range(args.repeat):
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        before = kernel_launches()
+        out = srv.generate(batch)
+        launches = [a - b for a, b in zip(kernel_launches(), before)]
+        if rank0:
+            print(f"[serve] {cfg.name} on {where}, call {call + 1}: prefill "
+                  f"{out['prefill_s'] * 1e3:.0f}ms  decode "
+                  f"{out['tokens_generated']} tokens in "
+                  f"{out['decode_s'] * 1e3:.0f}ms "
+                  f"({out['decode_tok_per_s']:.1f} tok/s)")
+        if device.type == "cuda":
+            rows = [(launches, torch.cuda.max_memory_allocated(device))]
+            if mesh is not None:
+                from .mesh import gather_objects
+                rows = gather_objects(rows[0])
+            for r, (n, peak) in enumerate(rows if rank0 else ()):
+                print(f"[serve] rank {r}: launches B3 {n[0]} B4 {n[1]} B5 "
+                      f"{n[2]}, peak device memory {peak / 1e9:.3f} GB")
+    if rank0:
+        print("[serve] first row:", out["tokens"][0][:16])
+    if mesh is not None:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -6,9 +6,14 @@ device (``cuda`` unless told), the step, and its inputs as meta tensors
 (``models.input_specs``). The parameters live in the model and the train
 step updates them in place, where the reference's jitted step takes and
 returns them (donated). ``mesh``, ``data_axes`` and ``moe_impl`` go to
-``build_model``, so an MoE model's ``a2a`` dispatch is reached through
-these builders as in the reference; the reference's shardings (``named``,
-in/out shardings, ZeRO-1 specs) wait for ROADMAP queue A item 13b.
+``build_model``: on a mesh the model holds this rank's slices and runs
+tensor-parallel (an MoE model's ``a2a`` dispatch is reached through these
+builders as in the reference). Where the reference returns shardings,
+the serving steps carry their specs (``layers.P``) as ``step.specs``:
+``{"params", "batch"}`` for the prefill, ``{"params", "caches",
+"batch"}`` for the decode (batch 1 shards the cache's sequence, as the
+reference's ``shard_seq``). The train step's shardings and ZeRO-1 specs
+are ROADMAP queue A item 13c.
 """
 from __future__ import annotations
 
@@ -18,7 +23,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig, ShapeSpec
-from ..models import build_model, cache_len_for, input_specs
+from ..models import batch_pspecs, build_model, cache_len_for, input_specs
 from ..optim import AdamWConfig, adamw_update, compress_error_feedback
 
 __all__ = ["make_train_objects", "make_prefill_objects",
@@ -107,6 +112,8 @@ def make_prefill_objects(cfg: ModelConfig, shape: ShapeSpec, device=None,
     def prefill_step(batch):
         return model.prefill(batch, cache_len=cache_len)
 
+    prefill_step.specs = {"params": model.param_pspecs(),
+                          "batch": batch_pspecs(cfg, shape, data_axes)}
     return model, prefill_step, input_specs(cfg, shape)
 
 
@@ -124,4 +131,8 @@ def make_decode_objects(cfg: ModelConfig, shape: ShapeSpec, device=None,
     def serve_step(caches, batch):
         return model.decode_step(caches, batch)
 
+    serve_step.specs = {
+        "params": model.param_pspecs(),
+        "caches": model.cache_pspecs(shard_seq=shape.global_batch == 1),
+        "batch": batch_pspecs(cfg, shape, data_axes)}
     return model, serve_step, input_specs(cfg, shape)

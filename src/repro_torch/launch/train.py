@@ -21,7 +21,8 @@ inputs that require grad). Parameters start from a seeded
 ``torch.Generator`` draw, or from ``init_params`` (a state dict: how the
 parity tests start from the reference's ``model.init(PRNGKey(seed))``).
 The reference's device mesh (``--model-axis`` other than 1, its elastic
-mesh and ZeRO-1 sharding) waits for ROADMAP queue A item 13b.
+mesh and ZeRO-1 sharding) waits for ROADMAP queue A item 13c (the models
+themselves run on a mesh: ``models.build_model(mesh=)``, item 13b).
 """
 from __future__ import annotations
 
@@ -70,7 +71,8 @@ class Trainer:
         if tcfg.model_axis != 1:
             raise NotImplementedError(
                 f"model_axis={tcfg.model_axis}: tensor parallelism over a "
-                f"device mesh waits for ROADMAP queue A item 13b")
+                f"device mesh (the Trainer on a mesh, ZeRO-1) is ROADMAP "
+                f"queue A item 13c")
         self.cfg, self.shape, self.tcfg, self.acfg = cfg, shape, tcfg, acfg
         self.device = resolve_device(device)
         self.stream = make_stream(cfg, shape, data)

@@ -7,19 +7,20 @@ reference's parameters."""
 from .attention import (attn_decode, attn_prefill, cross_attn_apply,
                         cross_kv, dequantize_kv, grow_cache, init_cache,
                         quantize_kv)
-from .convert import expert_shard, params_from_reference
+from .convert import params_from_reference, shard_state_dict
 from .encdec import CROSS_FRAMES, EncDecLM
 from .hybrid import MambaLM, Zamba2LM
-from .layers import mlp_apply, rms_norm, rope
-from .model_zoo import (build_model, cache_len_for, input_specs,
-                        model_flops, param_count, skip_reason,
+from .layers import NO_MESH, P, Sharding, mlp_apply, rms_norm, rope
+from .model_zoo import (batch_pspecs, build_model, cache_len_for,
+                        input_specs, model_flops, param_count, skip_reason,
                         supports_shape)
 from .moe import moe_apply
 from .transformer import TransformerLM
 
 __all__ = ["attn_decode", "attn_prefill", "cross_attn_apply", "cross_kv",
            "dequantize_kv", "grow_cache", "init_cache", "quantize_kv",
-           "params_from_reference", "expert_shard", "CROSS_FRAMES",
+           "params_from_reference", "shard_state_dict",
+           "CROSS_FRAMES", "P", "Sharding", "NO_MESH", "batch_pspecs",
            "EncDecLM", "mlp_apply",
            "rms_norm", "rope", "build_model", "cache_len_for",
            "input_specs", "model_flops", "param_count",

@@ -41,10 +41,11 @@ Nothing is transposed or re-laid out; bfloat16 arrays keep their bits and
 the float32 ``A_log``, ``D``, ``dt_bias`` and MoE ``router`` of a
 bfloat16 model stay float32.
 
-``expert_shard(cfg, state, mesh)`` cuts such a state dict down to what
-one rank of an ``a2a`` model holds: each expert bank (``*.moe.{wi, wg,
-wo}``) sliced to the rank's ``E/m`` experts (``moe.expert_range``), every
-other tensor whole.
+``shard_state_dict(full, specs, sh)`` cuts a whole state dict to one
+rank's slices of a model's ``param_pspecs()`` (``sh``, the model's
+``Sharding``), which is what a model built on a mesh holds;
+``params_from_reference(cfg, tree, model=)`` does it for the reference's
+parameters.
 """
 from __future__ import annotations
 
@@ -55,7 +56,7 @@ import torch
 
 from ..configs.base import ModelConfig
 
-__all__ = ["params_from_reference", "expert_shard"]
+__all__ = ["params_from_reference", "shard_state_dict"]
 
 
 def _tensor(a: Any) -> torch.Tensor:
@@ -84,8 +85,26 @@ def _stacked(tree: Any, name: str, lead: tuple,
         _flatten(tree, ".".join([name, *map(str, idx)]), out, idx)
 
 
-def params_from_reference(cfg: ModelConfig, tree: Mapping[str, Any]
-                          ) -> Dict[str, torch.Tensor]:
+def shard_state_dict(full: Mapping[str, torch.Tensor],
+                     specs: Mapping[str, Any], sh) -> Dict[str, torch.Tensor]:
+    """Every tensor of ``full`` cut to this rank's slice of its spec
+    (``specs[name]``) on ``sh`` (a ``layers.Sharding``)."""
+    return {n: t[sh.index(specs[n], t.shape)].clone()
+            for n, t in full.items()}
+
+
+def params_from_reference(cfg: ModelConfig, tree: Mapping[str, Any],
+                          model=None) -> Dict[str, torch.Tensor]:
+    """The reference's parameters as the port's state dict; with
+    ``model`` (one built on a mesh) this rank's slices of them."""
+    state = _whole(cfg, tree)
+    if model is None or model.sh.mesh is None:
+        return state
+    return shard_state_dict(state, model.param_pspecs(), model.sh)
+
+
+def _whole(cfg: ModelConfig, tree: Mapping[str, Any]
+           ) -> Dict[str, torch.Tensor]:
     if cfg.family == "encdec":
         out = {n: _tensor(tree[n])
                for n in ("enc_norm", "dec_norm", "embed", "dec_pos")}
@@ -118,14 +137,3 @@ def params_from_reference(cfg: ModelConfig, tree: Mapping[str, Any]
     _flatten(tree["shared_attn"], "shared_attn", out)
     return out
 
-
-def expert_shard(cfg: ModelConfig, state: Mapping[str, torch.Tensor],
-                 mesh, model_axis: str = "model"
-                 ) -> Dict[str, torch.Tensor]:
-    """``state`` (a whole model's, e.g. ``params_from_reference``'s) with
-    every expert bank cut to this rank's experts on ``mesh``."""
-    from .moe import expert_range
-    lo, hi = expert_range(cfg, mesh, model_axis)
-    banks = (".moe.wi", ".moe.wg", ".moe.wo")
-    return {n: t[lo:hi] if n.endswith(banks) else t
-            for n, t in state.items()}

@@ -21,6 +21,14 @@ attention, bidirectional in the encoder, in place of B3), each layer a
 ``torch.utils.checkpoint`` region when ``cfg.remat``. Caches are ``{"self": {"k", "v"}
 (L, B, C, K, hd), "cross": {"k", "v"} (L, B, S_enc, K, hd)}``; the cross
 keys and values are computed once, in the prefill.
+
+On a device mesh (``mesh=``) each rank holds its slices of
+``param_pspecs()`` (the reference's: every self and cross attention on
+the rank's heads, the MLPs column- then row-parallel, the embedding
+vocab-parallel when the vocabulary divides the model axis; whisper's
+51,865 does not, and stays whole), its caches the rank's kv heads (the
+cross caches too), and ``prefill`` / ``decode_step`` split a served
+batch's rows over the data axes as ``TransformerLM`` does.
 """
 from __future__ import annotations
 
@@ -32,8 +40,10 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..core.device import resolve_device
 from . import attention as attn
-from .layers import DTYPES, cross_entropy, embed_init, remat, rms_norm
-from .transformer import DenseBlock, _param
+from .layers import (DTYPES, NO_MESH, P, Sharding, cross_entropy, divisible,
+                     draw_into, embed_pspec, mlp_pspec, remat, rms_norm)
+from .transformer import (DenseBlock, _module_specs, _param, embed_lookup,
+                          head_logits, with_leading)
 
 __all__ = ["EncDecLM", "CROSS_FRAMES"]
 
@@ -57,51 +67,80 @@ class DecBlock(DenseBlock):
     attention's ``xattn.{wq, wk, wv, wo}``."""
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype,
-                 device: torch.device):
-        super().__init__(cfg, dtype, device)
+                 device: torch.device, sh: Sharding = NO_MESH):
+        super().__init__(cfg, dtype, device, sh)
         self.ln_x = _param(torch.zeros(cfg.d_model, dtype=dtype,
                                        device=device))
-        self.xattn = nn.ParameterDict(
-            {n: _param(torch.empty_like(t)) for n, t in self.attn.items()})
+        self.xattn = self.attn_params(cfg, dtype, device, sh)
 
     @torch.no_grad()
     def init(self, gen: torch.Generator) -> None:
         super().init(gen)
         self.ln_x.zero_()
-        self.init_attn(self.xattn, self.cfg, gen)
+        self.init_attn(self.xattn, self.cfg, gen, self.sh)
 
 
 class EncDecLM(nn.Module):
     """cfg.family == "encdec"."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, mesh=None,
+                 data_axes: Tuple[str, ...] = ("data",)):
         super().__init__()
         self.cfg = cfg
         self.device = dev = resolve_device(device)
         self.dtype = dt = DTYPES[cfg.dtype]
+        self.mesh, self.data_axes = mesh, tuple(data_axes)
+        self.sh = sh = Sharding(mesh, data_axes) if mesh is not None \
+            else NO_MESH
         d = cfg.d_model
-        self.enc_blocks = nn.ModuleList(DenseBlock(cfg, dt, dev)
+        self.enc_blocks = nn.ModuleList(DenseBlock(cfg, dt, dev, sh)
                                         for _ in range(cfg.enc_layers))
-        self.dec_blocks = nn.ModuleList(DecBlock(cfg, dt, dev)
+        self.dec_blocks = nn.ModuleList(DecBlock(cfg, dt, dev, sh)
                                         for _ in range(cfg.dec_layers))
         self.enc_norm = _param(torch.zeros(d, dtype=dt, device=dev))
         self.dec_norm = _param(torch.zeros(d, dtype=dt, device=dev))
-        self.embed = _param(torch.empty((cfg.vocab, d), dtype=dt,
-                                        device=dev))
+        self.embed = _param(torch.empty(sh.local_shape(
+            embed_pspec(cfg.vocab, sh.spec_tp), (cfg.vocab, d)), dtype=dt,
+            device=dev))
         self.dec_pos = _param(torch.empty((DEC_POSITIONS, d), dtype=dt,
                                           device=dev))
+
+    def param_pspecs(self) -> Dict[str, P]:
+        """The reference's specs under the state dict's names."""
+        cfg, tp = self.cfg, self.sh.spec_tp
+        enc = {"ln1": P(None), "attn": attn.attn_pspec(cfg, tp),
+               "ln2": P(None), "mlp": mlp_pspec(cfg.act, cfg.d_ff, tp)}
+        dec = {**enc, "ln_x": P(None), "xattn": attn.attn_pspec(cfg, tp)}
+        return {**_module_specs(self, DenseBlock, enc),
+                **_module_specs(self, DecBlock, dec),
+                "enc_norm": P(None), "dec_norm": P(None),
+                "embed": embed_pspec(cfg.vocab, tp),
+                "dec_pos": P(None, None)}
+
+    def cache_pspecs(self, shard_seq: bool) -> Dict:
+        """The reference's cache specs, stacked as the caches."""
+        batch_axes = self.data_axes if len(self.data_axes) > 1 \
+            else self.data_axes[0]
+        kv_ok = divisible(self.cfg.n_kv_heads, self.sh.spec_tp)
+        base = attn.cache_pspec(batch_axes, shard_seq, kv_ok,
+                                quantized=self.cfg.kv_dtype == "int8")
+        cross = attn.cache_pspec(batch_axes, False, kv_ok)
+        return {"self": with_leading(base, 1),
+                "cross": with_leading(cross, 1)}
 
     @torch.no_grad()
     def init(self, gen: torch.Generator) -> "EncDecLM":
         """He-normal weights and embeddings from ``gen`` (on the model's
-        device), zero norm scales."""
+        device), zero norm scales; on a mesh each rank keeps its slices of
+        the unsharded draws."""
         for blk in (*self.enc_blocks, *self.dec_blocks):
             blk.init(gen)
         self.enc_norm.zero_()
         self.dec_norm.zero_()
-        d = self.cfg.d_model
-        embed_init(gen, self.cfg.vocab, d, self.dtype, out=self.embed)
-        embed_init(gen, DEC_POSITIONS, d, self.dtype, out=self.dec_pos)
+        d, v = self.cfg.d_model, self.cfg.vocab
+        draw_into(gen, self.embed, (v, d), d, self.sh.index(
+            embed_pspec(v, self.sh.spec_tp), (v, d)))
+        draw_into(gen, self.dec_pos, (DEC_POSITIONS, d), d)
         return self
 
     # ------------------------------------------------------------ encoder
@@ -109,7 +148,8 @@ class EncDecLM(nn.Module):
                    positions: torch.Tensor, train: bool) -> torch.Tensor:
         h, _ = attn.attn_prefill(
             blk.attn, rms_norm(x, blk.ln1, self.cfg.norm_eps), positions,
-            self.cfg, True, False, causal=False, train=train)  # bidirectional
+            self.cfg, True, False, causal=False, train=train,
+            sh=self.sh)                                     # bidirectional
         x = x + h
         return x + blk.ffn(x)[0]
 
@@ -130,7 +170,8 @@ class EncDecLM(nn.Module):
     def cross_caches(self, enc_out: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Every decoder layer's cross keys and values of ``enc_out``,
         stacked: {"k", "v"} (L, B, S_enc, K, hd)."""
-        kv = [attn.cross_kv(blk.xattn, enc_out) for blk in self.dec_blocks]
+        kv = [attn.cross_kv(blk.xattn, enc_out, self.cfg, self.sh)
+              for blk in self.dec_blocks]
         return {"k": torch.stack([k for k, _ in kv]),
                 "v": torch.stack([v for _, v in kv])}
 
@@ -142,7 +183,7 @@ class EncDecLM(nn.Module):
         x = x + attend(blk.attn, rms_norm(x, blk.ln1, cfg.norm_eps))
         x = x + attn.cross_attn_apply(
             blk.xattn, rms_norm(x, blk.ln_x, cfg.norm_eps), enc_k, enc_v,
-            cfg)
+            cfg, self.sh)
         return x + blk.ffn(x)[0]
 
     def decode_seq(self, tokens, cross: Dict[str, torch.Tensor],
@@ -154,7 +195,8 @@ class EncDecLM(nn.Module):
         cfg = self.cfg
         tok = torch.as_tensor(tokens, device=self.device).long()
         b, s = tok.shape
-        x = self.embed[tok] + self.dec_pos[:s]
+        x = embed_lookup(self.embed, tok, self.sh, cfg.vocab) \
+            + self.dec_pos[:s]
         positions = torch.arange(s, dtype=torch.int32,
                                  device=self.device).expand(b, s)
         caches: Optional[Dict] = {} if with_cache else None
@@ -162,7 +204,7 @@ class EncDecLM(nn.Module):
         for i, blk in enumerate(self.dec_blocks):
             def attend(p, xn):
                 h, c = attn.attn_prefill(p, xn, positions, cfg, True,
-                                         with_cache, train=train)
+                                         with_cache, train=train, sh=self.sh)
                 if with_cache:
                     for n, t in c.items():
                         if n not in caches:
@@ -183,7 +225,7 @@ class EncDecLM(nn.Module):
         cross = self.cross_caches(self.encode(batch["audio_embeds"],
                                               train=True))
         h, _ = self.decode_seq(tokens[:, :-1], cross, train=True)
-        loss = cross_entropy(h @ self.embed.T, tokens[:, 1:])
+        loss = cross_entropy(self._logits(h), tokens[:, 1:])
         return loss, {"ce": loss}
 
     # ------------------------------------------------------------ serving
@@ -192,12 +234,19 @@ class EncDecLM(nn.Module):
         """batch: {"audio_embeds" (B, S_enc, d), "tokens" (B, S)}. Returns
         the last token's logits (B,1,V) and the caches, the self caches
         grown to ``cache_len`` when given."""
+        batch = {k: self.sh.split_rows(v) for k, v in batch.items()}
         cross = self.cross_caches(self.encode(batch["audio_embeds"]))
         h, caches = self.decode_seq(batch["tokens"], cross, with_cache=True)
         if cache_len is not None:
             caches = attn.grow_cache(caches, self.cfg, True, cache_len,
                                      h.shape[1])
-        return h[:, -1:] @ self.embed.T, {"self": caches, "cross": cross}
+        return self.sh.gather_rows(self._logits(h[:, -1:])), \
+            {"self": caches, "cross": cross}
+
+    def _logits(self, h: torch.Tensor) -> torch.Tensor:
+        """The head ``embed.T`` over the normed decoder states, the whole
+        vocabulary on every rank."""
+        return head_logits(h, self.embed.T, self.sh, self.cfg.vocab)
 
     def decode_step(self, caches: Caches, batch: Dict
                     ) -> Tuple[torch.Tensor, Caches]:
@@ -205,23 +254,28 @@ class EncDecLM(nn.Module):
         (B,1,V), caches), the self caches updated in place."""
         cfg = self.cfg
         pos = int(batch["pos"])
-        tok = torch.as_tensor(batch["token"], device=self.device).long()
-        x = self.embed[tok] + self.dec_pos[pos:pos + 1]
+        x = embed_lookup(self.embed, self.sh.split_rows(batch["token"]),
+                         self.sh, cfg.vocab) + self.dec_pos[pos:pos + 1]
         cross = caches["cross"]
         for i, blk in enumerate(self.dec_blocks):
             layer = {n: t[i] for n, t in caches["self"].items()}
 
             def attend(p, xn):
-                return attn.attn_decode(p, xn, layer, pos, cfg, True)[0]
+                return attn.attn_decode(p, xn, layer, pos, cfg, True,
+                                        self.sh)[0]
             x = self._dec_block(blk, x, cross["k"][i], cross["v"][i], attend)
         x = rms_norm(x, self.dec_norm, cfg.norm_eps)
-        return x @ self.embed.T, caches
+        return self.sh.gather_rows(self._logits(x)), caches
 
     def init_caches(self, batch: int, cache_len: int) -> Caches:
-        cfg, n = self.cfg, self.cfg.dec_layers
-        one = attn.init_cache(cfg, batch, cache_len, True, self.dtype,
-                              self.device)
-        shape = (n, batch, CROSS_FRAMES, cfg.n_kv_heads, cfg.head_dim)
+        """Zero caches for a batch of ``batch`` (on a mesh this data
+        shard's rows and the rank's kv heads)."""
+        cfg, n, sh = self.cfg, self.cfg.dec_layers, self.sh
+        rows = sh.local_rows(batch)
+        one = attn.init_cache(cfg, rows, cache_len, True, self.dtype,
+                              self.device, sh)
+        kv = attn.attn_layout(cfg, sh).kv
+        shape = (n, rows, CROSS_FRAMES, kv.stop - kv.start, cfg.head_dim)
         return {"self": {k: t.expand(n, *t.shape).clone()
                          for k, t in one.items()},
                 "cross": {k: torch.zeros(shape, dtype=self.dtype,

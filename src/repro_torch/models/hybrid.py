@@ -35,6 +35,15 @@ Caches mirror the reference's, stacked over blocks: MambaLM's are
 ``"k_s"``, ``"v_s"`` (``models.attention``).
 The prefill writes each block's states and each site's keys and values
 into caches allocated once; ``decode_step`` updates them in place.
+
+On a device mesh (``mesh=``) both hold the rank's slices of
+``param_pspecs()`` (the reference's: ``mamba_pspec`` per block, and for
+Zamba2 the shared block's attention and MLP specs), run B5 on the rank's
+``ssm_heads / tp`` heads and the shared attention's B3 / B4 on its heads
+(``models.ssm``, ``models.attention``), and split a served batch's rows
+over the data axes as ``TransformerLM`` does. ``cache_pspecs`` are the
+reference's; a rank's conv states hold its x channels and the whole B and
+C (``models.ssm``).
 """
 from __future__ import annotations
 
@@ -45,9 +54,12 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from . import attention as attn
-from .layers import cross_entropy, mlp_apply, remat, rms_norm
-from .ssm import init_ssm_state, mamba_decode, mamba_init, mamba_seq
-from .transformer import DenseBlock, LMBase, _param
+from .layers import (NO_MESH, P, Sharding, cross_entropy, divisible,
+                     mlp_pspec, remat, rms_norm)
+from .ssm import (init_ssm_state, mamba_decode, mamba_init, mamba_pspec,
+                  mamba_seq, mamba_shapes, mamba_sharding, ssm_state_pspec)
+from .transformer import (DenseBlock, LMBase, _module_specs, _param,
+                          flat_specs, with_leading)
 
 __all__ = ["MambaLM", "Zamba2LM"]
 
@@ -58,35 +70,29 @@ class MambaBlock(nn.Module):
     """Pre-norm residual mamba2 block: ``ln`` and the ``mamba`` dict."""
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype,
-                 device: torch.device):
+                 device: torch.device, sh: Sharding = NO_MESH):
         super().__init__()
-        d, din, n, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-        f32 = torch.float32
-
-        def empty(*shape, dt=dtype):
-            return _param(torch.empty(shape, dtype=dt, device=device))
-
-        self.ln = _param(torch.zeros(d, dtype=dtype, device=device))
+        spec = mamba_pspec(cfg, sh.spec_tp)
+        f32 = ("A_log", "D", "dt_bias")
+        self.ln = _param(torch.zeros(cfg.d_model, dtype=dtype, device=device))
         self.mamba = nn.ParameterDict({
-            "wz": empty(d, din), "wx": empty(d, din), "wB": empty(d, n),
-            "wC": empty(d, n), "wdt": empty(d, h),
-            "conv_w": empty(cfg.ssm_conv, din + 2 * n),
-            "conv_b": empty(din + 2 * n), "A_log": empty(h, dt=f32),
-            "D": empty(h, dt=f32), "dt_bias": empty(h, dt=f32),
-            "norm": empty(din), "wo": empty(din, d)})
-        self.cfg = cfg
+            n: _param(torch.empty(sh.local_shape(spec[n], shape),
+                                  dtype=torch.float32 if n in f32 else dtype,
+                                  device=device))
+            for n, shape in mamba_shapes(cfg).items()})
+        self.cfg, self.sh = cfg, sh
+        self.msh = mamba_sharding(cfg, sh)
 
     @torch.no_grad()
     def init(self, gen: torch.Generator) -> None:
         self.ln.zero_()
-        for name, t in mamba_init(gen, self.cfg, self.ln.dtype).items():
-            self.mamba[name].copy_(t)
+        mamba_init(self.mamba, gen, self.cfg, self.sh)
 
     def seq(self, x: torch.Tensor, train: bool = False
             ) -> Tuple[torch.Tensor, States]:
         cfg = self.cfg
         y, st = mamba_seq(self.mamba, rms_norm(x, self.ln, cfg.norm_eps), cfg,
-                          train=train)
+                          train=train, sh=self.msh)
         return x + y, st
 
     def step(self, x: torch.Tensor, conv: torch.Tensor, ssm: torch.Tensor
@@ -95,7 +101,8 @@ class MambaBlock(nn.Module):
         in place."""
         cfg = self.cfg
         y, (c_new, s_new) = mamba_decode(
-            self.mamba, rms_norm(x, self.ln, cfg.norm_eps), cfg, conv, ssm)
+            self.mamba, rms_norm(x, self.ln, cfg.norm_eps), cfg, conv, ssm,
+            self.msh)
         conv.copy_(c_new)
         ssm.copy_(s_new)
         return x + y
@@ -108,8 +115,10 @@ def _put(stack: States, idx, st: States) -> None:
 
 
 def _ssm_zeros(cfg: ModelConfig, batch: int, lead: Tuple[int, ...],
-               dtype: torch.dtype, device: torch.device) -> States:
-    conv, ssm = init_ssm_state(cfg, batch, dtype, device)
+               dtype: torch.dtype, device: torch.device,
+               sh: Sharding = NO_MESH) -> States:
+    conv, ssm = init_ssm_state(cfg, batch, dtype, device,
+                               mamba_sharding(cfg, sh))
     return (conv.expand(*lead, *conv.shape).clone(),
             ssm.expand(*lead, *ssm.shape).clone())
 
@@ -123,13 +132,30 @@ def _lm_loss(model: LMBase, batch: Dict):
     return loss, {"ce": loss}
 
 
+def _state_specs(lm: LMBase, shard_seq: bool) -> Tuple[P, P]:
+    batch_axes = lm.data_axes if len(lm.data_axes) > 1 else lm.data_axes[0]
+    return ssm_state_pspec(batch_axes, replicate_batch=shard_seq)
+
+
 class MambaLM(LMBase):
     """cfg.family == "ssm"."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
-        super().__init__(cfg, device)
-        self.blocks = nn.ModuleList(MambaBlock(cfg, self.dtype, self.device)
-                                    for _ in range(cfg.n_layers))
+    def __init__(self, cfg: ModelConfig, device=None, mesh=None,
+                 data_axes: Tuple[str, ...] = ("data",)):
+        super().__init__(cfg, device, mesh, data_axes)
+        self.blocks = nn.ModuleList(
+            MambaBlock(cfg, self.dtype, self.device, self.sh)
+            for _ in range(cfg.n_layers))
+
+    def param_pspecs(self) -> Dict[str, P]:
+        """The reference's specs under the state dict's names."""
+        block = {"ln": P(None),
+                 "mamba": mamba_pspec(self.cfg, self.sh.spec_tp)}
+        return {"embed": self._embed_spec(), "final_norm": P(None),
+                **_module_specs(self, MambaBlock, block)}
+
+    def cache_pspecs(self, shard_seq: bool) -> Tuple[P, P]:
+        return with_leading(_state_specs(self, shard_seq), 1)
 
     @torch.no_grad()
     def init(self, gen: torch.Generator) -> "MambaLM":
@@ -142,9 +168,10 @@ class MambaLM(LMBase):
     def forward(self, batch: Dict, with_cache: bool = False,
                 train: bool = False
                 ) -> Tuple[torch.Tensor, Optional[States]]:
-        """Returns (hidden (B,S,D), stacked (conv, ssm) states or None)."""
+        """Returns (hidden (B,S,D), stacked (conv, ssm) states or None), of
+        the rows given (``prefill`` gives this data shard's)."""
         x = self.embed_inputs(batch["tokens"])
-        states = self.init_caches(x.shape[0], 0) if with_cache else None
+        states = self._zero_states(x.shape[0]) if with_cache else None
         for i, blk in enumerate(self.blocks):
             x, st = remat(blk.seq, train and self.cfg.remat)(x, train)
             if with_cache:
@@ -161,40 +188,70 @@ class MambaLM(LMBase):
                 ) -> Tuple[torch.Tensor, States]:
         """Last-token logits (B,1,V) and the states; ``cache_len`` is
         ignored (the states do not grow), as in the reference."""
-        h, states = self.forward(batch, with_cache=True)
-        return self.logits(h[:, -1:]), states
+        h, states = self.forward(self.split_batch(batch), with_cache=True)
+        return self.sh.gather_rows(self.logits(h[:, -1:])), states
 
     def decode_step(self, caches: States, batch: Dict
                     ) -> Tuple[torch.Tensor, States]:
         """batch: {"token": (B,1) ints, "pos": ignored}. Returns (logits
         (B,1,V), caches), the states updated in place."""
-        x = self.embed_inputs(batch["token"])
+        x = self.embed_inputs(self.sh.split_rows(batch["token"]))
         conv, ssm = caches
         for i, blk in enumerate(self.blocks):
             x = blk.step(x, conv[i], ssm[i])
-        return self.logits(x), caches
+        return self.sh.gather_rows(self.logits(x)), caches
+
+    def _zero_states(self, rows: int) -> States:
+        return _ssm_zeros(self.cfg, rows, (self.cfg.n_layers,), self.dtype,
+                          self.device, self.sh)
 
     def init_caches(self, batch: int, cache_len: int) -> States:
-        return _ssm_zeros(self.cfg, batch, (self.cfg.n_layers,), self.dtype,
-                          self.device)
+        """Zero states for a batch of ``batch`` (on a mesh this data
+        shard's rows, the rank's heads and channels)."""
+        return self._zero_states(self.sh.local_rows(batch))
 
 
 class Zamba2LM(LMBase):
     """cfg.family == "hybrid"."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, mesh=None,
+                 data_axes: Tuple[str, ...] = ("data",)):
         if cfg.hybrid_attn_every <= 0:
             raise ValueError("Zamba2LM needs hybrid_attn_every > 0")
-        super().__init__(cfg, device)
+        super().__init__(cfg, device, mesh, data_axes)
         k = cfg.hybrid_attn_every
         self.n_groups, self.n_tail = divmod(cfg.n_layers, k)
 
         def blocks(n):
-            return nn.ModuleList(MambaBlock(cfg, self.dtype, self.device)
-                                 for _ in range(n))
+            return nn.ModuleList(MambaBlock(cfg, self.dtype, self.device,
+                                            self.sh) for _ in range(n))
         self.groups = nn.ModuleList(blocks(k) for _ in range(self.n_groups))
         self.tail = blocks(self.n_tail)
-        self.shared_attn = DenseBlock(cfg, self.dtype, self.device)
+        self.shared_attn = DenseBlock(cfg, self.dtype, self.device, self.sh)
+
+    def param_pspecs(self) -> Dict[str, P]:
+        """The reference's specs under the state dict's names."""
+        cfg, tp = self.cfg, self.sh.spec_tp
+        block = {"ln": P(None), "mamba": mamba_pspec(cfg, tp)}
+        shared = {"ln1": P(None), "attn": attn.attn_pspec(cfg, tp),
+                  "ln2": P(None), "mlp": mlp_pspec(cfg.act, cfg.d_ff, tp)}
+        return {"embed": self._embed_spec(), "final_norm": P(None),
+                **_module_specs(self, MambaBlock, block),
+                **flat_specs(shared, "shared_attn.")}
+
+    def cache_pspecs(self, shard_seq: bool) -> Dict:
+        cfg = self.cfg
+        batch_axes = self.data_axes if len(self.data_axes) > 1 \
+            else self.data_axes[0]
+        ssm_spec = _state_specs(self, shard_seq)
+        kv_ok = divisible(cfg.n_kv_heads, self.sh.spec_tp)
+        a_spec = attn.cache_pspec(batch_axes, shard_seq, kv_ok,
+                                  quantized=cfg.kv_dtype == "int8")
+        caches = {"mamba": with_leading(ssm_spec, 2),
+                  "attn": with_leading(a_spec, 1)}
+        if self.n_tail:
+            caches["tail"] = with_leading(ssm_spec, 1)
+        return caches
 
     @torch.no_grad()
     def init(self, gen: torch.Generator) -> "Zamba2LM":
@@ -215,10 +272,9 @@ class Zamba2LM(LMBase):
         cfg, p = self.cfg, self.shared_attn
         h, kv = attn.attn_prefill(
             p.attn, rms_norm(x, p.ln1, cfg.norm_eps), positions, cfg, True,
-            with_cache, train=train)
+            with_cache, train=train, sh=self.sh)
         x = x + h
-        return x + mlp_apply(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps),
-                             cfg.act), kv
+        return x + p.ffn(x)[0], kv
 
     def forward(self, batch: Dict, with_cache: bool = False,
                 cache_len: Optional[int] = None, train: bool = False
@@ -231,7 +287,7 @@ class Zamba2LM(LMBase):
         b, s, _ = x.shape
         positions = torch.arange(s, dtype=torch.int32,
                                  device=self.device).expand(b, s)
-        caches = self.init_caches(b, max(cache_len or s, s)) \
+        caches = self._zero_caches(b, max(cache_len or s, s)) \
             if with_cache else None
         on = train and self.cfg.remat
         site = remat(self._site, on)
@@ -260,8 +316,9 @@ class Zamba2LM(LMBase):
                 ) -> Tuple[torch.Tensor, Dict]:
         """Last-token logits (B,1,V) and the caches, every site's KV cache
         holding ``cache_len`` slots when given."""
-        h, caches = self.forward(batch, with_cache=True, cache_len=cache_len)
-        return self.logits(h[:, -1:]), caches
+        h, caches = self.forward(self.split_batch(batch), with_cache=True,
+                                 cache_len=cache_len)
+        return self.sh.gather_rows(self.logits(h[:, -1:])), caches
 
     def decode_step(self, caches: Dict, batch: Dict
                     ) -> Tuple[torch.Tensor, Dict]:
@@ -269,31 +326,36 @@ class Zamba2LM(LMBase):
         (B,1,V), caches), the caches updated in place."""
         cfg, p = self.cfg, self.shared_attn
         pos = int(batch["pos"])
-        x = self.embed_inputs(batch["token"])
+        x = self.embed_inputs(self.sh.split_rows(batch["token"]))
         conv, ssm = caches["mamba"]
         for g, group in enumerate(self.groups):
             for l, blk in enumerate(group):
                 x = blk.step(x, conv[g, l], ssm[g, l])
             site = {n: t[g] for n, t in caches["attn"].items()}
             h, _ = attn.attn_decode(p.attn, rms_norm(x, p.ln1, cfg.norm_eps),
-                                    site, pos, cfg, True)
+                                    site, pos, cfg, True, self.sh)
             x = x + h
-            x = x + mlp_apply(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps),
-                              cfg.act)
+            x = x + p.ffn(x)[0]
         if self.n_tail:
             conv, ssm = caches["tail"]
             for t, blk in enumerate(self.tail):
                 x = blk.step(x, conv[t], ssm[t])
-        return self.logits(x), caches
+        return self.sh.gather_rows(self.logits(x)), caches
 
     def init_caches(self, batch: int, cache_len: int) -> Dict:
-        cfg, dt, dev = self.cfg, self.dtype, self.device
-        one = attn.init_cache(cfg, batch, cache_len, True, dt, dev)
-        caches = {"mamba": _ssm_zeros(cfg, batch, (self.n_groups,
-                                                   cfg.hybrid_attn_every),
-                                      dt, dev),
+        """Zero caches for a batch of ``batch`` (on a mesh this data
+        shard's rows, the rank's heads and channels)."""
+        return self._zero_caches(self.sh.local_rows(batch), cache_len)
+
+    def _zero_caches(self, rows: int, cache_len: int) -> Dict:
+        cfg, dt, dev, sh = self.cfg, self.dtype, self.device, self.sh
+        one = attn.init_cache(cfg, rows, cache_len, True, dt, dev, sh)
+        caches = {"mamba": _ssm_zeros(cfg, rows, (self.n_groups,
+                                                  cfg.hybrid_attn_every),
+                                      dt, dev, sh),
                   "attn": {n: t.expand(self.n_groups, *t.shape).clone()
                            for n, t in one.items()}}
         if self.n_tail:
-            caches["tail"] = _ssm_zeros(cfg, batch, (self.n_tail,), dt, dev)
+            caches["tail"] = _ssm_zeros(cfg, rows, (self.n_tail,), dt, dev,
+                                        sh)
         return caches

@@ -8,40 +8,42 @@ hybrid (``Zamba2LM``) and the enc-dec model (``EncDecLM``).
 ``model_flops`` are plain Python, copied from the reference.
 ``input_specs`` gives the inputs of the step a shape exercises as tensors
 on the ``meta`` device (shapes and dtypes, no storage), where the
-reference gives ``jax.ShapeDtypeStruct``s; ``batch_pspecs`` (their
-shardings) waits for ROADMAP queue A item 13b.
+reference gives ``jax.ShapeDtypeStruct``s; ``batch_pspecs`` their specs
+(``layers.P``), the reference's.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Any, Dict, Tuple
 
 import torch
 
 from ..configs.base import ModelConfig, ShapeSpec
 from .encdec import EncDecLM
 from .hybrid import MambaLM, Zamba2LM
+from .layers import P
 from .transformer import TransformerLM
 
 __all__ = ["build_model", "input_specs", "cache_len_for", "supports_shape",
-           "skip_reason", "model_flops", "param_count"]
+           "skip_reason", "model_flops", "param_count", "batch_pspecs"]
 
 
 def build_model(cfg: ModelConfig, device=None, mesh=None,
                 data_axes: Tuple[str, ...] = ("data",),
                 moe_impl: str = "scatter"):
-    """The model for ``cfg`` on ``device`` (``cuda`` unless told). An MoE
-    model with ``moe_impl="a2a"`` dispatches over ``mesh`` (tokens over
-    ``data_axes``) and holds this rank's experts; the other families take
-    no mesh yet (their shardings are ROADMAP queue A item 13b)."""
+    """The model for ``cfg`` on ``device`` (``cuda`` unless told). On a
+    ``mesh`` (``launch.mesh``) every family holds this rank's slices of
+    its ``param_pspecs()`` and runs tensor-parallel over the model axis,
+    a served batch's rows split over ``data_axes``; an MoE model with
+    ``moe_impl="a2a"`` dispatches its experts over the mesh."""
     if cfg.family in ("dense", "moe", "vlm"):
         return TransformerLM(cfg, device=device, moe_impl=moe_impl,
                              mesh=mesh, data_axes=data_axes)
     if cfg.family == "ssm":
-        return MambaLM(cfg, device=device)
+        return MambaLM(cfg, device=device, mesh=mesh, data_axes=data_axes)
     if cfg.family == "hybrid":
-        return Zamba2LM(cfg, device=device)
+        return Zamba2LM(cfg, device=device, mesh=mesh, data_axes=data_axes)
     if cfg.family == "encdec":
-        return EncDecLM(cfg, device=device)
+        return EncDecLM(cfg, device=device, mesh=mesh, data_axes=data_axes)
     raise ValueError(f"unknown family {cfg.family!r} ({cfg.name})")
 
 
@@ -93,6 +95,23 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, torch.Tensor]:
         return {"vision": _sd((b, tv, cfg.d_model), f32),
                 "tokens": _sd((b, s - tv + extra), i32)}
     return {"tokens": _sd((b, s + extra), i32)}
+
+
+def batch_pspecs(cfg: ModelConfig, shape: ShapeSpec,
+                 data_axes: Tuple[str, ...]) -> Dict[str, Any]:
+    """The inputs' specs: batch on the data axes, ``pos`` replicated, a
+    batch of 1 replicated."""
+    ba = data_axes if len(data_axes) > 1 else data_axes[0]
+    specs = input_specs(cfg, shape)
+
+    def spec_for(name, sd):
+        if name == "pos":
+            return P()
+        if shape.global_batch == 1:
+            return P(*([None] * sd.dim()))
+        return P(*([ba] + [None] * (sd.dim() - 1)))
+
+    return {k: spec_for(k, v) for k, v in specs.items()}
 
 
 def cache_len_for(cfg: ModelConfig, shape: ShapeSpec) -> int:

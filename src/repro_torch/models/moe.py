@@ -33,6 +33,23 @@ of the one global loss (an expert bank's, this rank's slice of it).
 
 Parameters, in the reference's layouts: ``router (d, E)`` float32, ``wi``,
 ``wg (E, d, F)``, ``wo (E, F, d)``, and for arctic ``dense.{wi, wg, wo}``.
+
+On a device mesh (``layers.Sharding``) a layer holds its slices of
+``moe_pspec``'s layout. When the experts divide the model axis the banks
+are expert-parallel: ``scatter`` routes every token on every rank (the
+router is replicated), runs the rank's ``E/tp`` experts on the entries
+routed to them, combines those with their router weights (zero for the
+others) and sums the partial outputs over the model axis. Otherwise each
+expert's ``d_ff`` is split over the model axis (per-expert TP): every
+rank runs every expert on its ``F/tp`` columns and the partial outputs
+are summed. The second shard over "data" (``cfg.moe_shard``: ``ep_ftp``
+F, ``ep_fsdp`` D, ``ep_only`` none) is gathered over the data group just
+before use, by ``scatter`` and ``a2a`` alike. A server's rows split over
+the data axes (``local_rows``): capacity and the ranks within an expert
+are then the whole batch's (above 8,192 tokens the other shards' counts
+are gathered), so the same entries drop as in the unsharded model.
+Gradients through the sharded ``scatter`` are ROADMAP queue A item 13c's
+(it refuses them); ``a2a``'s are the reference's.
 """
 from __future__ import annotations
 
@@ -46,10 +63,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
-from .layers import dense_init, he_init, init_mlp, mlp_apply, mlp_params
+from ..core.collectives import all_gather, data_group, data_index
+from .layers import (NO_MESH, P, Sharding, dense_init, divisible, he_init,
+                     init_mlp, mlp_apply, mlp_params, mlp_pspec)
 
-__all__ = ["MoE", "moe_apply", "capacity", "check_impl", "expert_range",
-           "EXACT_TOKENS"]
+__all__ = ["MoE", "moe_apply", "capacity", "check_impl", "EXACT_TOKENS",
+           "moe_pspec"]
 
 #: tokens up to which routing keeps every entry (capacity = tokens)
 EXACT_TOKENS = 8192
@@ -68,41 +87,64 @@ def _axis_size(mesh, name: str) -> int:
     return int(mesh.shape[mesh.mesh_dim_names.index(name)])
 
 
-def expert_range(cfg: ModelConfig, mesh=None,
-                 model_axis: str = "model") -> Tuple[int, int]:
-    """The experts ``[lo, hi)`` this rank holds: all of them without a
-    mesh, its model coordinate's ``E/m`` on one."""
-    e = cfg.n_experts
-    if mesh is None or mesh.get_coordinate() is None:
-        return 0, e
-    m = _axis_size(mesh, model_axis)
-    if e % m:
-        raise ValueError(f"n_experts must divide model axis ({e} experts "
-                         f"over {m})")
-    i = int(mesh.get_coordinate()[mesh.mesh_dim_names.index(model_axis)])
-    return i * (e // m), (i + 1) * (e // m)
+def moe_pspec(cfg: ModelConfig, tp: Optional[int] = None) -> dict:
+    """The reference's layout: expert parallelism over "model" when the
+    experts divide it, with a second shard over "data" by
+    ``cfg.moe_shard``; otherwise each expert's ``d_ff`` over "model".
+    arctic's dense residual follows ``mlp_pspec``."""
+    if divisible(cfg.n_experts, tp):
+        second = cfg.moe_shard if cfg.moe_shard in ("ep_ftp", "ep_fsdp",
+                                                    "ep_only") else "ep_ftp"
+        if second == "ep_ftp":
+            p = {"router": P(None, None),
+                 "wi": P("model", None, "data"),
+                 "wg": P("model", None, "data"),
+                 "wo": P("model", "data", None)}
+        elif second == "ep_fsdp":
+            p = {"router": P(None, None),
+                 "wi": P("model", "data", None),
+                 "wg": P("model", "data", None),
+                 "wo": P("model", None, "data")}
+        else:
+            p = {"router": P(None, None),
+                 "wi": P("model", None, None),
+                 "wg": P("model", None, None),
+                 "wo": P("model", None, None)}
+    else:
+        p = {"router": P(None, None),
+             "wi": P(None, None, "model"),     # per-expert d_ff TP
+             "wg": P(None, None, "model"),
+             "wo": P(None, "model", None)}
+    if cfg.moe_dense_residual:
+        p["dense"] = mlp_pspec(cfg.act, cfg.d_ff_dense, tp)
+    return p
 
 
 class MoE(nn.Module):
     """An MoE layer's parameters, read by name (``p["wi"]``, ``"dense" in
-    p``) as ``moe_apply`` reads the reference's dict."""
+    p``) as ``moe_apply`` reads the reference's dict. On a mesh (``sh``)
+    the rank's slices of ``moe_pspec``'s layout."""
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype,
-                 device: torch.device,
-                 experts: Optional[Tuple[int, int]] = None):
+                 device: torch.device, sh: Sharding = NO_MESH):
         super().__init__()
-        self.experts = experts or (0, cfg.n_experts)
-        d, f = cfg.d_model, cfg.d_ff
-        e = self.experts[1] - self.experts[0]
+        d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+        full = {"wi": (e, d, f), "wg": (e, d, f), "wo": (e, f, d)}
+        self.sh = sh
+        self.spec = moe_pspec(cfg, sh.spec_tp)
+        self.index = {n: sh.index(self.spec[n], shp)
+                      for n, shp in full.items()}
 
-        def empty(*shape, dt=dtype):
-            return nn.Parameter(torch.empty(shape, dtype=dt, device=device),
-                                requires_grad=False)
-        self.router = empty(d, cfg.n_experts, dt=torch.float32)
-        self.wi, self.wg, self.wo = empty(e, d, f), empty(e, d, f), \
-            empty(e, f, d)
+        def empty(idx, dt=dtype):
+            return nn.Parameter(torch.empty(
+                tuple(i.stop - i.start for i in idx), dtype=dt,
+                device=device), requires_grad=False)
+        self.router = empty((slice(0, d), slice(0, e)), torch.float32)
+        self.wi, self.wg, self.wo = (empty(self.index[n])
+                                     for n in ("wi", "wg", "wo"))
         if cfg.moe_dense_residual:
-            self.dense = mlp_params(d, cfg.d_ff_dense, cfg.act, dtype, device)
+            self.dense = mlp_params(d, cfg.d_ff_dense, cfg.act, dtype, device,
+                                    sh)
         self.cfg = cfg
 
     def __getitem__(self, name: str):
@@ -114,19 +156,33 @@ class MoE(nn.Module):
     @torch.no_grad()
     def init(self, gen: torch.Generator) -> None:
         """He-normal router and experts from ``gen``, drawn into place; a
-        rank holding a slice of the experts draws every bank whole and
-        keeps its slice, so the weights are the unsharded model's."""
-        d, f, e = self.cfg.d_model, self.cfg.d_ff, self.cfg.n_experts
+        rank holding a slice of a bank draws it whole (in ``he_init``'s
+        slices) and keeps its part, so the weights are the unsharded
+        model's."""
+        cfg = self.cfg
+        d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
         dense_init(gen, d, e, torch.float32, out=self.router)
-        lo, hi = self.experts
-        for w, fan_in in ((self.wi, d), (self.wg, d), (self.wo, f)):
-            if hi - lo == e:
-                he_init(gen, tuple(w.shape), fan_in, w.dtype, out=w)
-            else:
-                w.copy_(he_init(gen, (e, *w.shape[1:]), fan_in,
-                                w.dtype)[lo:hi])
+        for name, shape, fan_in in (("wi", (e, d, f), d),
+                                    ("wg", (e, d, f), d),
+                                    ("wo", (e, f, d), f)):
+            w = self[name]
+            he_init(gen, shape, fan_in, w.dtype, out=w,
+                    index=self.index[name])
         if "dense" in self:
-            init_mlp(self.dense, gen)
+            init_mlp(self.dense, gen, d, cfg.d_ff_dense, cfg.act, self.sh)
+
+    def banks(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """``wi``, ``wg``, ``wo`` with their second shard over the data
+        axes gathered: this rank's experts whole (or its ``d_ff``
+        columns of every expert)."""
+        out = []
+        for name in ("wi", "wg", "wo"):
+            w = self[name]
+            for dim, entry in enumerate(self.spec[name]):
+                if entry is not None and entry != "model":
+                    w = self.sh.gather_data(w, dim, (entry,))
+            out.append(w)
+        return tuple(out)
 
 
 def _route(p: Mapping[str, torch.Tensor], x2d: torch.Tensor,
@@ -279,12 +335,14 @@ def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
 
 def _moe_a2a(p: Mapping[str, torch.Tensor], x2d: torch.Tensor,
              cfg: ModelConfig, capacity: int, mesh,
-             data_axes: Tuple[str, ...], model_axis: str
+             data_axes: Tuple[str, ...], model_axis: str,
+             local_rows: bool = False
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Expert-parallel dispatch with ``all_to_all_single`` along the
     model axis: experts sharded over ``model_axis``, tokens over
-    ``data_axes``; ``capacity`` is per (rank, remote rank) lane."""
-    from ..launch.mesh import data_group, data_index
+    ``data_axes``; ``capacity`` is per (rank, remote rank) lane.
+    ``local_rows``: ``x2d`` is already this data shard's rows, and so is
+    the output."""
     e, k = cfg.n_experts, cfg.top_k
     m = _axis_size(mesh, model_axis)
     if e % m:
@@ -293,12 +351,12 @@ def _moe_a2a(p: Mapping[str, torch.Tensor], x2d: torch.Tensor,
     e_local = e // m
     n = math.prod(_axis_size(mesh, a) for a in data_axes)
     t, d = x2d.shape
-    if t % n:
+    if t % n and not local_rows:
         raise ValueError(f"{t} tokens do not split over {n} data shards "
                          f"(the reference's shard_map needs t % n == 0)")
     r = data_index(mesh, data_axes)
     mgroup, dgroup = mesh.get_group(model_axis), data_group(mesh, data_axes)
-    x_loc = _Shard.apply(x2d, r, n, dgroup)
+    x_loc = x2d if local_rows else _Shard.apply(x2d, r, n, dgroup)
     t_l = x_loc.shape[0]
     router = _SumGrad.apply(p["router"], dgroup, 1.0)
     top_p, top_i, aux = _route({"router": router}, x_loc, cfg)
@@ -314,8 +372,7 @@ def _moe_a2a(p: Mapping[str, torch.Tensor], x2d: torch.Tensor,
     # recv: (m, e_local·capacity, d), every model rank's tokens for ours
     xs = recv.reshape(m, e_local, capacity, d).transpose(0, 1) \
         .reshape(e_local, m * capacity, d)
-    wi, wg, wo = (_SumGrad.apply(p[w], dgroup, 1.0 / m)
-                  for w in ("wi", "wg", "wo"))
+    wi, wg, wo = (_SumGrad.apply(w, dgroup, 1.0 / m) for w in p.banks())
     ys = _expert_ffn(wi, wg, wo, xs, cfg.act)
     back = _all_to_all(ys.reshape(e_local, m, capacity, d).transpose(0, 1)
                        .reshape(m * e_local * capacity, d), mgroup)
@@ -328,18 +385,65 @@ def _moe_a2a(p: Mapping[str, torch.Tensor], x2d: torch.Tensor,
     dist.all_reduce(val, group=mgroup)
     val = val / m if r == 0 else torch.zeros_like(val)
     dist.all_reduce(val, group=dgroup)
-    return _GatherRows.apply(y, r, n, dgroup), _AuxOf.apply(aux, val, n)
+    aux = _AuxOf.apply(aux, val, n)
+    return (y if local_rows else _GatherRows.apply(y, r, n, dgroup)), aux
+
+
+def _moe_sharded(p: "MoE", x2d: torch.Tensor, cfg: ModelConfig,
+                 sh: Sharding, local_rows: bool
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``scatter`` on a mesh: every token routed on every rank; the
+    rank's experts (expert-parallel banks) or the rank's ``d_ff`` columns
+    of every expert (per-expert TP) run their entries, and the partial
+    combines are summed over the model axis. With ``local_rows`` the
+    capacity and the ranks are the whole batch's."""
+    if torch.is_grad_enabled() and (x2d.requires_grad or any(
+            w.requires_grad for w in p.parameters())):
+        raise NotImplementedError(
+            "gradients through the sharded scatter MoE are ROADMAP queue A "
+            "item 13c (the Trainer on a mesh)")
+    t, d = x2d.shape
+    e, k = cfg.n_experts, cfg.top_k
+    n = sh.n_data if local_rows else 1
+    cap = capacity(cfg, t * n)
+    top_p, top_i, aux = _route(p, x2d, cfg)
+    local = _dispatch_ranks(top_i, e)                         # (T, k)
+    ranks = local
+    if n > 1 and t * n > EXACT_TOKENS:
+        counts = F.one_hot(top_i.reshape(-1), e).sum(0)
+        every = all_gather(counts[None], 0, sh.data_group())  # (n, E)
+        ranks = local + every[:sh.data_rank].sum(0)[top_i]
+    cap_l = min(cap, t)           # a shard's entries of one expert <= t
+    wi, wg, wo = p.banks()
+    ep = divisible(e, sh.spec_tp)
+    lo, e_l = (sh.index(P("model"), (e,))[0].start, wi.shape[0]) if ep \
+        else (0, e)
+    mine = (top_i >= lo) & (top_i < lo + e_l)
+    slot = torch.where((ranks < cap) & mine,
+                       (top_i - lo) * cap_l + local,
+                       e_l * cap_l).reshape(-1)
+    buf = x2d.new_zeros((e_l * cap_l + 1, d))
+    buf[slot] = x2d.repeat_interleave(k, dim=0)
+    ys = _expert_ffn(wi, wg, wo, buf[:-1].reshape(e_l, cap_l, d), cfg.act)
+    flat = torch.cat([ys.reshape(e_l * cap_l, d), ys.new_zeros((1, d))])
+    gathered = flat[slot].reshape(t, k, d)
+    y = torch.sum(gathered * top_p[..., None].to(gathered.dtype), dim=1)
+    return sh.reduce(y), aux
 
 
 def moe_apply(p: Mapping[str, torch.Tensor], x: torch.Tensor,
               cfg: ModelConfig, impl: str = "scatter", mesh=None,
               data_axes: Tuple[str, ...] = ("data",),
-              model_axis: str = "model"
+              model_axis: str = "model", sh: Sharding = NO_MESH,
+              local_rows: bool = False
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (y (B,S,D), aux_loss ()), the dense residual
     included. ``impl="a2a"`` dispatches over ``mesh`` (tokens over
     ``data_axes``, experts over ``model_axis``; ``p`` holds this rank's
-    experts) and needs every rank of the mesh to call it alike."""
+    experts) and needs every rank of the mesh to call it alike. ``sh``:
+    the layer's place on a mesh (``scatter`` runs sharded on it);
+    ``local_rows``: ``x`` holds this data shard's rows of the batch, not
+    all of them (a server on a mesh)."""
     check_impl(impl, mesh)
     b, s, d = x.shape
     t = b * s
@@ -347,14 +451,18 @@ def moe_apply(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     if impl == "a2a":
         m = _axis_size(mesh, model_axis)
         n_data = math.prod(_axis_size(mesh, a) for a in data_axes)
-        t_l = t // max(1, n_data)
-        cap_l = t_l if t <= EXACT_TOKENS else max(
+        t_all = t * n_data if local_rows else t
+        t_l = t_all // max(1, n_data)
+        cap_l = t_l if t_all <= EXACT_TOKENS else max(
             1, int(cfg.capacity_factor * cfg.top_k * t_l
                    / (cfg.n_experts * max(1, m))))
-        y, aux = _moe_a2a(p, x2d, cfg, cap_l, mesh, data_axes, model_axis)
+        y, aux = _moe_a2a(p, x2d, cfg, cap_l, mesh, data_axes, model_axis,
+                          local_rows)
+    elif sh.tp > 1 or sh.n_data > 1:
+        y, aux = _moe_sharded(p, x2d, cfg, sh, local_rows)
     else:
         y, aux = _moe_scatter(p, x2d, cfg, capacity(cfg, t))
     y = y.reshape(b, s, d)
     if cfg.moe_dense_residual:
-        y = y + mlp_apply(p["dense"], x, cfg.act)
+        y = y + mlp_apply(p["dense"], x, cfg.act, sh, cfg.d_ff_dense)
     return y, aux

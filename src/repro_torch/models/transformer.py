@@ -34,6 +34,24 @@ C_w, K, hd), "global": (G, B, C, K, hd)}, "tail": (n_tail, B, C_w, K,
 hd)}`` of such dicts, where a local layer's ring holds ``C_w = min(window,
 C)`` slots. ``decode_step`` writes each layer's new key and value into
 them in place.
+
+On a device mesh (``mesh=``; ROADMAP queue A item 13b) each rank holds its
+slices of ``param_pspecs()``, the reference's layout: the embedding
+vocab-parallel when the vocabulary divides the model axis (each rank looks
+up the ids in its range, zeroes the rest, and the ranks sum: one non-zero
+term an entry, exact), attention on the rank's heads
+(``attention.attn_layout``), the MLP column- then row-parallel (or the
+swap), MoE banks expert-parallel or split per expert (``moe``), and the
+head's vocab-sharded logits gathered over the model axis, so every rank
+returns the whole logits and picks the unsharded model's greedy tokens.
+``prefill`` and ``decode_step`` take the whole batch and run this data
+shard's rows of it (``batch_pspecs``: batch on the data axes), keep their
+caches (``cache_pspecs``; the rank's kv heads, see
+``attention``) and return every row's logits, gathered over the data
+axes; ``forward`` and ``loss_fn`` run the whole batch on every rank, as
+the ``a2a`` training does. ``mesh_tp`` and the ``*_pspecs`` methods
+are the reference's, their keys the state dict's names (a cache spec's
+leading axes are its stacked layers', as the reference's).
 """
 from __future__ import annotations
 
@@ -46,11 +64,12 @@ from ..configs.base import ModelConfig
 from ..core.device import resolve_device
 from . import attention as attn
 from . import moe as moe_mod
-from .layers import (DTYPES, chunked_ce, cross_entropy, dense_init,
-                     embed_init, init_mlp, mlp_apply, mlp_params, remat,
-                     rms_norm)
+from .layers import (DTYPES, NO_MESH, P, Sharding, chunked_ce, cross_entropy,
+                     divisible, draw_into, embed_pspec, init_mlp, merge_index,
+                     mlp_apply, mlp_params, mlp_pspec, remat, rms_norm)
 
-__all__ = ["TransformerLM", "LMBase", "DenseBlock"]
+__all__ = ["TransformerLM", "LMBase", "DenseBlock", "mesh_tp",
+           "with_leading", "flat_specs"]
 
 Caches = Dict[str, object]
 
@@ -59,45 +78,129 @@ def _param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+def mesh_tp(mesh) -> Optional[int]:
+    """Model-axis size of a mesh (None when no mesh / no model axis)."""
+    if mesh is None or "model" not in mesh.mesh_dim_names:
+        return None
+    return int(mesh.shape[mesh.mesh_dim_names.index("model")])
+
+
+def with_leading(tree, n_axes: int = 1):
+    """Every spec of ``tree`` with ``n_axes`` unsharded leading axes (the
+    reference's ``_with_leading``, for layer-stacked caches)."""
+    if isinstance(tree, P):
+        return P(*([None] * n_axes), *tree)
+    if isinstance(tree, dict):
+        return {k: with_leading(v, n_axes) for k, v in tree.items()}
+    return type(tree)(with_leading(v, n_axes) for v in tree)
+
+
+def flat_specs(tree: Dict, prefix: str = "") -> Dict[str, P]:
+    """A nested spec dict as ``{"a.b.c": P}``."""
+    out: Dict[str, P] = {}
+    for k, v in tree.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, P):
+            out[name] = v
+        else:
+            out.update(flat_specs(v, name + "."))
+    return out
+
+
+def embed_lookup(embed: torch.Tensor, tok, sh: Sharding, vocab: int
+                 ) -> torch.Tensor:
+    """``embed`` rows of token ids (any int array); vocab-parallel when
+    ``embed`` holds the rank's rows of the ``vocab``: ids outside its
+    range give zeros, and the ranks' rows are summed (one non-zero term an
+    entry: exact)."""
+    ids = torch.as_tensor(tok, device=embed.device).long()
+    n = embed.shape[0]
+    if n == vocab:
+        return embed[ids]
+    lo = sh.rank * n
+    mine = (ids >= lo) & (ids < lo + n)
+    x = embed[torch.where(mine, ids - lo, 0)]
+    return sh.reduce(torch.where(mine[..., None], x, 0))
+
+
+def head_logits(hn: torch.Tensor, head: torch.Tensor, sh: Sharding,
+                vocab: int) -> torch.Tensor:
+    """Normed hidden states through the ``(d, vocab)`` head: the whole
+    vocabulary on every rank (a head of the rank's vocab columns has its
+    logits gathered over the model axis)."""
+    if head.shape[1] == vocab:
+        return hn @ head
+    return sh.gather(sh.enter(hn) @ head, -1)
+
+
+def block_pspec(cfg: ModelConfig, tp: Optional[int] = None) -> Dict:
+    """The reference's ``_block_pspec``: one layer's specs."""
+    p = {"ln1": P(None), "ln2": P(None), "attn": attn.attn_pspec(cfg, tp)}
+    if cfg.n_experts:
+        p["moe"] = moe_mod.moe_pspec(cfg, tp)
+    else:
+        p["mlp"] = mlp_pspec(cfg.act, cfg.d_ff, tp)
+    return p
+
+
+def _module_specs(model: nn.Module, kind, spec: Dict) -> Dict[str, P]:
+    """``spec`` (one block's) under the name of every ``kind`` module."""
+    out: Dict[str, P] = {}
+    for name, m in model.named_modules():
+        if type(m) is kind:
+            out.update(flat_specs(spec, name + "."))
+    return out
+
+
 class DenseBlock(nn.Module):
     """One pre-norm attention + MLP (or MoE) layer; parameters allocated,
     not initialised (``init`` fills them)."""
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype,
-                 device: torch.device,
-                 experts: Optional[Tuple[int, int]] = None):
+                 device: torch.device, sh: Sharding = NO_MESH):
         super().__init__()
-        d, h, k, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-
-        def empty(*shape):
-            return _param(torch.empty(shape, dtype=dtype, device=device))
+        d, hd = cfg.d_model, cfg.head_dim
 
         def zeros(n):
             return _param(torch.zeros(n, dtype=dtype, device=device))
 
         self.ln1, self.ln2 = zeros(d), zeros(d)
-        a = {"wq": empty(d, h, hd), "wk": empty(d, k, hd),
-             "wv": empty(d, k, hd), "wo": empty(h, hd, d)}
-        if cfg.qk_norm:
-            a["q_norm"], a["k_norm"] = zeros(hd), zeros(hd)
-        self.attn = nn.ParameterDict(a)
+        self.attn = self.attn_params(cfg, dtype, device, sh)
         if cfg.n_experts:
-            self.moe = moe_mod.MoE(cfg, dtype, device, experts)
+            self.moe = moe_mod.MoE(cfg, dtype, device, sh=sh)
         else:
-            self.mlp = mlp_params(d, cfg.d_ff, cfg.act, dtype, device)
-        self.cfg = cfg
+            self.mlp = mlp_params(d, cfg.d_ff, cfg.act, dtype, device, sh)
+        self.cfg, self.sh = cfg, sh
+
+    @staticmethod
+    def attn_params(cfg: ModelConfig, dtype: torch.dtype,
+                    device: torch.device, sh: Sharding = NO_MESH
+                    ) -> nn.ParameterDict:
+        """An attention layer's ``{wq, wk, wv, wo[, q_norm, k_norm]}``:
+        on a mesh the rank's slices of ``attn_pspec``'s layout."""
+        spec = attn.attn_pspec(cfg, sh.spec_tp)
+        return nn.ParameterDict({
+            n: _param(torch.zeros(shape, dtype=dtype, device=device)
+                      if n.endswith("norm") else
+                      torch.empty(sh.local_shape(spec[n], shape),
+                                  dtype=dtype, device=device))
+            for n, shape in attn.attn_full_shapes(cfg).items()})
 
     @staticmethod
     @torch.no_grad()
     def init_attn(a: nn.ParameterDict, cfg: ModelConfig,
-                  gen: torch.Generator) -> None:
-        """He-normal projections from ``gen``, zero qk-norm scales."""
-        d, h, k, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        dt = a["wq"].dtype
-        a["wq"].copy_(dense_init(gen, d, h * hd, dt).reshape(d, h, hd))
-        a["wk"].copy_(dense_init(gen, d, k * hd, dt).reshape(d, k, hd))
-        a["wv"].copy_(dense_init(gen, d, k * hd, dt).reshape(d, k, hd))
-        a["wo"].copy_(dense_init(gen, h * hd, d, dt).reshape(h, hd, d))
+                  gen: torch.Generator, sh: Sharding = NO_MESH) -> None:
+        """He-normal projections from ``gen`` (a rank keeps its slices of
+        the whole draws), zero qk-norm scales."""
+        spec, full = attn.attn_pspec(cfg, sh.spec_tp), \
+            attn.attn_full_shapes(cfg)
+        for n, groups in (("wq", (1, 2)), ("wk", (1, 2)), ("wv", (1, 2)),
+                          ("wo", (2, 1))):
+            shape = full[n]
+            draw = (shape[0], shape[1] * shape[2]) if groups == (1, 2) \
+                else (shape[0] * shape[1], shape[2])
+            draw_into(gen, a[n], draw, draw[0], merge_index(
+                sh.index(spec[n], shape), shape, groups))
         if cfg.qk_norm:
             a["q_norm"].zero_()
             a["k_norm"].zero_()
@@ -105,26 +208,28 @@ class DenseBlock(nn.Module):
     @torch.no_grad()
     def init(self, gen: torch.Generator) -> None:
         """He-normal projections from ``gen``, zero norm scales."""
+        cfg = self.cfg
         self.ln1.zero_()
         self.ln2.zero_()
-        self.init_attn(self.attn, self.cfg, gen)
-        if self.cfg.n_experts:
+        self.init_attn(self.attn, cfg, gen, self.sh)
+        if cfg.n_experts:
             self.moe.init(gen)
         else:
-            init_mlp(self.mlp, gen)
+            init_mlp(self.mlp, gen, cfg.d_model, cfg.d_ff, cfg.act, self.sh)
 
     def ffn(self, x: torch.Tensor, moe_impl: str = "scatter", mesh=None,
-            data_axes: Tuple[str, ...] = ("data",)
+            data_axes: Tuple[str, ...] = ("data",), local_rows: bool = False
             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """The pre-normed MLP (or MoE) branch and its aux loss (None for an
-        MLP); ``moe_impl``, ``mesh`` and ``data_axes`` go to
-        ``moe_apply``."""
+        MLP); ``moe_impl``, ``mesh``, ``data_axes`` and ``local_rows`` go
+        to ``moe_apply``."""
         cfg = self.cfg
         hn = rms_norm(x, self.ln2, cfg.norm_eps)
         if cfg.n_experts:
             return moe_mod.moe_apply(self.moe, hn, cfg, moe_impl, mesh,
-                                     data_axes)
-        return mlp_apply(self.mlp, hn, cfg.act), None
+                                     data_axes, sh=self.sh,
+                                     local_rows=local_rows)
+        return mlp_apply(self.mlp, hn, cfg.act, self.sh, cfg.d_ff), None
 
 
 class LMBase(nn.Module):
@@ -132,13 +237,17 @@ class LMBase(nn.Module):
     ``final_norm (d,)`` in the model dtype on the model's device (``cuda``
     unless told), the scaled embedding lookup and the tied head."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, mesh=None,
+                 data_axes: Tuple[str, ...] = ("data",)):
         super().__init__()
         self.cfg = cfg
         dev = resolve_device(device)
         self.dtype = DTYPES[cfg.dtype]
-        self.embed = _param(torch.empty((cfg.vocab, cfg.d_model),
-                                        dtype=self.dtype, device=dev))
+        self.mesh, self.data_axes = mesh, tuple(data_axes)
+        self.sh = Sharding(mesh, data_axes) if mesh is not None else NO_MESH
+        self.embed = _param(torch.empty(
+            self.sh.local_shape(self._embed_spec(), (cfg.vocab, cfg.d_model)),
+            dtype=self.dtype, device=dev))
         self.final_norm = _param(torch.zeros(cfg.d_model, dtype=self.dtype,
                                              device=dev))
 
@@ -148,20 +257,37 @@ class LMBase(nn.Module):
         with ``load_state_dict(..., assign=True)`` runs where they were."""
         return self.embed.device
 
+    def _embed_spec(self) -> P:
+        return embed_pspec(self.cfg.vocab, self.sh.spec_tp)
+
     def init_embed(self, gen: torch.Generator) -> None:
-        embed_init(gen, self.cfg.vocab, self.cfg.d_model, self.dtype,
-                   out=self.embed)
+        shape = (self.cfg.vocab, self.cfg.d_model)
+        draw_into(gen, self.embed, shape, shape[1],
+                  self.sh.index(self._embed_spec(), shape))
         self.final_norm.zero_()
 
     def embed_inputs(self, tok) -> torch.Tensor:
         """Token ids (any int array) -> embeddings times d_model**0.5, the
         scale cast to the model dtype as the reference does."""
-        x = self.embed[torch.as_tensor(tok, device=self.device).long()]
-        return x * torch.tensor(self.cfg.d_model ** 0.5, dtype=self.dtype,
-                                device=self.device)
+        scale = torch.tensor(self.cfg.d_model ** 0.5, dtype=self.dtype,
+                             device=self.device)
+        return embed_lookup(self.embed, tok, self.sh, self.cfg.vocab) * scale
+
+    def head(self) -> torch.Tensor:
+        """The (d, vocab) unembedding (on a mesh the rank's columns)."""
+        return self.embed.T
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
-        return rms_norm(h, self.final_norm, self.cfg.norm_eps) @ self.embed.T
+        """Logits of the final hidden states, the whole vocabulary on every
+        rank (a vocab-sharded head's gathered over the model axis)."""
+        return head_logits(rms_norm(h, self.final_norm, self.cfg.norm_eps),
+                           self.head(), self.sh, self.cfg.vocab)
+
+    def split_batch(self, batch: Dict) -> Dict:
+        """This data shard's rows of every batched input (``batch_pspecs``:
+        batch on the data axes; batch 1 on more than one data shard is
+        sequence-parallel decode, ROADMAP queue A item 13c)."""
+        return {k: self.sh.split_rows(v) for k, v in batch.items()}
 
     def tokens(self, batch: Dict) -> torch.Tensor:
         """The batch's token ids on the model's device."""
@@ -189,14 +315,12 @@ class TransformerLM(LMBase):
             raise ValueError(f"TransformerLM serves the dense, moe and vlm "
                              f"families, not {cfg.family!r}")
         moe_mod.check_impl(moe_impl, mesh)
-        super().__init__(cfg, device)
-        self.moe_impl, self.mesh, self.data_axes = moe_impl, mesh, data_axes
-        dev, dt = self.device, self.dtype
-        experts = moe_mod.expert_range(cfg, mesh) \
-            if cfg.n_experts and moe_impl == "a2a" else None
+        super().__init__(cfg, device, mesh, data_axes)
+        self.moe_impl = moe_impl
+        dev, dt, sh = self.device, self.dtype, self.sh
 
         def block():
-            return DenseBlock(cfg, dt, dev, experts)
+            return DenseBlock(cfg, dt, dev, sh)
         period = cfg.local_global_period
         # layers: (block, is_global, where its cache lives); stacks: each
         # cache dict's path -> (leading axes, is_global)
@@ -228,36 +352,70 @@ class TransformerLM(LMBase):
             self._layers = [(blk, is_global, ((), (i,)))
                             for i, blk in enumerate(self.blocks)]
             self._stacks[()] = ((cfg.n_layers,), is_global)
+        specs = self.param_pspecs()
         if not cfg.tie_embeddings:
-            self.unembed = _param(torch.empty((cfg.d_model, cfg.vocab),
-                                              dtype=dt, device=dev))
+            self.unembed = _param(torch.empty(sh.local_shape(
+                specs["unembed"], (cfg.d_model, cfg.vocab)), dtype=dt,
+                device=dev))
         if cfg.family == "vlm":
-            self.vision_proj = _param(torch.empty(
-                (cfg.d_model, cfg.d_model), dtype=dt, device=dev))
+            self.vision_proj = _param(torch.empty(sh.local_shape(
+                specs["vision_proj"], (cfg.d_model, cfg.d_model)), dtype=dt,
+                device=dev))
+
+    # ------------------------------------------------------------- specs
+    def param_pspecs(self) -> Dict[str, P]:
+        """The reference's parameter specs under the state dict's names
+        (a block's without the reference's leading layer axes)."""
+        cfg, tp = self.cfg, self.sh.spec_tp
+        emb = embed_pspec(cfg.vocab, tp)
+        specs = {"embed": emb, "final_norm": P(None),
+                 **_module_specs(self, DenseBlock, block_pspec(cfg, tp))}
+        if not cfg.tie_embeddings:
+            specs["unembed"] = P(*reversed(tuple(emb)))
+        if cfg.family == "vlm":
+            dm = "model" if divisible(cfg.d_model, tp) else None
+            specs["vision_proj"] = P(None, dm)
+        return specs
+
+    def cache_pspecs(self, shard_seq: bool) -> Dict:
+        """The reference's cache specs, nested and stacked as the caches."""
+        cfg = self.cfg
+        batch_axes = self.data_axes if len(self.data_axes) > 1 \
+            else self.data_axes[0]
+        kv_ok = divisible(cfg.n_kv_heads, self.sh.spec_tp)
+        base = attn.cache_pspec(batch_axes, shard_seq, kv_ok,
+                                quantized=cfg.kv_dtype == "int8")
+        if cfg.local_global_period:
+            caches = {"groups": {"local": with_leading(base, 2),
+                                 "global": with_leading(base, 1)}}
+            if ("tail",) in self._stacks:
+                caches["tail"] = with_leading(base, 1)
+            return caches
+        return with_leading(base, 1)
 
     # ------------------------------------------------------------- params
     @torch.no_grad()
     def init(self, gen: torch.Generator) -> "TransformerLM":
         """He-normal weights and embeddings from ``gen`` (on the model's
-        device), zero norm scales."""
-        cfg = self.cfg
+        device), zero norm scales; on a mesh each rank keeps its slices of
+        the unsharded draws."""
+        cfg, sh = self.cfg, self.sh
         self.init_embed(gen)
         for blk, _, _ in self._layers:
             blk.init(gen)
-        if not cfg.tie_embeddings:
-            self.unembed.copy_(embed_init(gen, cfg.vocab, cfg.d_model,
-                                          self.dtype).T)
-        if cfg.family == "vlm":
-            self.vision_proj.copy_(embed_init(gen, cfg.d_model, cfg.d_model,
-                                              self.dtype).T)
+        specs = self.param_pspecs()
+        for name, n in (("unembed", cfg.vocab), ("vision_proj", cfg.d_model)):
+            if hasattr(self, name):     # the transpose of an embed draw
+                draw = (n, cfg.d_model)
+                idx = sh.index(specs[name], (cfg.d_model, n))
+                draw_into(gen, getattr(self, name), draw, cfg.d_model,
+                          (idx[1], idx[0]), transpose=True)
         return self
 
     def head(self) -> torch.Tensor:
-        """The (d, vocab) unembedding: ``embed.T`` when tied."""
+        """The (d, vocab) unembedding: ``embed.T`` when tied (on a mesh the
+        rank's columns)."""
         return self.embed.T if self.cfg.tie_embeddings else self.unembed
-
-    def logits(self, h: torch.Tensor) -> torch.Tensor:
-        return rms_norm(h, self.final_norm, self.cfg.norm_eps) @ self.head()
 
     def embed_batch(self, batch: Dict) -> torch.Tensor:
         """The scaled token embeddings, prefixed for the VLM by the batch's
@@ -266,29 +424,37 @@ class TransformerLM(LMBase):
         x = self.embed_inputs(batch["tokens"])
         if self.cfg.family == "vlm" and "vision" in batch:
             vis = torch.as_tensor(batch["vision"], device=self.device)
-            x = torch.cat([vis.to(self.dtype) @ self.vision_proj, x], dim=1)
+            vis = vis.to(self.dtype)
+            if self.vision_proj.shape[1] < self.cfg.d_model:
+                proj = self.sh.gather(self.sh.enter(vis) @ self.vision_proj,
+                                      -1)
+            else:
+                proj = vis @ self.vision_proj
+            x = torch.cat([proj, x], dim=1)
         return x
 
     # ----------------------------------------------------------- seq path
     def _block_seq(self, blk: DenseBlock, x: torch.Tensor,
                    positions: torch.Tensor, is_global: bool,
-                   with_cache: bool, train: bool):
+                   with_cache: bool, train: bool, local_rows: bool = False):
         """One layer over the sequence: (x, cache or None, aux or None)."""
         cfg = self.cfg
         h, c = attn.attn_prefill(
             blk.attn, rms_norm(x, blk.ln1, cfg.norm_eps), positions, cfg,
-            is_global, with_cache, train=train)
+            is_global, with_cache, train=train, sh=self.sh)
         x = x + h
-        y, a = blk.ffn(x, self.moe_impl, self.mesh, self.data_axes)
+        y, a = blk.ffn(x, self.moe_impl, self.mesh, self.data_axes,
+                       local_rows)
         return x + y, c, a
 
     def forward(self, batch: Dict, with_cache: bool = False,
-                train: bool = False
+                train: bool = False, local_rows: bool = False
                 ) -> Tuple[torch.Tensor, Optional[Caches], torch.Tensor]:
         """Returns (hidden (B,S,D), caches or None, the MoE aux loss summed
         over layers, 0 without experts). ``train`` takes the differentiable
         route, each layer recomputed in the backward pass when
-        ``cfg.remat``."""
+        ``cfg.remat``. ``local_rows``: ``batch`` is this data shard's rows
+        (``prefill``'s), not the whole batch."""
         cfg = self.cfg
         x = self.embed_batch(batch)
         b, s, _ = x.shape
@@ -298,7 +464,8 @@ class TransformerLM(LMBase):
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         block = remat(self._block_seq, train and cfg.remat)
         for blk, is_global, (path, idx) in self._layers:
-            x, c, a = block(blk, x, positions, is_global, with_cache, train)
+            x, c, a = block(blk, x, positions, is_global, with_cache, train,
+                            local_rows)
             if a is not None:
                 aux = aux + a
             if with_cache:
@@ -337,9 +504,11 @@ class TransformerLM(LMBase):
     def prefill(self, batch: Dict, cache_len: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Caches]:
         """Last-token logits (B,1,V) and the caches, grown to
-        ``cache_len`` when given."""
-        h, caches, _ = self.forward(batch, with_cache=True)
-        logits = self.logits(h[:, -1:])
+        ``cache_len`` when given (on a mesh: this data shard's rows of the
+        caches, every row's logits)."""
+        h, caches, _ = self.forward(self.split_batch(batch), with_cache=True,
+                                    local_rows=True)
+        logits = self.sh.gather_rows(self.logits(h[:, -1:]))
         if cache_len is not None:
             for path, (_, is_global) in self._stacks.items():
                 node = _node(caches, path)
@@ -353,23 +522,26 @@ class TransformerLM(LMBase):
         (B,1,V), caches), the caches updated in place."""
         cfg = self.cfg
         pos = int(batch["pos"])
-        x = self.embed_inputs(batch["token"])
+        x = self.embed_inputs(self.sh.split_rows(batch["token"]))
         for blk, is_global, (path, idx) in self._layers:
             layer = {n: t[idx] for n, t in _node(caches, path).items()}
             h, _ = attn.attn_decode(
                 blk.attn, rms_norm(x, blk.ln1, cfg.norm_eps), layer, pos,
-                cfg, is_global)
+                cfg, is_global, self.sh)
             x = x + h
             x = x + blk.ffn(x, self.moe_impl, self.mesh,
-                            self.data_axes)[0]
-        return self.logits(x), caches
+                            self.data_axes, local_rows=True)[0]
+        return self.sh.gather_rows(self.logits(x)), caches
 
     # ------------------------------------------------------------- caches
     def init_caches(self, batch: int, cache_len: int) -> Caches:
+        """Zero caches for a batch of ``batch`` (on a mesh this data
+        shard's rows and the rank's kv heads)."""
         caches: Dict = {}
+        rows = self.sh.local_rows(batch)
         for path, (lead, is_global) in self._stacks.items():
-            one = attn.init_cache(self.cfg, batch, cache_len, is_global,
-                                  self.dtype, self.device)
+            one = attn.init_cache(self.cfg, rows, cache_len, is_global,
+                                  self.dtype, self.device, self.sh)
             _node(caches, path).update(
                 {n: t.expand(*lead, *t.shape).clone() for n, t in one.items()})
         return caches

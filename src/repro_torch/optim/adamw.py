@@ -9,7 +9,7 @@ correction, decoupled weight decay) and casts the new parameters back to
 their dtype. It updates the parameters and the moments IN PLACE (the
 reference's jitted step donates its buffers instead) and returns them.
 The reference's ZeRO-1 sharding of the state (``zero1_pspecs``) waits for
-ROADMAP queue A item 13b.
+ROADMAP queue A item 13c.
 """
 from __future__ import annotations
 

@@ -29,7 +29,8 @@ def elastic_mesh(model: int, pod: int = 1,
     """The ``best_mesh_shape`` mesh over ``devices`` (ranks; ``None`` =
     the world), axes ``(data, model)`` or ``(pod, data, model)``; starts
     the world as ``launch.mesh.init_world`` does (``device=None``: the
-    card)."""
+    card). ``launch.serve.Server``'s mesh when ``model_axis > 1``, as the
+    reference's."""
     from ..launch.mesh import build_mesh, world_devices
     shape = best_mesh_shape(len(world_devices(devices, device)), model, pod)
     axes = ("pod", "data", "model") if pod > 1 else ("data", "model")

@@ -5,7 +5,7 @@ In synchronous data parallelism one slow host gates every step (the
 collective waits). Detection is cheap: keep an EWMA + EWVar of the step
 time; a step slower than ``mean + k·std`` (and ``> ratio × mean``) flags
 a straggler. Mitigation at scale is out-of-band (re-schedule the host,
-shrink the mesh, ROADMAP queue A item 13b); here the detector reports and
+shrink the mesh, ROADMAP queue A item 13c); here the detector reports and
 the trainer logs + counts, and the restart/elastic path is exercised by
 tests.
 

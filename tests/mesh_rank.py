@@ -13,11 +13,17 @@ and each writes its results to ``OUT`` with ``-<rank>.npz`` appended;
   solve on a mesh of 3 of the 4 ranks, at world 2 a replan round and a
   3-round chaos service under a fake clock;
 * ``moe`` — reduced mixtral's ``moe_apply(impl="a2a")`` and ``loss_fn``
-  on ``make_test_mesh()`` from the reference's parameters in IN, and the
-  layer again on the multi-pod test mesh over ``("pod", "data")``;
+  on ``make_test_mesh()`` from the reference's parameters in IN (the
+  layer and the tensor-parallel model each holding the rank's slices of
+  their specs), and the layer again on the multi-pod test mesh over
+  ``("pod", "data")``;
 * ``ref-moe`` (no rank: RANK WORLD STORE are ignored) — the reference's
   a2a on 4 forced host devices, for the ``moe`` comparison; the only task
-  that imports JAX, with ``XLA_FLAGS`` set by the test.
+  that imports JAX, with ``XLA_FLAGS`` set by the test;
+* ``serve`` — every ``SERVE_CASES`` model tensor-parallel on the meshes
+  of ``serve_meshes(world)`` (IN's ``cases``): weights from IN (the
+  reference's, whole, cut to the rank's slices), the prefill of IN's batch and ``SERVE_STEPS``
+  greedy decode steps, every step's logits and the tokens.
 
 Imported by the tests for ``spawn``, the problems, the configs and the
 input makers.
@@ -113,6 +119,91 @@ def moe_inputs(d_model, vocab):
         out[f"w_{tag}"] = rng.standard_normal((b, s, d_model)).astype(
             np.float32)
     out["tokens"] = rng.integers(2, vocab, (4, 17)).astype(np.int32)
+    return out
+
+
+#: the served cases: (arch, fields replaced in its reduced float32 config,
+#: moe_impl). The fallbacks are reached on purpose: the reduced 4 q / 2 kv
+#: heads replicate kv at tp 4; 6 q heads split over the d_model
+#: contraction at tp 4 (6 q / 3 kv: uneven kv groups at tp 2); 6 experts
+#: split each expert's d_ff at tp 4; d_ff 130 swaps the MLP's layout at tp 4
+SERVE_CASES = {
+    "dense": ("qwen3-0.6b", {}, "scatter"),
+    "partial-q": ("qwen3-0.6b", {"n_heads": 6}, "scatter"),
+    "uneven-kv": ("qwen3-0.6b", {"n_heads": 6, "n_kv_heads": 3}, "scatter"),
+    "mlp-swap": ("starcoder2-3b", {"d_ff": 130}, "scatter"),
+    "gemma3": ("gemma3-27b", {}, "scatter"),
+    "moe": ("mixtral-8x7b", {}, "scatter"),
+    "moe-ep_fsdp": ("mixtral-8x7b", {"moe_shard": "ep_fsdp"}, "scatter"),
+    "moe-ep_only": ("mixtral-8x7b", {"moe_shard": "ep_only"}, "scatter"),
+    "moe-ffn-tp": ("mixtral-8x7b", {"n_experts": 6}, "scatter"),
+    "moe-a2a": ("mixtral-8x7b", {}, "a2a"),
+    "arctic": ("arctic-480b", {}, "scatter"),
+    "vlm": ("internvl2-2b", {}, "scatter"),
+    "encdec": ("whisper-medium", {}, "scatter"),
+    "ssm": ("mamba2-2.7b", {}, "scatter"),
+    "hybrid": ("zamba2-7b", {}, "scatter"),
+}
+#: the served batch: 4 rows (2 a data shard) of 40 tokens, past the
+#: reduced windows of 32 (whisper: 40 frames, 5 tokens; the VLM: 8 vision
+#: embeddings and 32 tokens), then greedy decode steps
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 40, 3
+
+
+def serve_cfg(get, case):
+    arch, kw, impl = SERVE_CASES[case]
+    return dataclasses.replace(get(arch).reduced(), dtype="float32",
+                               **kw), impl
+
+
+def serve_meshes(world):
+    """``(data, model)`` shapes served at a world: 2 -> (1, 2), (2, 1);
+    4 -> (1, 4), (2, 2)."""
+    return [(1, world), (world // 2, 2) if world == 4 else (2, 1)]
+
+
+def serve_start(cfg, batch):
+    """The decode position after the prefill of ``batch``."""
+    if cfg.family == "encdec":
+        return batch["audio_embeds"].shape[1]
+    n = batch["vision"].shape[1] if "vision" in batch else 0
+    return n + batch["tokens"].shape[1]
+
+
+def run_serve(rank, world):
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.launch.mesh import build_mesh
+    from repro_torch.models import build_model, shard_state_dict
+    inp = np.load(sys.argv[6])
+    out = {}
+    for shape in serve_meshes(world):
+        mesh = build_mesh(None, shape, ("data", "model"), device="cpu")
+        tag = "x".join(map(str, shape))
+        for case in map(str, inp["cases"]):
+            cfg, impl = serve_cfg(get, case)
+            model = build_model(cfg, device="cpu", mesh=mesh, moe_impl=impl)
+            pre = f"{case}.param."
+            full = {k[len(pre):]: torch.from_numpy(inp[k])
+                    for k in inp.files if k.startswith(pre)}
+            model.load_state_dict(shard_state_dict(
+                full, model.param_pspecs(), model.sh))
+            pre = f"{case}.batch."
+            batch = {k[len(pre):]: inp[k] for k in inp.files
+                     if k.startswith(pre)}
+            pos = serve_start(cfg, batch)
+            with torch.inference_mode():
+                lg, caches = model.prefill(batch, cache_len=pos
+                                           + SERVE_STEPS)
+                logits, toks = [lg], []
+                for i in range(SERVE_STEPS):
+                    toks.append(lg[:, -1].argmax(-1)[:, None].int())
+                    lg, caches = model.decode_step(
+                        caches, {"token": toks[-1].numpy(), "pos": pos + i})
+                    logits.append(lg)
+            out[f"{tag}.{case}.logits"] = torch.cat(logits, 1).numpy()
+            out[f"{tag}.{case}.tokens"] = torch.cat(toks, 1).numpy()
     return out
 
 
@@ -236,20 +327,24 @@ def run_moe(rank, world, mesh):
 
     from repro_torch.configs import get
     from repro_torch.launch.mesh import make_test_mesh
-    from repro_torch.models import build_model, expert_shard, moe_apply
-    from repro_torch.models.moe import MoE, expert_range
+    from repro_torch.models import (Sharding, build_model, moe_apply,
+                                    shard_state_dict)
+    from repro_torch.models.moe import MoE
     cfg = moe_cfg(get)
     inp = np.load(sys.argv[6])
     out = {}
-    layer = MoE(cfg, torch.float32, torch.device("cpu"),
-                experts=expert_range(cfg, mesh))
+    # the layer on the mesh: each bank the rank's slice of moe_pspec's
+    # layout (its experts over the model axis, cfg.moe_shard's second
+    # shard over the data axis), reported as [start, stop) per dimension
+    layer = MoE(cfg, torch.float32, torch.device("cpu"), sh=Sharding(mesh))
     full = {k[len("layer."):]: torch.from_numpy(inp[k])
             for k in inp.files if k.startswith("layer.")}
-    pre = "blocks.0.moe."
-    sliced = expert_shard(cfg, {pre + k: v for k, v in full.items()}, mesh)
-    layer.load_state_dict({k[len(pre):]: v for k, v in sliced.items()})
-    for w in layer.parameters():
+    layer.load_state_dict(shard_state_dict(full, layer.spec, layer.sh))
+    for name, w in layer.named_parameters():
         w.requires_grad_(True)
+        out[f"layer_slice.{name}"] = np.array(
+            [[i.start, i.stop] for i in layer.sh.index(layer.spec[name],
+                                                        full[name].shape)])
     # the (2, 2) test mesh over ("data",), and the multi-pod test mesh
     # (pod 2, data 1, model 2) over ("pod", "data"): the same split
     pod = make_test_mesh(multi_pod=True, device="cpu")
@@ -268,10 +363,14 @@ def run_moe(rank, world, mesh):
             for name, w in layer.named_parameters():
                 out[f"{tag}.g.{name}"] = w.grad.numpy()
                 w.grad = None
+    # the model on the mesh: attention tensor-parallel over the model axis,
+    # each parameter the rank's slice of its spec (reported as [start,
+    # stop) per dimension, a cross-check of the test's own cut)
     model = build_model(cfg, device="cpu", mesh=mesh, moe_impl="a2a")
     state = {k[len("model."):]: torch.from_numpy(inp[k])
              for k in inp.files if k.startswith("model.")}
-    model.load_state_dict(expert_shard(cfg, state, mesh))
+    specs = model.param_pspecs()
+    model.load_state_dict(shard_state_dict(state, specs, model.sh))
     model.requires_grad_(True)
     loss, metrics = model.loss_fn({"tokens": inp["tokens"]})
     loss.backward()
@@ -279,6 +378,9 @@ def run_moe(rank, world, mesh):
         metrics["aux"].detach().numpy()
     for name, w in model.named_parameters():
         out[f"grad.{name}"] = w.grad.numpy()
+        out[f"slice.{name}"] = np.array(
+            [[i.start, i.stop] for i in model.sh.index(specs[name],
+                                                        state[name].shape)])
     return out
 
 
@@ -349,6 +451,10 @@ def main():
     rank, world = int(sys.argv[2]), int(sys.argv[3])
     dist.init_process_group("gloo", store=dist.FileStore(sys.argv[4], world),
                             rank=rank, world_size=world)
+    if task == "serve":
+        np.savez(f"{sys.argv[5]}-{rank}.npz", **run_serve(rank, world))
+        dist.destroy_process_group()
+        return
     from repro_torch.launch.mesh import data_index, make_test_mesh
     from repro_torch.runtime import elastic_mesh
     mesh = elastic_mesh(model=1, device="cpu") if world == 2 \

@@ -184,6 +184,56 @@ def test_mesh_defaults_to_the_card(monkeypatch):
     assert not dist.is_initialized()
 
 
+#: distribution part 2's modules (ROADMAP queue A item 13b): the specs,
+#: the sharded models, their collectives, the step builders and the server
+#: on a mesh
+SHARD_MODULES = ("repro_torch.core.collectives",
+                 "repro_torch.models.layers", "repro_torch.models.attention",
+                 "repro_torch.models.moe", "repro_torch.models.ssm",
+                 "repro_torch.models.transformer",
+                 "repro_torch.models.hybrid", "repro_torch.models.encdec",
+                 "repro_torch.models.model_zoo",
+                 "repro_torch.models.convert", "repro_torch.launch.mesh",
+                 "repro_torch.launch.steps", "repro_torch.launch.serve",
+                 "repro_torch.runtime.elastic")
+
+
+@pytest.mark.parametrize("name", SHARD_MODULES)
+def test_shard_modules_are_scanned(name):
+    assert PORT.joinpath(*name.split(".")[1:]).with_suffix(".py") in SOURCES
+
+
+def test_shard_modules_load_neither_jax_nor_the_reference():
+    """Importing the sharded models and the server on a mesh in a fresh
+    interpreter leaves ``jax`` and every ``repro`` module unloaded, and
+    starts no process group."""
+    code = ("import sys, importlib\n"
+            f"for m in {SHARD_MODULES!r}: importlib.import_module(m)\n"
+            "import torch.distributed as dist\n"
+            "assert not dist.is_initialized()\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "print(bad); sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300,
+                          env={**os.environ, "PYTHONPATH": str(REPO / "src")})
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_sharded_server_defaults_to_the_card(monkeypatch):
+    """``device=None`` is the card: without one, a server on a model axis
+    of 2 raises rather than start a ``gloo`` world on the CPU."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get
+    from repro_torch.launch.serve import Server
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Server(get("qwen3-0.6b").reduced(), 2, 8, 2, model_axis=2)
+    assert not dist.is_initialized()
+
+
 #: the training slice's modules (ROADMAP queue A items 12.6a and 12.6b)
 TRAIN_MODULES = ("repro_torch.optim", "repro_torch.optim.adamw",
                  "repro_torch.optim.compression", "repro_torch.data",

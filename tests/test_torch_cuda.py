@@ -3,7 +3,8 @@ replay kernels B1 and B2, the attention kernels B3 and B4, the SSD
 intra-chunk kernel B5, every model family through them (the int8 KV cache
 included), the comparators (GA, linear-inertia PSO, prePSO) and one
 re-planning round through B1 and B2, B1's wrapper under two threads at
-once (as ``run_services`` drives it), and training: one train step of
+once (as ``run_services`` drives it), every family on an ``nccl`` mesh of
+one against the meshless model, and training: one train step of
 every family on the card against the CPU's (no kernel launched), and the
 kernels' refusal of inputs that require grad.
 
@@ -569,6 +570,54 @@ def test_family_on_card_matches_plain_path(cuda_device, arch, kw):
     assert fa.flash_attention_folded.launches - f0 == n_b3
     assert da.decode_attention_folded.launches - d0 == 3 * n_dec
     torch.testing.assert_close(outs[0], outs[1], rtol=1e-4, atol=1e-4)
+
+
+@pytest.fixture
+def nccl_mesh(cuda_device):
+    """An ``nccl`` world of one and its ``(data 1, model 1)`` mesh, torn
+    down after the test (unless a world already existed)."""
+    import torch.distributed as dist
+
+    from repro_torch.runtime import elastic_mesh
+    started = not dist.is_initialized()
+    mesh = elastic_mesh(model=1)
+    yield mesh
+    if started:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma3-27b", "mixtral-8x7b",
+                                  "internvl2-2b", "whisper-medium",
+                                  "mamba2-2.7b", "zamba2-7b"])
+def test_family_on_a_mesh_of_one_equals_meshless_on_card(nccl_mesh, arch):
+    """Every family built on a ``(1, 1)`` mesh (``build_model(mesh=)``)
+    and seeded alike serves bit for bit as the meshless model on the card,
+    with the same B3 / B4 / B5 launches: a model axis of 1 issues no
+    collective and takes every slice whole."""
+    cfg = get(arch).reduced()
+    dev = torch.device("cuda")
+    batch = request_batch(cfg, 2, 40, np.random.default_rng(0))
+    s0 = 40 if cfg.family != "encdec" else batch["tokens"].shape[1]
+    outs, counts = [], []
+    for mesh in (None, nccl_mesh):
+        m = build_model(cfg, device=dev, mesh=mesh).init(
+            torch.Generator(device=dev).manual_seed(0))
+        before = (fa.flash_attention_folded.launches,
+                  da.decode_attention_folded.launches,
+                  ssd_scan.ssd_intra_folded.launches)
+        with torch.inference_mode():
+            lg, c = m.prefill(batch, cache_len=s0 + 3)
+            steps = [lg]
+            for j in range(3):
+                tok = steps[-1][:, -1].argmax(-1)[:, None]
+                lg, c = m.decode_step(c, {"token": tok, "pos": s0 + j})
+                steps.append(lg)
+        outs.append(torch.cat(steps, 1).cpu())
+        counts.append((fa.flash_attention_folded.launches - before[0],
+                       da.decode_attention_folded.launches - before[1],
+                       ssd_scan.ssd_intra_folded.launches - before[2]))
+    assert torch.equal(outs[0], outs[1]) and counts[0] == counts[1]
 
 
 def _ssd_inputs(shape, device, seed):

@@ -7,13 +7,17 @@ runs as four ``gloo`` ranks of ``tests/mesh_rank.py`` on
 takes the global input, and returns the global output. The reference runs
 in a subprocess on 4 forced host devices (``XLA_FLAGS`` set for that
 process only, as ``tests/test_dryrun.py`` spawns its fleet) on the same
-mesh shape. Both regimes: 64 tokens (every entry kept) and 10,240 (> 8,192:
+mesh shape. The layer and the whole model (whose ``loss_fn`` runs
+tensor-parallel attention beside a2a) hold each rank's slices of their
+specs. Both regimes: 64 tokens (every entry kept) and 10,240 (> 8,192:
 each lane keeps ``int(1.25 · 2 · 5,120 / (4 · 2))`` = 1,600 entries and
 drops the rest, which is why a2a is held to the reference's a2a and not to
 scatter). Outputs and the aux loss within 1e-5 (atol and rtol); gradients
 of a scalar of the layer's output and of ``loss_fn`` within 1e-4 relative
-norm of ``jax.value_and_grad``'s, an expert bank's against the rank's
-slice. On a world of one (this process) a2a is scatter bit for bit.
+norm of ``jax.value_and_grad``'s, each against the slice of the
+reference's gradient that the reference's spec gives the rank's mesh
+coordinate (the slice the rank reports must be the same). On a world of
+one (this process) a2a is scatter bit for bit.
 """
 import subprocess
 import sys
@@ -39,7 +43,14 @@ from repro_torch.models.moe import MoE
 
 TOL = 1e-5
 GRAD_TOL = 1e-4
-EXPERTS_PER_RANK = 2        # 4 experts over model 2
+#: make_test_mesh() on 4 ranks: (data 2, model 2), rank r at (r // 2, r % 2)
+MESH = {"data": 2, "model": 2}
+
+
+class RefMesh:
+    """What the reference's spec functions read of the (2, 2) mesh."""
+    axis_names = tuple(MESH)
+    shape = MESH
 
 
 def _flat(tree, prefix=""):
@@ -106,14 +117,40 @@ def _rel(got, want):
         np.linalg.norm(want), 1e-30)
 
 
-def _slice(name, want, rank):
-    """The rank's slice of an expert bank's gradient (model coordinate
-    ``rank % 2`` on the (2, 2) mesh), any other gradient whole."""
-    if name in ("wi", "wg", "wo") or name.endswith(("moe.wi", "moe.wg",
-                                                     "moe.wo")):
-        lo = (rank % 2) * EXPERTS_PER_RANK
-        return want[lo:lo + EXPERTS_PER_RANK]
-    return want
+def _cut(spec, shape, rank):
+    """The slice of a ``shape`` tensor laid out by the reference's
+    ``spec`` that rank ``rank`` holds on the (2, 2) mesh (an axis tuple
+    splits over the product of its axes, row-major)."""
+    coord = {"data": rank // 2, "model": rank % 2}
+    idx = []
+    for d, n in enumerate(shape):
+        entry = spec[d] if d < len(spec) else None
+        axes = () if entry is None else (
+            (entry,) if isinstance(entry, str) else tuple(entry))
+        i, k = 0, 1
+        for a in axes:
+            i, k = i * MESH[a] + coord[a], k * MESH[a]
+        idx.append(slice(i * (n // k), (i + 1) * (n // k)))
+    return tuple(idx)
+
+
+def _check_slice(reported, idx):
+    assert [list(p) for p in reported] == [[i.start, i.stop] for i in idx]
+
+
+def _ref_param_specs():
+    """The reference's param_pspecs of the reduced mixtral on the (2, 2)
+    mesh, under the port's names' non-index parts: (spec, layer axes)."""
+    out = {}
+
+    def walk(tree, path):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, path + (k,))
+            else:
+                out[path + (k,)] = tuple(v)
+    walk(ref_build(moe_cfg(ref_get), mesh=RefMesh()).param_pspecs(), ())
+    return out
 
 
 @pytest.mark.parametrize("regime", list(MOE_SHAPES))
@@ -133,11 +170,14 @@ def test_a2a_layer_gradients_match_reference(runs, regime):
     """d/d(params, x) of sum(y · w) + 3 · aux: every rank holds the
     reference's gradient (its experts' slice of each bank)."""
     want, ranks = runs
+    specs = ref_moe.moe_pspec(moe_cfg(ref_get), MESH["model"])
     for r, o in enumerate(ranks):
         assert _rel(o[f"{regime}.gx"], want[f"{regime}.gx"]) < GRAD_TOL
         for name in ("router", "wi", "wg", "wo"):
-            err = _rel(o[f"{regime}.g.{name}"],
-                       _slice(name, want[f"{regime}.g.{name}"], r))
+            g = want[f"{regime}.g.{name}"]
+            idx = _cut(tuple(specs[name]), g.shape, r)
+            _check_slice(o[f"layer_slice.{name}"], idx)
+            err = _rel(o[f"{regime}.g.{name}"], g[idx])
             assert err < GRAD_TOL, (r, name, err)
 
 
@@ -156,11 +196,14 @@ def test_a2a_over_two_data_axes_equals_one(runs):
 
 
 def test_a2a_loss_fn_matches_reference(runs):
-    """``loss_fn`` of the reduced mixtral under a2a: the loss, its aux
-    (data shard 0's) and every parameter's gradient."""
+    """``loss_fn`` of the reduced mixtral under a2a, its attention, MLP
+    banks and head tensor-parallel over the model axis: the loss, its aux
+    (data shard 0's) and every parameter's gradient (the rank's slice of
+    it, as the rank holds the parameter)."""
     want, ranks = runs
     grads = params_from_reference(moe_cfg(get), _unflatten(
         {k[len("tree."):]: want[k] for k in want if k.startswith("tree.")}))
+    ref_specs = _ref_param_specs()
     for r, o in enumerate(ranks):
         np.testing.assert_allclose(o["loss"], want["loss"], atol=TOL,
                                    rtol=TOL)
@@ -169,8 +212,13 @@ def test_a2a_loss_fn_matches_reference(runs):
         names = [k[len("grad."):] for k in o if k.startswith("grad.")]
         assert sorted(names) == sorted(grads)
         for name in names:
-            err = _rel(o[f"grad.{name}"],
-                       _slice(name, grads[name].numpy(), r))
+            parts = name.split(".")
+            key = tuple(p for p in parts if not p.isdigit())
+            spec = ref_specs[key][len(parts) - len(key):]
+            g = grads[name].numpy()
+            idx = _cut(spec, g.shape, r)
+            _check_slice(o[f"slice.{name}"], idx)
+            err = _rel(o[f"grad.{name}"], g[idx])
             assert err < GRAD_TOL, (r, name, err)
 
 
