@@ -103,7 +103,11 @@ result line):
                heads, head_dim 128, window 1024), whisper-medium's encoder
                (bidirectional, 1500 frames, 16 heads of 64) and decoder
                (causal, 187 tokens), B4 over gemma3's full 1024-slot ring and
-               whisper's 1532-slot self cache (valid 1501, 1532);
+               whisper's 1532-slot self cache (valid 1501, 1532); B4's
+               log-sum-exp output (``return_lse``) against the plain
+               version's ``torch.logsumexp`` to 2e-5 at a rank's slice of
+               the batch-1 caches (qwen3's 1,040 of 2,080 slots with valid
+               1, 1000 and 1040, zamba2's, half of gemma3's ring);
  12. serve   — the LM main path: ``repro_torch.launch.serve.Server`` with
                qwen3-0.6b at full width and depth (28 layers, bfloat16,
                seeded weights on the card), batch 8, prompt 2048, 32 new
@@ -143,6 +147,8 @@ result line):
                gemma3-27b's local shape (window 1024, SDPA with a boolean band
                mask) and whisper-medium's encoder (bidirectional, SDPA with
                ``is_causal=False``), and B4 over gemma3's 1024-slot ring;
+               B4 with and without ``return_lse`` in turns at qwen3's
+               serving cache and at a rank's batch-1 slice;
  15. check-ssd — B5 (the SSD intra-chunk form) against its plain version
                on CUDA tensors, every element within 1e-4 + 1e-4 |plain|:
                the reference's sweep shapes, chunks of 17 and 37 rows,
@@ -213,7 +219,33 @@ result line):
                the step-4 checkpoint restores the parameters and moments
                bit for bit and step 5 re-runs to the same loss bit for bit,
                no kernel launched; step ms, tokens/s, 6·N·tokens / step
-               time / 989 TFLOP/s and peak memory printed.
+               time / 989 TFLOP/s and peak memory printed;
+ 24. train-mesh — the ``Trainer`` on a device mesh: (a) on the ``nccl``
+               world of one, qwen3-0.6b in bfloat16 at full width and depth,
+               batch 4 x 4,096, 4 steps, ``Trainer(mesh=elastic_mesh(
+               model=1))`` bit for bit the meshless ``Trainer`` (losses,
+               norms, final parameters); (b) two processes
+               (``chip_smoke.py --train-rank``) sharing ``cuda:0`` over
+               ``gloo``: float32 2-layer qwen3 at full width on ``(2, 1)``
+               and ``(1, 2)`` and 1-layer mixtral on ``(1, 2)``, batch 4 x
+               256, 4 steps, losses within 1e-4 of the meshless runs, ranks
+               equal, each rank's ZeRO-1 moments 1/data of its parameters'
+               elements, no kernel launched; qwen3's run on ``(2, 1)``
+               crashes before step 3, and its step-2 whole-tensor
+               checkpoint restored on ``(1, 2)`` lands on the
+               uninterrupted run's final loss; mixtral's final state
+               checkpointed, the device memory the save adds printed and
+               held under two of its largest whole leaf;
+ 25. seq-decode — batch-1 sequence-parallel decode on two processes
+               (``--seq-rank``) sharing ``cuda:0`` over ``gloo``, ``(data 2,
+               model 1)``, prompt 2,048, 32 new tokens: qwen3-0.6b bfloat16
+               at full depth through ``Server``, each rank 28 B3 and 868 B4
+               over its 1,040 of 2,080 slots (launches, slots, prefill ms,
+               decode tokens/s and peak memory a rank printed; tokens
+               against the meshless server's printed); float32 2-layer
+               qwen3, 2-layer gemma3 (local rings of 1,024, 512 a rank),
+               7-layer zamba2 and 2 + 2-layer whisper against the meshless
+               batch-1 runs (logits 1e-4, tokens equal), ranks bit for bit.
 
 Training runs on none of the hand-written kernels, as the reference trains
 on none of its Pallas kernels: the ``kernels`` line below is the serving
@@ -232,6 +264,8 @@ import dataclasses
 import gc
 import importlib
 import json
+import math
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -264,6 +298,9 @@ SLEEP_CYCLES = 50_000_000
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 #: B5 vs its plain version: the reference kernel test's float32 tolerance
 SSD_TOL = 1e-4
+#: B4's log-sum-exp vs its plain version's (float32 at either dtype: the
+#: same score products summed in another order), absolute and relative
+LSE_TOL = 2e-5
 #: H100 SXM dense TF32 tensor-core peak (NVIDIA data sheet): B5's route runs
 #: three TF32 products (3xTF32) for every float32 one
 TF32_OPS_PER_S = 494.7e12
@@ -395,12 +432,13 @@ def flash_plain(q, k, v, causal=True, window=0):
         window=window).permute(0, 3, 1, 2, 4)
 
 
-def decode_plain(q, k, v, valid_len):
+def decode_plain(q, k, v, valid_len, return_lse=False):
     """B4's plain version on the model layout: q (B,K,G,hd), k/v the
     (B,C,K,hd) cache."""
     from repro_torch.kernels.decode_attention import decode_attention_plain
     return decode_attention_plain(q, k.permute(0, 2, 1, 3),
-                                  v.permute(0, 2, 1, 3), valid_len)
+                                  v.permute(0, 2, 1, 3), valid_len,
+                                  return_lse)
 
 
 def ssd_plain(xc, cum, Bc, Cc):
@@ -706,9 +744,9 @@ def serve_rank(rank: int, tmp: str) -> int:
         seen.add(("B3", q.shape[2] * q.shape[3], k.shape[2]))
         return flash(q, k, v, **kw)
 
-    def rec_decode(q, k, v, valid_len):
+    def rec_decode(q, k, v, valid_len, **kw):
         seen.add(("B4", q.shape[1] * q.shape[2], k.shape[2]))
-        return decode(q, k, v, valid_len)
+        return decode(q, k, v, valid_len, **kw)
     qwen = get("qwen3-0.6b")
     srv = Server(qwen, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, eos_id=-1,
                  mesh=mesh, device=dev)
@@ -797,6 +835,404 @@ def serve_rank(rank: int, tmp: str) -> int:
     out["data2.logits"] = lk.cpu().numpy()
     out["data2.tokens"] = tk.cpu().numpy()
     np.savez(f"{tmp}/serve{rank}.npz", **out)
+    dist.destroy_process_group()
+    return 0
+
+
+#: train-mesh (b): float32 models at full width, batch 4 x 256 tokens, 4
+#: steps each, checkpoints every 2 steps: (tag, arch, layers, meshes)
+TRAIN_MESH_RUNS = (("qwen3", "qwen3-0.6b", 2, ((2, 1), (1, 2))),
+                   ("mixtral", "mixtral-8x7b", 1, ((1, 2),)))
+TRAIN_MESH_SHAPE, TRAIN_MESH_STEPS = (256, 4), 4
+TRAIN_MESH_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=8)
+
+
+def mesh_trainer(cfg, shape, steps, dev, mesh=None, ckpt=None, fail_at=(),
+                 opt=None):
+    """A ``Trainer`` for ``cfg`` at ``shape`` (seq, batch) on ``mesh``
+    (None: one device, no mesh), logging every step, checkpointing every 2
+    steps into ``ckpt``, failing before the ``fail_at`` steps."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.train import Trainer, TrainerConfig
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import FailureInjector
+    return Trainer(cfg, ShapeSpec("train-mesh", *shape, "train"),
+                   TrainerConfig(steps=steps, log_every=1, ckpt_dir=ckpt,
+                                 ckpt_every=2, keep_n=5),
+                   AdamWConfig(**(opt or TRAIN_MESH_OPT)),
+                   injector=FailureInjector(fail_at=tuple(fail_at)),
+                   device=dev, mesh=mesh)
+
+
+def train_mesh_cfg(arch, layers):
+    from repro_torch.configs import get
+    return dataclasses.replace(get(arch), n_layers=layers, dtype="float32")
+
+
+def spawn_ranks(flag, tmp):
+    """Two processes of this script (``flag RANK DIR``) sharing this card
+    over ``gloo``; their output printed, their results from DIR."""
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), flag, str(r), tmp],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        print(log.rstrip(), flush=True)
+        assert p.returncode == 0, f"{flag} rank {r} failed"
+    return [dict(np.load(f"{tmp}/rank{r}.npz")) for r in range(2)]
+
+
+def train_mesh(dev):
+    """train-mesh: the ``Trainer`` on a device mesh (data- and
+    tensor-parallel, ZeRO-1, re-sharded restore). (a) On the ``nccl``
+    world of one, qwen3-0.6b at full width and depth in bfloat16, batch 4
+    x 4,096, 4 steps: ``Trainer(mesh=elastic_mesh(model=1))`` is the
+    meshless ``Trainer`` bit for bit (losses, norms, final parameters).
+    (b) Two ``gloo`` ranks on this card (``--train-rank``): float32
+    2-layer qwen3 at full width on ``(2, 1)`` and ``(1, 2)`` and 1-layer
+    mixtral on ``(1, 2)``, losses within 1e-4 of the meshless runs here,
+    each rank's ZeRO-1 moments 1/data of its parameters' elements, no
+    kernel launched; qwen3's run on ``(2, 1)`` crashes before step 3, and
+    its step-2 whole-tensor checkpoint restored on ``(1, 2)`` lands on the
+    uninterrupted run's final loss (1e-4); mixtral's final state is
+    checkpointed once (``save_peak``)."""
+    from repro_torch.configs import get
+    from repro_torch.runtime import elastic_mesh
+    free_card()
+    mesh = elastic_mesh(model=1)
+    cfg = get("qwen3-0.6b")
+    runs = {}
+    for name, m in (("none", None), ("mesh", mesh)):
+        t = mesh_trainer(cfg, (4096, 4), 4, dev, m,
+                         opt=dict(lr=3e-4, warmup_steps=1, total_steps=4))
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = _kernel_launches()
+        out = t.train()
+        assert _kernel_launches() == before
+        recs = out["metrics"]
+        runs[name] = ([r["loss"] for r in recs],
+                      [r["grad_norm"] for r in recs],
+                      {n: p.detach().cpu() for n, p in t.params.items()},
+                      [round(1e3 * r["dt"], 1) for r in recs],
+                      torch.cuda.max_memory_allocated(dev))
+        del t, out
+        free_card()
+    (l0, g0, p0, dt0, pk0), (l1, g1, p1, dt1, pk1) = runs["none"], \
+        runs["mesh"]
+    same = l0 == l1 and g0 == g1 and all(torch.equal(p0[n], p1[n])
+                                         for n in p0)
+    print(f"[train-mesh] (a) qwen3-0.6b bfloat16, 28 layers, batch 4 x "
+          f"4096, 4 steps: meshless losses {l0}, step ms {dt0}, peak "
+          f"{pk0 / 1e9:.3f} GB; on {dict(zip(mesh.mesh_dim_names, mesh.shape))}"
+          f" (nccl) losses {l1}, step ms {dt1}, peak {pk1 / 1e9:.3f} GB; "
+          f"losses, norms and final parameters bit for bit: {same}",
+          flush=True)
+    assert same
+    del runs, p0, p1
+    free_card()
+    # (b) the meshless float32 runs here, then two gloo ranks
+    want = {}
+    for tag, arch, layers, _ in TRAIN_MESH_RUNS:
+        t = mesh_trainer(train_mesh_cfg(arch, layers), TRAIN_MESH_SHAPE,
+                         TRAIN_MESH_STEPS, dev)
+        want[f"{tag}.loss"] = np.array([r["loss"] for r in
+                                        t.train()["metrics"]])
+        print(f"[train-mesh] meshless float32 {layers}-layer {arch}: losses "
+              f"{want[f'{tag}.loss'].tolist()}", flush=True)
+        del t
+        free_card()
+    with tempfile.TemporaryDirectory() as tmp:
+        np.savez(f"{tmp}/want.npz", **want)
+        got = spawn_ranks("--train-rank", tmp)
+    for r, o in enumerate(got):
+        for tag, _, _, meshes in TRAIN_MESH_RUNS:
+            for shape in meshes:
+                key = f"{tag}.{shape[0]}x{shape[1]}"
+                steps = 3 if (tag, shape) == ("qwen3", (2, 1)) \
+                    else TRAIN_MESH_STEPS
+                assert len(o[f"{key}.loss"]) == steps, (key, steps)
+                np.testing.assert_allclose(o[f"{key}.loss"],
+                                           want[f"{tag}.loss"][:steps],
+                                           rtol=1e-4,
+                                           err_msg=f"rank {r} {key}")
+                np.testing.assert_array_equal(o[f"{key}.loss"],
+                                              got[0][f"{key}.loss"])
+                assert int(o[f"{key}.mu"]) * shape[0] == int(o[f"{key}.n"])
+                assert not o[f"{key}.launches"].any()
+        assert o["resumed.step"].tolist() == [3], o["resumed.step"]
+        np.testing.assert_allclose(o["resumed.loss"][-1],
+                                   want["qwen3.loss"][-1], rtol=1e-4)
+    print("[train-mesh] (b) two gloo ranks on cuda:0: float32 qwen3 on "
+          "(2, 1) and (1, 2) and mixtral on (1, 2) within 1e-4 of the "
+          "meshless losses, ranks equal, ZeRO-1 moments 1/data a rank, no "
+          "kernel launched; crashed on (2, 1), restored on (1, 2) onto the "
+          "uninterrupted final loss", flush=True)
+
+
+def save_peak(t, rank, ckpt, dev):
+    """A whole-tensor checkpoint of trainer ``t``'s final state on its
+    mesh, its device memory above the resident state printed (each leaf
+    gathered in turn: under two of the largest whole leaf, where the whole
+    tree at once would be ten bytes a parameter), then deleted."""
+    from repro_torch.checkpoint import CheckpointManager
+    t.mgr = CheckpointManager(ckpt, keep_n=1)
+    free_card()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    t._save(t.tcfg.steps - 1, t._final, blocking=True)
+    wall = time.perf_counter() - t0
+    extra = torch.cuda.max_memory_allocated(dev) - base
+    leaf = max(math.prod(t.plan.full[n]) * p.element_size()
+               for n, p in t.params.items())
+    print(f"[train-mesh] rank {rank} of 2: checkpoint of {t.cfg.name} "
+          f"({len(t.params)} whole parameters and their moments) in "
+          f"{wall:.1f} s, device memory above the resident "
+          f"{base / 1e9:.3f} GB: {extra / 1e9:.3f} GB (largest whole "
+          f"float32 leaf {leaf / 1e9:.3f} GB)", flush=True)
+    assert extra <= 2 * leaf, (extra, leaf)
+    t.mgr = None
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def train_rank(rank: int, tmp: str) -> int:
+    """``--train-rank RANK DIR``: one of two ranks that share this card and
+    meet over ``gloo``: the ``TRAIN_MESH_RUNS`` trainers on their meshes,
+    qwen3's on ``(2, 1)`` checkpointing and crashing before step 3, and its
+    step-2 checkpoint restored on ``(1, 2)``; results to DIR."""
+    import torch.distributed as dist
+    dist.init_process_group("gloo", store=dist.FileStore(f"{tmp}/store", 2),
+                            rank=rank, world_size=2)
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.launch.mesh import build_mesh
+    from repro_torch.runtime import SimulatedFailure
+    out, ckpt = {}, f"{tmp}/ckpt"
+    for tag, arch, layers, meshes in TRAIN_MESH_RUNS:
+        cfg = train_mesh_cfg(arch, layers)
+        for shape in meshes:
+            mesh = build_mesh(None, shape, ("data", "model"))
+            key = f"{tag}.{shape[0]}x{shape[1]}"
+            crash = (tag, shape) == ("qwen3", (2, 1))
+            torch.cuda.reset_peak_memory_stats(dev)
+            t = mesh_trainer(cfg, TRAIN_MESH_SHAPE, TRAIN_MESH_STEPS, dev,
+                             mesh, ckpt=ckpt if crash else None,
+                             fail_at=(3,) if crash else ())
+            mu = []
+
+            def on_step(step, opt):
+                mu.append(sum(m.numel() for m in opt.mu.values()))
+            before = _kernel_launches()
+            t0 = time.perf_counter()
+            try:
+                t.train(max_restarts=0, on_step=on_step)
+                assert not crash, "no failure was injected"
+            except SimulatedFailure:
+                assert crash
+                t.mgr.wait()
+            recs = t.metrics_log
+            wall = time.perf_counter() - t0
+            n = [a - b for a, b in zip(_kernel_launches(), before)]
+            par = sum(p.numel() for p in t.params.values())
+            peak = torch.cuda.max_memory_allocated(dev)
+            print(f"[train-mesh] rank {rank} of 2 (gloo, cuda:0, mesh "
+                  f"{shape}): float32 {layers}-layer {arch}, batch "
+                  f"{TRAIN_MESH_SHAPE[1]} x {TRAIN_MESH_SHAPE[0]}: losses "
+                  f"{[r['loss'] for r in recs]}, step ms "
+                  f"{[round(1e3 * r['dt'], 1) for r in recs]} (wall "
+                  f"{wall:.1f} s{', crashed before step 3' if crash else ''}"
+                  f"), parameters {par} and moment elements {mu[-1]} a rank, "
+                  f"peak device memory {peak / 1e9:.3f} GB, launches (B3, "
+                  f"B4, B5) {tuple(n)}", flush=True)
+            out[f"{key}.loss"] = np.array([r["loss"] for r in recs])
+            out[f"{key}.mu"] = np.array(mu[-1])
+            out[f"{key}.n"] = np.array(par)
+            out[f"{key}.launches"] = np.array(n)
+            if tag == "mixtral":
+                save_peak(t, rank, f"{tmp}/ckpt-{tag}", dev)
+            del t
+            free_card()
+    dist.barrier()
+    resumed = mesh_trainer(train_mesh_cfg("qwen3-0.6b", 2), TRAIN_MESH_SHAPE,
+                           TRAIN_MESH_STEPS, dev,
+                           build_mesh(None, (1, 2), ("data", "model")),
+                           ckpt=ckpt)
+    recs = resumed.train()["metrics"]
+    print(f"[train-mesh] rank {rank} of 2: restored on (1, 2) from the (2, "
+          f"1) run's step-2 checkpoint: steps {[r['step'] for r in recs]}, "
+          f"losses {[r['loss'] for r in recs]}", flush=True)
+    out["resumed.step"] = np.array([r["step"] for r in recs])
+    out["resumed.loss"] = np.array([r["loss"] for r in recs])
+    np.savez(f"{tmp}/rank{rank}.npz", **out)
+    dist.destroy_process_group()
+    return 0
+
+
+#: seq-decode's float32 models at full width: (tag, arch, fields replaced)
+SEQ_CHECKS = (("qwen3", "qwen3-0.6b", {"n_layers": 2}),
+              ("gemma3", "gemma3-27b", {"n_layers": 2}),
+              ("zamba2", "zamba2-7b", {"n_layers": 7}),
+              ("whisper", "whisper-medium", {"enc_layers": 2,
+                                             "dec_layers": 2}))
+
+
+def seq_run(model, batch, prompt, new):
+    """A batch-1 prefill of ``batch`` (``prompt`` positions, caches of
+    ``prompt + new`` slots) and ``new - 1`` greedy decode steps from
+    position ``prompt``, as ``Server.generate``: every step's logits
+    (float32) and the tokens."""
+    with torch.inference_mode():
+        lg, c = model.prefill(batch, cache_len=prompt + new)
+        logits, toks = [lg.float()], [lg[:, -1].argmax(-1)[:, None]]
+        for j in range(new - 1):
+            lg, c = model.decode_step(c, {"token": toks[-1],
+                                          "pos": prompt + j})
+            logits.append(lg.float())
+            toks.append(lg[:, -1].argmax(-1)[:, None])
+    return torch.cat(logits, 1), torch.cat(toks, 1)
+
+
+def seq_models(dev, mesh=None):
+    """Each ``SEQ_CHECKS`` model with seeded weights on ``mesh`` and its
+    one-row request batch."""
+    from repro_torch.configs import get
+    from repro_torch.launch.serve import request_batch
+    from repro_torch.models import build_model
+    for tag, arch, kw in SEQ_CHECKS:
+        cfg = dataclasses.replace(get(arch), dtype="float32", **kw)
+        model = build_model(cfg, device=dev, mesh=mesh).init(
+            torch.Generator(device=dev).manual_seed(SEED))
+        yield tag, model, request_batch(cfg, 1, SEQ_PROMPT,
+                                        np.random.default_rng(SEED + 2))
+
+
+#: seq-decode: a batch of 1, prompt 2,048 and 32 new tokens
+SEQ_PROMPT, SEQ_NEW = 2048, 32
+
+
+def seq_decode(dev):
+    """seq-decode: batch-1 sequence-parallel decode (the reference's
+    ``shard_seq``) on two ``gloo`` ranks sharing this card
+    (``--seq-rank``), ``(data 2, model 1)``, prompt 2,048 and 32 new
+    tokens: qwen3-0.6b in bfloat16 at full depth through ``Server`` (each
+    rank's B4 over 1,040 of 2,080 slots; launches and per-rank slots
+    printed, tokens against the meshless server's printed), then float32
+    2-layer qwen3, gemma3 (local rings of 1,024, 512 a rank), 7-layer
+    zamba2 and 2 + 2-layer whisper against the meshless batch-1 runs here
+    (logits within 1e-4, tokens equal), the ranks bit for bit."""
+    from repro_torch.configs import get
+    from repro_torch.launch.serve import Server, request_batch
+    free_card()
+    qwen = get("qwen3-0.6b")
+    srv = Server(qwen, 1, SEQ_PROMPT, SEQ_NEW, eos_id=-1, device=dev)
+    srv.init_params(SEED)
+    want = {"bf16.tokens": srv.generate(request_batch(
+        qwen, 1, SEQ_PROMPT, np.random.default_rng(SEED)))["tokens"]}
+    del srv
+    free_card()
+    for tag, model, batch in seq_models(dev):
+        lg, tk = seq_run(model, batch, SEQ_PROMPT, SEQ_NEW)
+        want[f"{tag}.logits"] = lg.cpu().numpy()
+        want[f"{tag}.tokens"] = tk.cpu().numpy()
+        del model
+        free_card()
+    with tempfile.TemporaryDirectory() as tmp:
+        np.savez(f"{tmp}/want.npz", **want)
+        got = spawn_ranks("--seq-rank", tmp)
+    layers = qwen.n_layers
+    for r, o in enumerate(got):
+        assert tuple(o["bf16.launches"]) == (layers, layers * (SEQ_NEW - 1),
+                                             0), o["bf16.launches"]
+        assert int(o["bf16.slots"]) == (SEQ_PROMPT + SEQ_NEW) // 2
+        for tag, _, _ in SEQ_CHECKS:
+            np.testing.assert_allclose(o[f"{tag}.logits"],
+                                       want[f"{tag}.logits"], rtol=1e-4,
+                                       atol=1e-4, err_msg=f"rank {r} {tag}")
+            np.testing.assert_array_equal(o[f"{tag}.tokens"],
+                                          want[f"{tag}.tokens"])
+        for k in o:
+            np.testing.assert_array_equal(o[k], got[0][k], err_msg=k)
+    print(f"[seq-decode] two gloo ranks on cuda:0, batch 1 x {SEQ_PROMPT}, "
+          f"{SEQ_NEW} new: qwen3-0.6b bfloat16 B3 {layers} and B4 "
+          f"{layers * (SEQ_NEW - 1)} launches a rank over "
+          f"{(SEQ_PROMPT + SEQ_NEW) // 2} slots a rank, tokens equal the "
+          f"meshless server's "
+          f"{np.array_equal(got[0]['bf16.tokens'], want['bf16.tokens'])}; "
+          f"float32 qwen3, gemma3, zamba2 and whisper within 1e-4 of the "
+          f"meshless batch-1 runs, tokens equal, ranks bit for bit",
+          flush=True)
+
+
+def seq_rank(rank: int, tmp: str) -> int:
+    """``--seq-rank RANK DIR``: one of two ranks that share this card and
+    meet over ``gloo``, serving a batch of 1 on ``(data 2, model 1)``;
+    results to DIR."""
+    import torch.distributed as dist
+    dist.init_process_group("gloo", store=dist.FileStore(f"{tmp}/store", 2),
+                            rank=rank, world_size=2)
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import get
+    from repro_torch.launch.mesh import build_mesh
+    from repro_torch.launch.serve import Server, request_batch
+    mesh = build_mesh(None, (2, 1), ("data", "model"))
+    where = f"rank {rank} of 2 (gloo, cuda:0, mesh {{'data': 2, 'model': 1}})"
+    want = np.load(f"{tmp}/want.npz")
+    out = {}
+    qwen = get("qwen3-0.6b")
+    srv = Server(qwen, 1, SEQ_PROMPT, SEQ_NEW, eos_id=-1, mesh=mesh,
+                 device=dev)
+    srv.init_params(SEED)
+    batch = request_batch(qwen, 1, SEQ_PROMPT, np.random.default_rng(SEED))
+    first = srv.generate(batch)
+    torch.cuda.reset_peak_memory_stats(dev)
+    b0 = _kernel_launches()
+    res = srv.generate(batch)
+    got = tuple(a - b for a, b in zip(_kernel_launches(), b0))
+    peak = torch.cuda.max_memory_allocated(dev)
+    caches = srv.model.init_caches(1, SEQ_PROMPT + SEQ_NEW)
+    slots = int(caches["k"].shape[-3])
+    own = srv.model.sh.seq_slots(SEQ_PROMPT + SEQ_NEW)
+    print(f"[seq-decode] {where}: qwen3-0.6b {qwen.n_layers} layers "
+          f"bfloat16, batch 1 x {SEQ_PROMPT}, {SEQ_NEW} new: slots "
+          f"[{own.start}, {own.stop}) of {SEQ_PROMPT + SEQ_NEW} ({slots} a "
+          f"layer), launches B3 {got[0]} B4 {got[1]} B5 {got[2]}, prefill "
+          f"{1e3 * res['prefill_s']:.2f} ms, decode "
+          f"{res['tokens_generated']} tokens in {1e3 * res['decode_s']:.2f} "
+          f"ms ({res['decode_tok_per_s']:.1f} tok/s), peak device memory "
+          f"{peak / 1e9:.3f} GB; tokens equal the meshless server's "
+          f"{np.array_equal(res['tokens'], want['bf16.tokens'])}, repeat "
+          f"equal {np.array_equal(res['tokens'], first['tokens'])}",
+          flush=True)
+    out["bf16.launches"] = np.array(got)
+    out["bf16.slots"] = np.array(slots)
+    out["bf16.tokens"] = res["tokens"]
+    del srv, caches
+    free_card()
+    for tag, model, batch in seq_models(dev, mesh):
+        b0 = _kernel_launches()
+        lg, tk = seq_run(model, batch, SEQ_PROMPT, SEQ_NEW)
+        n = tuple(a - b for a, b in zip(_kernel_launches(), b0))
+        err = float((lg.cpu() - torch.from_numpy(want[f"{tag}.logits"]))
+                    .abs().max())
+        print(f"[seq-decode] {where}: float32 {model.cfg.name}: logits vs "
+              f"meshless max_abs_err {err:.3g}, tokens equal "
+              f"{np.array_equal(tk.cpu().numpy(), want[f'{tag}.tokens'])}; "
+              f"launches (B3, B4, B5) {n}", flush=True)
+        out[f"{tag}.logits"] = lg.cpu().numpy()
+        out[f"{tag}.tokens"] = tk.cpu().numpy()
+        del model
+        free_card()
+    np.savez(f"{tmp}/rank{rank}.npz", **out)
     dist.destroy_process_group()
     return 0
 
@@ -1890,7 +2326,8 @@ def main() -> int:
     G = H // KV
     serve_cache = SERVE_PROMPT + SERVE_NEW
     gen = torch.Generator(device=dev)
-    rec.update(flash_max_abs_err=0.0, decode_max_abs_err=0.0)
+    rec.update(flash_max_abs_err=0.0, decode_max_abs_err=0.0,
+               decode_lse_max_abs_err=0.0)
 
     def randn(shape, dtype, seed):
         gen.manual_seed(seed)
@@ -1968,6 +2405,39 @@ def main() -> int:
                 torch.cuda.synchronize()
                 attn_check("decode", f"{tag} {(b, c, kh, g, hd)}", got,
                            decode_plain(q, k, v, valid), dtype)
+        # B4's log-sum-exp output (sequence-parallel decode) at a rank's
+        # slice of the batch-1 caches: qwen3's 1,040 of 2,080 slots,
+        # zamba2's, and half of gemma3's ring of 1,024; valid lengths
+        # ending inside a block's chunk
+        half = (SEQ_PROMPT + SEQ_NEW) // 2
+        zkv, zhd = zamba2.n_kv_heads, zamba2.head_dim
+        lse_cases = [((1, half, KV, G, HD), v, f"qwen3 slice valid {v}")
+                     for v in (1, 1000, half)] + [
+            ((1, half, zkv, zamba2.n_heads // zkv, zhd), 777,
+             "zamba2 slice valid 777"),
+            ((1, gemma3.window // 2, gkv, gg, ghd), gemma3.window // 2,
+             "gemma3 half ring")]
+        for dtype in (torch.float32, torch.bfloat16):
+            for i, ((b, c, kh, g, hd), valid, tag) in enumerate(lse_cases):
+                q = randn((b, kh, g, hd), dtype, 300 + 3 * i)
+                k = randn((b, c, kh, hd), dtype, 301 + 3 * i)
+                v = randn((b, c, kh, hd), dtype, 302 + 3 * i)
+                k[:, valid:] = 1e9
+                v[:, valid:] = -1e9
+                got, lse = ops.decode_attention(q, k, v, valid,
+                                                return_lse=True)
+                torch.cuda.synchronize()
+                want, want_lse = decode_plain(q, k, v, valid, True)
+                attn_check("decode", f"{tag} {(b, c, kh, g, hd)} with lse",
+                           got, want, dtype)
+                err = (lse - want_lse).abs()
+                bad = int((err > LSE_TOL + LSE_TOL * want_lse.abs()).sum())
+                rec["decode_lse_max_abs_err"] = max(
+                    rec["decode_lse_max_abs_err"], float(err.max()))
+                print(f"[check-attn] decode lse {tag} {str(dtype)[6:]}: "
+                      f"max_abs_err {float(err.max()):.3g} (tol {LSE_TOL:g})"
+                      f" outside {bad}", flush=True)
+                assert bad == 0 and bool(torch.isfinite(lse).all()), tag
     _phase("check-attn", check_attn, failures)
 
     # 12. serve: qwen3-0.6b at full width and depth --------------------------
@@ -2380,6 +2850,28 @@ def main() -> int:
             S=CROSS_FRAMES, causal=False)
         timing["decode gemma3 ring"] = time_decode("gemma3 ring", gkv, gg,
                                                    ghd, C=w, valid=w)
+        time_lse("qwen3 serve", SERVE_BATCH, serve_cache, SERVE_PROMPT)
+        half = (SEQ_PROMPT + SEQ_NEW) // 2
+        time_lse("qwen3 seq-decode slice", 1, half, SEQ_PROMPT + 1 - half)
+
+    def time_lse(tag, B, C, valid):
+        """B4 with and without its log-sum-exp output, in turns (five
+        rounds each, medians), at qwen3-0.6b's heads in bfloat16."""
+        qd = randn((B, KV, G, HD), torch.bfloat16, 7)
+        kc = randn((B, C, KV, HD), torch.bfloat16, 8)
+        vc = randn((B, C, KV, HD), torch.bfloat16, 9)
+        plain_, lse_ = [], []
+        for _ in range(5):
+            plain_.append(queued_ms(
+                lambda: ops.decode_attention(qd, kc, vc, valid), 50)[0])
+            lse_.append(queued_ms(lambda: ops.decode_attention(
+                qd, kc, vc, valid, return_lse=True), 50)[0])
+        ms, ms_lse = float(np.median(plain_)), float(np.median(lse_))
+        timing[f"decode lse {tag}"] = dict(ms=ms, lse_ms=ms_lse)
+        print(f"[time-attn] B4 {tag} bf16 q {tuple(qd.shape)} cache "
+              f"{tuple(kc.shape)} valid {valid}: without lse {ms:.5f} ms, "
+              f"with lse {ms_lse:.5f} ms (rounds {[round(t, 5) for t in plain_]}"
+              f" / {[round(t, 5) for t in lse_]})", flush=True)
     _phase("time-attn", time_attn, failures)
 
     # 15. check-ssd: B5 against its plain version ---------------------------
@@ -2707,6 +3199,12 @@ def main() -> int:
     # 23. train: qwen3-0.6b at full width and depth through Trainer --------
     _phase("train", train_run, failures, dev)
 
+    # 24. train-mesh: the Trainer on a device mesh ----------------------------
+    _phase("train-mesh", train_mesh, failures, dev)
+
+    # 25. seq-decode: batch-1 sequence-parallel decode over two ranks ---------
+    _phase("seq-decode", seq_decode, failures, dev)
+
     jax_loaded = "jax" in sys.modules
     print(f"[imports] jax loaded: {jax_loaded}")
     if jax_loaded:
@@ -2764,4 +3262,8 @@ if __name__ == "__main__":
         sys.exit(mesh_rank(int(sys.argv[2]), sys.argv[3]))
     if sys.argv[1:2] == ["--serve-rank"]:
         sys.exit(serve_rank(int(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:2] == ["--train-rank"]:
+        sys.exit(train_rank(int(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:2] == ["--seq-rank"]:
+        sys.exit(seq_rank(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

@@ -25,7 +25,9 @@ trainer updates its parameters in place in the next step), then writes the
 files on a background thread; ``wait()`` joins it, and every ``save``
 waits for the one before. ``restore`` returns the tree with CPU tensors
 (numpy arrays and scalars come back as tensors too); the caller copies them
-onto its device.
+onto its device. The trainer on a device mesh saves whole tensors (every
+rank gathers, rank 0 writes) and cuts each rank's slices on restore, so a
+checkpoint is the same on any mesh (``launch.train``).
 """
 from __future__ import annotations
 

@@ -71,14 +71,16 @@ def _via_host(t: torch.Tensor, group) -> bool:
     return t.is_cuda and dist.get_backend(group) == "gloo"
 
 
-def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
-    """The sum of every rank's ``t`` over ``group``, as a new tensor."""
+def all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM
+               ) -> torch.Tensor:
+    """The sum (or ``op``) of every rank's ``t`` over ``group``, as a new
+    tensor."""
     if _via_host(t, group):
         h = t.detach().cpu()
-        dist.all_reduce(h, group=group)
+        dist.all_reduce(h, op=op, group=group)
         return h.to(t.device)
     out = t.detach().clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out, group=group)
+    dist.all_reduce(out, op=op, group=group)
     return out
 
 

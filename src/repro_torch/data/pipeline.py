@@ -7,9 +7,15 @@ Design requirements at scale:
     ``(seed, i)`` (counter-based Philox), so a job restarted from a step-k
     checkpoint resumes the stream exactly at batch k with no iterator
     state to persist. This is the data-side half of fault tolerance.
-  * **Per-host sharding** — every host materializes only its
-    ``global_batch / num_processes`` slice (``host_slice``; one process
-    here, the API kept for ROADMAP queue A item 13c).
+  * **Per-host sharding** — ``host_slice`` and ``make_stream(
+    process_index=, process_count=)`` are the reference's, kept bit for
+    bit, quirk included: ``batch(i)`` seeds Philox with ``i`` alone and
+    draws ``global_batch / process_count`` rows, so every process gets the
+    same rows (the first rows of the single-process batch), not its slice
+    of the global batch. The trainer on a mesh (``launch.train``) does not
+    use it: every rank draws the global batch and keeps its data shard's
+    rows, which is what the reference's single controller feeds its
+    jitted step.
   * **Modality-aware** — LM families get packed token streams; encdec
     gets (audio_embeds, tokens); vlm gets (vision, tokens) — matching
     ``models.model_zoo.input_specs`` exactly.

@@ -39,7 +39,9 @@
 //     rows; groups of slots accumulate apart and are summed once at the end;
 //   * the block's (m, l, acc) per head are combined across the cluster by
 //     its first block through distributed shared memory: one launch, no
-//     scratch in device memory.
+//     scratch in device memory. On request the same block writes each
+//     head's log-sum-exp, mx + log(l), which sequence-parallel decode
+//     needs to merge the outputs of ranks holding other slots.
 //
 // The C entry point launches on the caller's stream, allocates nothing, and
 // returns cudaGetLastError().
@@ -64,6 +66,7 @@ struct DecodeArgs {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // (B, K, G) contiguous float32, or null
   // element strides: q and o over (B, K, G), k and v over (B, K, C); the
   // head_dim stride is 1
   long long q_sb, q_sk, q_sg;
@@ -353,6 +356,8 @@ decode_kernel(const DecodeArgs a) {
         ls += cluster.map_shared_rank(sL, r)[g] * f;
       }
       store_one(op + (g0 + g) * a.o_sg + d, sum / fmaxf(ls, 1e-30f));
+      if (a.lse != nullptr && d == 0)
+        a.lse[(b * a.K + kh) * a.G + g0 + g] = mx + logf(ls);
     }
   }
   cluster.sync();                    // keep every block's partials alive
@@ -415,17 +420,20 @@ const char* decode_attention_error_string(int err) {
 // q, o: (B, K, G, hd) and k, v: (B, K, C, hd) addressed through the 12
 // element strides in `st` (q b,k,g; k b,k,c; v b,k,c; o b,k,g); head_dim
 // contiguous; slots [0, valid) are live, block r of a row's `splits` takes
-// slots [r * chunk, (r + 1) * chunk). dtype 0 = float32, 1 = bfloat16.
-// Launches on `stream` and returns cudaGetLastError().
+// slots [r * chunk, (r + 1) * chunk). `lse`, unless null, receives each
+// head's log-sum-exp of its scaled scores over the live slots, (B, K, G)
+// contiguous float32. dtype 0 = float32, 1 = bfloat16. Launches on
+// `stream` and returns cudaGetLastError().
 int decode_attention_launch(const void* q, const void* k, const void* v,
-                            void* o, const long long* st, int B, int K, int G,
+                            void* o, float* lse, const long long* st, int B,
+                            int K, int G,
                             int hd, int valid, int splits, int chunk,
                             float scale, int dtype, void* stream) {
   if (splits < 1 || splits > kMaxSplit || chunk < 1 ||
       (long long)splits * chunk < valid)
     return static_cast<int>(cudaErrorInvalidValue);
   DecodeArgs a;
-  a.q = q; a.k = k; a.v = v; a.o = o;
+  a.q = q; a.k = k; a.v = v; a.o = o; a.lse = lse;
   a.q_sb = st[0]; a.q_sk = st[1]; a.q_sg = st[2];
   a.k_sb = st[3]; a.k_sk = st[4]; a.k_sc = st[5];
   a.v_sb = st[6]; a.v_sk = st[7]; a.v_sc = st[8];

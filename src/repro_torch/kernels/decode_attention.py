@@ -19,7 +19,11 @@ Both take the folded layout of the reference, ``q (BK, G, hd)`` and
 ``kernels.ops.decode_attention`` hand the kernel a permuted view of the
 model's ``(B, C, K, hd)`` cache, which it reads in place through its
 strides. ``valid_len`` is one Python int (or 0-d tensor) for the whole
-batch, 1 <= valid_len <= C. The output has q's shape and dtype.
+batch, 1 <= valid_len <= C. The output has q's shape and dtype; with
+``return_lse=True`` it comes with each head's float32 log-sum-exp of its
+scaled scores over the live slots, q's shape without ``hd``, which
+sequence-parallel decode needs to merge the outputs of slices of one
+cache (``models.attention``).
 
 ``decode_attention_folded`` picks by the tensors' device: plain on the
 CPU, the kernel on CUDA, where it raises on anything the kernel does not
@@ -97,38 +101,46 @@ def decode_split(rows: int, valid: int, splits: Optional[int] = None):
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           valid_len) -> torch.Tensor:
+                           valid_len, return_lse: bool = False):
     """The kernel's function in plain PyTorch: fp32 scores over every
     slot, slots >= ``valid_len`` masked with ``NEG_INF``, softmax, fp32
-    P·V; returned in q's dtype."""
+    P·V; returned in q's dtype (with ``return_lse``, and the scores'
+    ``torch.logsumexp``)."""
     q4, k4, v4 = _split(q, k, v)
     C, hd = k4.shape[2:]
     n = _valid(valid_len, C)
     s = torch.einsum("bkgd,bkcd->bkgc", q4.float(), k4.float()) * hd ** -0.5
     live = torch.arange(C, device=q.device) < n
-    w = torch.softmax(torch.where(live, s, NEG_INF), dim=-1)
+    s = torch.where(live, s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgc,bkcd->bkgd", w, v4.float()).to(q.dtype)
-    return out if q.dim() == 4 else out[:, 0]
+    out = out if q.dim() == 4 else out[:, 0]
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(s, dim=-1)
+    return out, (lse if q.dim() == 4 else lse[:, 0])
 
 
 def decode_attention_folded(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, valid_len, *,
-                            splits: Optional[int] = None) -> torch.Tensor:
+                            splits: Optional[int] = None,
+                            return_lse: bool = False):
     """Decode attention over the folded (or row-split) layout: the plain
     version on the CPU, the kernel on CUDA (or it raises). ``splits``
-    overrides the kernel's blocks per row (``decode_split``)."""
+    overrides the kernel's blocks per row (``decode_split``);
+    ``return_lse`` returns ``(out, lse)``."""
     refuse_grad("decode_attention_folded", q, k, v)
     if q.device.type == "cpu":
-        return decode_attention_plain(q, k, v, valid_len)
+        return decode_attention_plain(q, k, v, valid_len, return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"no decode attention for tensors on {q.device}")
-    return _launch(q, k, v, valid_len, splits)
+    return _launch(q, k, v, valid_len, splits, return_lse)
 
 
 decode_attention_folded.launches = 0
 
 
-def _launch(q, k, v, valid_len, splits):
+def _launch(q, k, v, valid_len, splits, return_lse=False):
     q4, k4, v4 = _split(q, k, v)
     B, K, G, hd = q4.shape
     n = _valid(valid_len, k4.shape[2])
@@ -143,19 +155,25 @@ def _launch(q, k, v, valid_len, splits):
         check_operand(name, t, q4)
     o = torch.empty_like(q4)
     check_operand("o", o, q4)
+    lse = torch.empty((B, K, G), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     st = (ctypes.c_longlong * 12)(*q4.stride()[:3], *k4.stride()[:3],
                                   *v4.stride()[:3], *o.stride()[:3])
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     decode_attention_folded.launches += 1
     err = lib.decode_attention_launch(
-        q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o.data_ptr(), st, B, K,
-        G, hd, n, splits, chunk, hd ** -0.5, DTYPE_CODES[q.dtype], stream)
+        q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o.data_ptr(),
+        None if lse is None else lse.data_ptr(), st, B, K, G, hd, n, splits,
+        chunk, hd ** -0.5, DTYPE_CODES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(
             "decode_attention kernel launch failed: "
             f"{lib.decode_attention_error_string(err).decode()}")
-    return o if q.dim() == 4 else o[:, 0]
+    out = o if q.dim() == 4 else o[:, 0]
+    if lse is None:
+        return out
+    return out, (lse if q.dim() == 4 else lse[:, 0])
 
 
 _LIB = None
@@ -168,7 +186,7 @@ def _lib():
         lib = load("decode_attention")
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.decode_attention_launch.argtypes = (
-            [vp] * 4 + [ctypes.POINTER(ctypes.c_longlong)] + [ci] * 7
+            [vp] * 5 + [ctypes.POINTER(ctypes.c_longlong)] + [ci] * 7
             + [ctypes.c_float, ci, vp])
         lib.decode_attention_launch.restype = ci
         lib.decode_attention_error_string.argtypes = [ci]

@@ -30,10 +30,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     valid_len) -> torch.Tensor:
-    """q: (B,K,G,hd); k/v: (B,C,K,hd); valid_len: int -> (B,K,G,hd)."""
+                     valid_len, return_lse: bool = False):
+    """q: (B,K,G,hd); k/v: (B,C,K,hd); valid_len: int -> (B,K,G,hd), and
+    with ``return_lse`` the (B,K,G) float32 log-sum-exp."""
     return decode_attention_folded(q, k.permute(0, 2, 1, 3),
-                                   v.permute(0, 2, 1, 3), valid_len)
+                                   v.permute(0, 2, 1, 3), valid_len,
+                                   return_lse=return_lse)
 
 
 def ssd_intra(xc: torch.Tensor, cum: torch.Tensor, Bc: torch.Tensor,

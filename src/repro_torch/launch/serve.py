@@ -50,9 +50,13 @@ on ``(W / N, N)``). Each rank holds its slices of the model
 (``models.build_model(mesh=)``): tensor parallelism over the model axis,
 B3, B4 and B5 on the rank's heads, the batch's rows split over the data
 axis; every rank returns the same tokens and only rank 0 prints. A batch
-of 1 over more than one data shard needs sequence-parallel decode,
-ROADMAP queue A item 13c. Outside ``torchrun``, without a mesh and with
-``model_axis=1``, the server issues no collective.
+of 1 over more than one data shard is served sequence-parallel (the
+reference's ``shard_seq``): the prefill runs replicated, each rank keeps
+``C/n`` slots of every KV cache (Mamba2 states whole), and each decode
+step runs B4 on the rank's live slots and merges the ranks' outputs by
+their log-sum-exps (``models.attention.attn_decode``). Outside
+``torchrun``, without a mesh and with ``model_axis=1``, the server issues
+no collective.
 """
 from __future__ import annotations
 
@@ -69,7 +73,7 @@ from ..configs import get
 from ..configs.base import ModelConfig
 from ..core.device import resolve_device
 from ..models import build_model
-from .mesh import data_axes_of, data_shard_count
+from .mesh import data_axes_of
 from .plan import add_plan_args, check_plan_args, plan_from_args
 
 __all__ = ["Server", "main", "request_batch", "kernel_launches"]
@@ -130,14 +134,7 @@ class Server:
             from ..runtime import elastic_mesh
             mesh = elastic_mesh(model=model_axis, device=self.device)
         self.mesh = mesh
-        data_axes = ("data",)
-        if mesh is not None:
-            data_axes = data_axes_of(mesh)
-            if batch == 1 and data_shard_count(mesh) > 1:
-                raise NotImplementedError(
-                    "a batch of 1 on a data axis > 1 needs sequence-parallel "
-                    "decode (the reference's shard_seq), ROADMAP queue A "
-                    "item 13c")
+        data_axes = data_axes_of(mesh) if mesh is not None else ("data",)
         self.model = build_model(cfg, device=self.device, mesh=mesh,
                                  data_axes=data_axes)
 

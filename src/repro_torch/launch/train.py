@@ -1,46 +1,66 @@
-"""Fault-tolerant trainer (single process): the port of
-``repro/launch/train.py``.
+"""Fault-tolerant trainer: the port of ``repro/launch/train.py``.
 
-Wires the training layers together: the data stream (stateless, so a
-restart resumes it exactly), the train step of ``launch.steps`` (forward
-and backward on the models' differentiable route, AdamW, optional
+Wires the training layers together: the device mesh (the reference's
+elastic mesh), the data stream (stateless, so a restart resumes it
+exactly), the train step of ``launch.steps`` (forward and backward on the
+models' differentiable route, AdamW with ZeRO-1 state on a mesh, optional
 micro-batch accumulation and int8 error-feedback compression), async
-checkpoints (atomic, keep-N), failure injection with restart supervision
-(``runtime.run_with_restarts``) and straggler detection.
+checkpoints (atomic, keep-N, mesh-agnostic), failure injection with
+restart supervision (``runtime.run_with_restarts``) and straggler
+detection.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
         --reduced --device cpu --steps 20 --batch 4 --seq 64
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
         --steps 8 --batch 4 --seq 4096 --ckpt-dir ckpt --ckpt-every 4
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \\
+        -m repro_torch.launch.train --arch qwen3-0.6b --model-axis 2 \\
+        --batch 8 --seq 4096 --steps 6
 
 Training runs on the card unless ``--device cpu``. It runs no hand-written
 kernel, as the reference trains on none of its Pallas kernels: attention
 goes through the chunked online softmax and the SSD through its einsum
 form, both differentiable (B3, B4 and B5 have no backward and refuse
 inputs that require grad). Parameters start from a seeded
-``torch.Generator`` draw, or from ``init_params`` (a state dict: how the
-parity tests start from the reference's ``model.init(PRNGKey(seed))``).
-The reference's device mesh (``--model-axis`` other than 1, its elastic
-mesh and ZeRO-1 sharding) waits for ROADMAP queue A item 13c (the models
-themselves run on a mesh: ``models.build_model(mesh=)``, item 13b).
+``torch.Generator`` draw, or from ``init_params`` (a whole state dict: how
+the parity tests start from the reference's ``model.init(PRNGKey(seed))``).
+
+On a device mesh (``Trainer(mesh=)``; without one the reference's
+``elastic_mesh(model=model_axis)`` over the world's ranks when
+``model_axis > 1`` or under a ``torchrun`` of several ranks) each rank
+holds its slices of the parameters (tensor parallelism over the model
+axis), its ZeRO-1 slices of the moments and, with compression, a residual
+shaped as its parameters. Every rank draws the global batch from the
+stream and the train step keeps the rank's rows, which is what the
+reference's single controller feeds its jitted step (its per-process
+``make_stream(process_index=)`` would give every process the same rows,
+see ``data.pipeline``). Checkpoints hold whole tensors in the reference's
+layout: every rank takes part in gathering each leaf, rank 0 writes, and
+a restore on any mesh cuts the rank's slices from the whole leaves; the
+ranks agree on the latest step after rank 0's write has landed. Only rank
+0 prints, and every rank returns the same metrics (rank 0's step time).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 from typing import Any, Callable, Dict, Mapping, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..checkpoint import CheckpointManager
 from ..configs import get
 from ..configs.base import ModelConfig, ShapeSpec
 from ..core.device import resolve_device
 from ..data import DataConfig, make_stream
+from ..models import shard_state_dict
 from ..optim import (AdamWConfig, CompressionState, OptState, adamw_init,
                      init_compression)
 from ..runtime import FailureInjector, StragglerDetector, run_with_restarts
+from .mesh import agree, data_axes_of
 from .steps import make_train_objects
 
 __all__ = ["TrainerConfig", "Trainer", "main", "parse_args",
@@ -57,7 +77,7 @@ class TrainerConfig:
     compress_grads: bool = False
     log_every: int = 10
     seed: int = 0
-    model_axis: int = 1              # tensor-parallel degree: 1 only
+    model_axis: int = 1              # TP degree for the elastic mesh
 
 
 class Trainer:
@@ -67,14 +87,17 @@ class Trainer:
                  data: DataConfig = DataConfig(),
                  injector: Optional[FailureInjector] = None,
                  device=None,
-                 init_params: Optional[Mapping[str, torch.Tensor]] = None):
-        if tcfg.model_axis != 1:
-            raise NotImplementedError(
-                f"model_axis={tcfg.model_axis}: tensor parallelism over a "
-                f"device mesh (the Trainer on a mesh, ZeRO-1) is ROADMAP "
-                f"queue A item 13c")
+                 init_params: Optional[Mapping[str, torch.Tensor]] = None,
+                 mesh=None):
         self.cfg, self.shape, self.tcfg, self.acfg = cfg, shape, tcfg, acfg
         self.device = resolve_device(device)
+        if mesh is None and (tcfg.model_axis > 1 or int(
+                os.environ.get("WORLD_SIZE", "1")) > 1):
+            from ..runtime import elastic_mesh
+            mesh = elastic_mesh(model=tcfg.model_axis, device=self.device)
+        self.mesh = mesh
+        self.daxes = data_axes_of(mesh) if mesh is not None else ("data",)
+        self.rank0 = mesh is None or dist.get_rank() == 0
         self.stream = make_stream(cfg, shape, data)
         self.injector = injector or FailureInjector()
         self.straggler = StragglerDetector()
@@ -84,54 +107,89 @@ class Trainer:
         self.init_params = init_params
         self.model, self._step, _ = make_train_objects(
             cfg, shape, acfg, accum=tcfg.accum,
-            compress=tcfg.compress_grads, device=self.device)
+            compress=tcfg.compress_grads, device=self.device, mesh=mesh,
+            data_axes=self.daxes)
+        self.plan = self._step.plan
         self.params = dict(self.model.named_parameters())
 
     # ------------------------------------------------------------- state
     def init_state(self):
-        """Fresh parameters (``init_params``, or a draw seeded with
-        ``tcfg.seed``) and optimiser state."""
+        """Fresh parameters (``init_params``, cut to the rank's slices on a
+        mesh, or a draw seeded with ``tcfg.seed``) and optimiser state (the
+        rank's ZeRO-1 slices of the moments)."""
         if self.init_params is not None:
-            self.model.load_state_dict(self.init_params)
+            state = self.init_params
+            if self.mesh is not None:
+                state = shard_state_dict(state, self.plan.specs,
+                                         self.model.sh)
+            self.model.load_state_dict(state)
         else:
             self.model.init(torch.Generator(device=self.device).manual_seed(
                 self.tcfg.seed))
-        opt = adamw_init(self.params)
+        opt = adamw_init({n: self.plan.zslice(n, p)
+                          for n, p in self.params.items()})
         if self.tcfg.compress_grads:
             opt = (opt, init_compression(self.params))
         return opt
 
     def _restore(self, step: int):
+        """The state saved at ``step`` (whole tensors), cut to this rank's
+        slices of the parameters, moments and residual."""
         tree = self.mgr.restore(step)
-        self.model.load_state_dict(tree["params"])
+        plan, sh = self.plan, self.model.sh
+        self.model.load_state_dict(
+            shard_state_dict(tree["params"], plan.specs, sh))
         o = tree["opt"]
 
-        def dev(d):
-            return {n: t.to(self.device) for n, t in d.items()}
-        opt = OptState(mu=dev(o["mu"]), nu=dev(o["nu"]),
+        def moments(d):
+            return {n: t[plan.moments_index(n)].to(self.device)
+                    for n, t in d.items()}
+        opt = OptState(mu=moments(o["mu"]), nu=moments(o["nu"]),
                        count=o["count"].to(self.device))
         if self.tcfg.compress_grads:
-            opt = (opt, CompressionState(error=dev(tree["comp"])))
+            opt = (opt, CompressionState(error={
+                n: t.to(self.device) for n, t in shard_state_dict(
+                    tree["comp"], plan.specs, sh).items()}))
         return opt
 
     def _save(self, step: int, opt, blocking: bool = False) -> None:
+        """Whole tensors, written by rank 0. On a mesh every rank takes
+        part in gathering each leaf in turn into host memory
+        (``MeshPlan.whole``); rank 0 keeps it and the others drop it, so
+        no card holds more than one whole leaf beside its slices."""
         if self.mgr is None:
             return
         comp = None
         if self.tcfg.compress_grads:
             opt, comp = opt
-        tree = {"params": self.model.state_dict(),
-                "opt": {"mu": opt.mu, "nu": opt.nu, "count": opt.count}}
+        plan = self.plan
+
+        def whole(d, specs):
+            out = {}
+            for n, t in d.items():
+                w = plan.whole(t.detach(), specs[n])
+                if self.rank0:
+                    out[n] = w
+            return out
+        tree = {"params": whole(self.model.state_dict(), plan.specs),
+                "opt": {"mu": whole(opt.mu, plan.zspecs),
+                        "nu": whole(opt.nu, plan.zspecs),
+                        "count": opt.count}}
         if comp is not None:
-            tree["comp"] = comp.error
-        self.mgr.save(step, tree, blocking=blocking)
+            tree["comp"] = whole(comp.error, plan.specs)
+        if self.rank0:
+            self.mgr.save(step, tree, blocking=blocking)
 
     def _latest(self) -> Optional[int]:
-        """The last checkpoint written, after any write in flight."""
+        """The last checkpoint written, after any write in flight (on a
+        mesh: rank 0's answer, once its write has landed)."""
         if self.mgr is None:
             return None
         self.mgr.wait()
-        return self.mgr.latest_step()
+        if self.mesh is None:
+            return self.mgr.latest_step()
+        dist.barrier()
+        return agree(self.mesh, self.mgr.latest_step())
 
     # -------------------------------------------------------------- train
     def train(self, max_restarts: int = 5,
@@ -142,7 +200,11 @@ class Trainer:
         with the state entering it (the model holds the parameters)."""
         def body(start_step: int) -> int:
             if start_step > 0 and self.mgr is not None:
+                t0 = time.perf_counter()
                 opt = self._restore(start_step - 1)
+                if self.rank0:
+                    print(f"[train] restored step {start_step - 1} in "
+                          f"{time.perf_counter() - t0:.1f} s", flush=True)
             else:
                 opt = self.init_state()
             step = start_step
@@ -157,6 +219,8 @@ class Trainer:
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
                 dt = time.perf_counter() - t0
+                if self.mesh is not None:
+                    dt = agree(self.mesh, dt)
                 slow = self.straggler.update(dt)
                 if step % self.tcfg.log_every == 0 or slow:
                     rec = {"step": step, "loss": float(m["loss"]),
@@ -164,9 +228,11 @@ class Trainer:
                            "grad_norm": float(m["grad_norm"]),
                            "dt": dt, "straggler": slow}
                     self.metrics_log.append(rec)
-                    print(f"[train] step {step} loss {rec['loss']:.4f} "
-                          f"gnorm {rec['grad_norm']:.3f} {dt * 1e3:.0f}ms"
-                          + (" STRAGGLER" if slow else ""), flush=True)
+                    if self.rank0:
+                        print(f"[train] step {step} loss {rec['loss']:.4f} "
+                              f"gnorm {rec['grad_norm']:.3f} "
+                              f"{dt * 1e3:.0f}ms"
+                              + (" STRAGGLER" if slow else ""), flush=True)
                 if (self.mgr is not None
                         and step % self.tcfg.ckpt_every == 0):
                     self._save(step, opt)
@@ -190,7 +256,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--accum", type=int, default=1)
-    ap.add_argument("--model-axis", type=int, default=1)
+    ap.add_argument("--model-axis", type=int, default=1,
+                    help="train on elastic_mesh(model=N) over the world's "
+                         "ranks (under torchrun: W ranks train on (W/N, "
+                         "N)); 1 without torchrun: one device, no mesh")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--compress-grads", action="store_true")
@@ -222,9 +291,24 @@ def trainer_from_args(args: argparse.Namespace) -> Trainer:
 
 
 def main(argv=None) -> None:
-    out = trainer_from_args(parse_args(argv)).train()
-    print(f"[train] done: final_step={out['final_step']} "
-          f"stragglers={out['stragglers']}")
+    trainer = trainer_from_args(parse_args(argv))
+    dev = trainer.device
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    out = trainer.train()
+    if trainer.rank0:
+        print(f"[train] done: final_step={out['final_step']} "
+              f"stragglers={out['stragglers']}")
+    if dev.type == "cuda":
+        peaks = [torch.cuda.max_memory_allocated(dev)]
+        if trainer.mesh is not None:
+            from .mesh import gather_objects
+            peaks = gather_objects(peaks[0])
+        for r, peak in enumerate(peaks if trainer.rank0 else ()):
+            print(f"[train] rank {r}: peak device memory {peak / 1e9:.3f} "
+                  f"GB")
+    if trainer.mesh is not None:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

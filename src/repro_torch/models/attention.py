@@ -65,13 +65,14 @@ from typing import Dict, Mapping, NamedTuple, Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig
+from ..core.collectives import all_gather
 from ..kernels import ops as kops
 from .layers import NO_MESH, P, Sharding, divisible, rms_norm, rope
 
 __all__ = ["attn_prefill", "attn_decode", "grow_cache", "init_cache",
            "quantize_kv", "dequantize_kv", "cross_attn_apply", "cross_kv",
            "NEG_INF", "attn_pspec", "cache_pspec", "attn_layout",
-           "AttnLayout", "attn_full_shapes"]
+           "AttnLayout", "attn_full_shapes", "seq_combine"]
 
 NEG_INF = -2.0 ** 30   # large-but-finite, as in the reference
 
@@ -338,38 +339,54 @@ def attn_prefill(p: Mapping[str, torch.Tensor], x: torch.Tensor,
 
 
 def grow_cache(cache: Cache, cfg: ModelConfig, is_global: bool,
-               cache_len: int, prefill_len: int) -> Cache:
+               cache_len: int, prefill_len: int, sh: Sharding = NO_MESH,
+               seq: bool = False) -> Cache:
     """Grow a prefill-produced cache to its serving capacity: global caches
     are zero-padded to ``cache_len``; ring caches are rolled so slot
-    ``p % window`` holds position ``p``. The sequence axis is the third
-    from the end (of values and int8 scales alike), so layer-stacked
-    caches grow as well."""
+    ``p % window`` holds position ``p``. With ``seq`` (sequence-parallel
+    decode of a batch of 1) only the data shard's slots ``[r·C/n,
+    (r+1)·C/n)`` of the grown cache are made, written straight from the
+    prefill's, so no rank holds the whole grown cache. The sequence axis
+    is the third from the end (of values and int8 scales alike), so
+    layer-stacked caches grow as well."""
     w = 0 if (is_global or not cfg.window) else cfg.window
     tgt = min(w, cache_len) if w else cache_len
 
     def fix(a: torch.Tensor) -> torch.Tensor:
         axis = a.dim() - 3
         cur = a.shape[axis]
-        if w and prefill_len >= w:
-            return torch.roll(a, prefill_len % w, dims=axis)
-        if tgt > cur:
-            shape = list(a.shape)
-            shape[axis] = tgt
-            out = a.new_zeros(shape)
-            out.narrow(axis, 0, cur).copy_(a)
-            return out
-        return a
+        rolled = bool(w) and prefill_len >= w
+        cap = cur if rolled else max(tgt, cur)
+        own = sh.seq_slots(cap) if seq else slice(0, cap)
+        if rolled:          # slot j holds position p with p % w == j
+            if not seq:
+                return torch.roll(a, prefill_len % w, dims=axis)
+            idx = torch.arange(own.start, own.stop, device=a.device)
+            return a.index_select(axis, (idx - prefill_len) % w)
+        if own == slice(0, cur):
+            return a
+        shape = list(a.shape)
+        shape[axis] = own.stop - own.start
+        out = a.new_zeros(shape)
+        n = min(own.stop, cur) - own.start
+        if n > 0:
+            out.narrow(axis, 0, n).copy_(a.narrow(axis, own.start, n))
+        return out
 
     return {name: fix(a) for name, a in cache.items()}
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                is_global: bool, dtype: torch.dtype,
-               device: torch.device, sh: Sharding = NO_MESH) -> Cache:
+               device: torch.device, sh: Sharding = NO_MESH,
+               seq: bool = False) -> Cache:
     """A zero cache of ``batch`` rows; on a mesh of the rank's kv heads
-    (``attn_layout``)."""
+    (``attn_layout``), and with ``seq`` of its data shard's slots."""
     eff = cache_len if (is_global or not cfg.window) \
         else min(cfg.window, cache_len)
+    if seq:
+        sl = sh.seq_slots(eff)
+        eff = sl.stop - sl.start
     kv = attn_layout(cfg, sh).kv
     shape = (batch, eff, kv.stop - kv.start, cfg.head_dim)
     if cfg.kv_dtype == "int8":
@@ -384,15 +401,36 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def seq_combine(o: torch.Tensor, lse: torch.Tensor, sh: Sharding,
+                dtype: torch.dtype) -> torch.Tensor:
+    """Merge the data shards' attention over their own slots: ``o`` (...,
+    hd) and its log-sum-exp ``lse`` (...) from every shard, ``M = max_r
+    lse_r``, ``o = Σ_r e^(lse_r − M) o_r / Σ_r e^(lse_r − M)`` in float32
+    (a shard with no live slot sends ``o = 0``, ``lse = −inf``), cast to
+    ``dtype``. Every shard gets the same tensor, from one all-gather of
+    ``o`` with ``lse`` as its last column."""
+    both = all_gather(torch.cat([o.float(), lse.float()[..., None]],
+                                dim=-1)[None], 0, sh.data_group())
+    os_, ls = both[..., :-1], both[..., -1]
+    w = torch.exp(ls - ls.amax(dim=0))
+    return ((w[..., None] * os_).sum(dim=0)
+            / w.sum(dim=0)[..., None]).to(dtype)
+
+
 def attn_decode(p: Mapping[str, torch.Tensor], x: torch.Tensor,
                 cache: Cache, pos: int, cfg: ModelConfig, is_global: bool,
-                sh: Sharding = NO_MESH) -> Tuple[torch.Tensor, Cache]:
+                sh: Sharding = NO_MESH, seq: bool = False
+                ) -> Tuple[torch.Tensor, Cache]:
     """One-token decode. x: (B,1,D); cache k/v: (B,C,K,hd); pos: the
     number of tokens already in the cache (one for the whole batch).
 
     The new k/v (quantized, with its scales, in an int8 cache) goes to slot
     ``pos``, or ``pos % C`` in a ring cache (C == window), in place; slots
-    [0, valid_len) are attended. On a mesh: the rank's heads.
+    [0, valid_len) are attended. On a mesh: the rank's heads. With
+    ``seq`` (sequence-parallel decode of a batch of 1) the cache holds the
+    data shard's ``C/n`` slots ``[r·C/n, (r+1)·C/n)``: the shard owning
+    the slot writes it, each shard attends its live slots, and the
+    shards' outputs are merged by their log-sum-exps (``seq_combine``).
     """
     b = x.shape[0]
     hd = cfg.head_dim
@@ -402,27 +440,43 @@ def attn_decode(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     q, k_new, v_new = _project_qkv(p, x, positions, cfg, sh)
     h = q.shape[2]
     c = cache["k"].shape[1]
+    lo = sh.data_rank * c if seq else 0
+    c_all = c * sh.n_data if seq else c
     window = 0 if is_global else cfg.window
-    ring = bool(window) and window == c
-    slot = pos % c if ring else pos
-    if "k_s" in cache:
-        for name, t in (("k", k_new), ("v", v_new)):
-            qt, st = quantize_kv(t)
-            cache[name][:, slot] = qt[:, 0]
-            cache[f"{name}_s"][:, slot] = st[:, 0]
-        k = dequantize_kv(cache["k"], cache["k_s"], x.dtype)
-        v = dequantize_kv(cache["v"], cache["v_s"], x.dtype)
-    else:
-        cache["k"][:, slot] = k_new[:, 0]
-        cache["v"][:, slot] = v_new[:, 0]
-        k, v = cache["k"], cache["v"]
+    ring = bool(window) and window == c_all
+    slot = (pos % c_all if ring else pos) - lo
+    if 0 <= slot < c:
+        if "k_s" in cache:
+            for name, t in (("k", k_new), ("v", v_new)):
+                qt, st = quantize_kv(t)
+                cache[name][:, slot] = qt[:, 0]
+                cache[f"{name}_s"][:, slot] = st[:, 0]
+        else:
+            cache["k"][:, slot] = k_new[:, 0]
+            cache["v"][:, slot] = v_new[:, 0]
     # ring layout: every written slot holds one of the last `window`
     # positions, so slots [0, min(pos+1, c)) are live; linear: [0, pos+1)
-    valid_len = min(pos + 1, c) if ring else pos + 1
-    q4, _, _ = _attend_shape(q[:, 0], k, lay)
-    o = kops.decode_attention(q4, _expand(k, lay, 2), _expand(v, lay, 2),
-                              valid_len).to(x.dtype)
-    y = _out_proj(o.reshape(b, 1, h, hd), p["wo"], lay, sh)
+    valid_len = min(pos + 1, c_all) if ring else pos + 1
+    valid = min(max(valid_len - lo, 0), c)
+    q4, kh, g = _attend_shape(q[:, 0], cache["k"], lay)
+    if valid:
+        if "k_s" in cache:
+            k = dequantize_kv(cache["k"], cache["k_s"], x.dtype)
+            v = dequantize_kv(cache["v"], cache["v_s"], x.dtype)
+        else:
+            k, v = cache["k"], cache["v"]
+        args = (q4, _expand(k, lay, 2), _expand(v, lay, 2), valid)
+        o = kops.decode_attention(*args, return_lse=True) if seq \
+            else kops.decode_attention(*args)
+    if seq:
+        if valid:
+            o, lse = o
+        else:              # no live slot here: weighs nothing in the merge
+            o = torch.zeros_like(q4)
+            lse = torch.full((b, kh, g), -torch.inf, dtype=torch.float32,
+                             device=x.device)
+        o = seq_combine(o, lse, sh, x.dtype)
+    y = _out_proj(o.to(x.dtype).reshape(b, 1, h, hd), p["wo"], lay, sh)
     return y, cache
 
 

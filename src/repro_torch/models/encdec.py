@@ -28,7 +28,10 @@ the rank's heads, the MLPs column- then row-parallel, the embedding
 vocab-parallel when the vocabulary divides the model axis; whisper's
 51,865 does not, and stays whole), its caches the rank's kv heads (the
 cross caches too), and ``prefill`` / ``decode_step`` split a served
-batch's rows over the data axes as ``TransformerLM`` does.
+batch's rows over the data axes as ``TransformerLM`` does; a batch of 1
+over several data shards runs replicated, each shard keeping its slots
+of the self caches and the cross caches whole (sequence-parallel
+decode).
 """
 from __future__ import annotations
 
@@ -187,11 +190,13 @@ class EncDecLM(nn.Module):
         return x + blk.ffn(x)[0]
 
     def decode_seq(self, tokens, cross: Dict[str, torch.Tensor],
-                   with_cache: bool = False, train: bool = False
+                   with_cache: bool = False, train: bool = False,
+                   cache_len: Optional[int] = None, seq: bool = False
                    ) -> Tuple[torch.Tensor, Optional[Dict]]:
         """The decoder over a token sequence against the stacked cross keys
         and values ``cross``: (normed hidden (B,S,D), self caches (L, B, S,
-        K, hd) or None)."""
+        K, hd) or None; ``cache_len`` and ``seq`` as
+        ``TransformerLM.forward``'s)."""
         cfg = self.cfg
         tok = torch.as_tensor(tokens, device=self.device).long()
         b, s = tok.shape
@@ -206,6 +211,9 @@ class EncDecLM(nn.Module):
                 h, c = attn.attn_prefill(p, xn, positions, cfg, True,
                                          with_cache, train=train, sh=self.sh)
                 if with_cache:
+                    if cache_len is not None or seq:
+                        c = attn.grow_cache(c, cfg, True, cache_len or s, s,
+                                            self.sh, seq)
                     for n, t in c.items():
                         if n not in caches:
                             caches[n] = t.new_empty((cfg.dec_layers,
@@ -216,16 +224,20 @@ class EncDecLM(nn.Module):
         return rms_norm(x, self.dec_norm, cfg.norm_eps), caches
 
     # --------------------------------------------------------------- loss
-    def loss_fn(self, batch: Dict
+    def loss_fn(self, batch: Dict, local_rows: bool = False
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """batch: {"audio_embeds" (B, S_enc, d), "tokens" (B, S+1)}: the
         decoder's next-token cross entropy through the differentiable
-        route, its head ``embed.T``. Returns (loss, {"ce": loss})."""
+        route, its head ``embed.T``. Returns (loss, {"ce": loss});
+        ``local_rows``: the data shards' mean of their rows' losses, as
+        ``TransformerLM.loss_fn``."""
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         cross = self.cross_caches(self.encode(batch["audio_embeds"],
                                               train=True))
         h, _ = self.decode_seq(tokens[:, :-1], cross, train=True)
         loss = cross_entropy(self._logits(h), tokens[:, 1:])
+        if local_rows:
+            loss = self.sh.mean_data(loss)
         return loss, {"ce": loss}
 
     # ------------------------------------------------------------ serving
@@ -233,14 +245,16 @@ class EncDecLM(nn.Module):
                 ) -> Tuple[torch.Tensor, Caches]:
         """batch: {"audio_embeds" (B, S_enc, d), "tokens" (B, S)}. Returns
         the last token's logits (B,1,V) and the caches, the self caches
-        grown to ``cache_len`` when given."""
+        grown to ``cache_len`` when given (a batch of 1 over several data
+        shards: replicated, the self caches cut to the shard's slots, the
+        cross caches whole)."""
+        rows = int(batch["tokens"].shape[0])
         batch = {k: self.sh.split_rows(v) for k, v in batch.items()}
         cross = self.cross_caches(self.encode(batch["audio_embeds"]))
-        h, caches = self.decode_seq(batch["tokens"], cross, with_cache=True)
-        if cache_len is not None:
-            caches = attn.grow_cache(caches, self.cfg, True, cache_len,
-                                     h.shape[1])
-        return self.sh.gather_rows(self._logits(h[:, -1:])), \
+        h, caches = self.decode_seq(batch["tokens"], cross, with_cache=True,
+                                    cache_len=cache_len,
+                                    seq=self.sh.seq_parallel(rows))
+        return self.sh.gather_rows(self._logits(h[:, -1:]), rows), \
             {"self": caches, "cross": cross}
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
@@ -254,6 +268,8 @@ class EncDecLM(nn.Module):
         (B,1,V), caches), the self caches updated in place."""
         cfg = self.cfg
         pos = int(batch["pos"])
+        rows = int(batch["token"].shape[0])
+        seq = self.sh.seq_parallel(rows)
         x = embed_lookup(self.embed, self.sh.split_rows(batch["token"]),
                          self.sh, cfg.vocab) + self.dec_pos[pos:pos + 1]
         cross = caches["cross"]
@@ -262,10 +278,10 @@ class EncDecLM(nn.Module):
 
             def attend(p, xn):
                 return attn.attn_decode(p, xn, layer, pos, cfg, True,
-                                        self.sh)[0]
+                                        self.sh, seq=seq)[0]
             x = self._dec_block(blk, x, cross["k"][i], cross["v"][i], attend)
         x = rms_norm(x, self.dec_norm, cfg.norm_eps)
-        return self.sh.gather_rows(self._logits(x)), caches
+        return self.sh.gather_rows(self._logits(x), rows), caches
 
     def init_caches(self, batch: int, cache_len: int) -> Caches:
         """Zero caches for a batch of ``batch`` (on a mesh this data
@@ -273,7 +289,7 @@ class EncDecLM(nn.Module):
         cfg, n, sh = self.cfg, self.cfg.dec_layers, self.sh
         rows = sh.local_rows(batch)
         one = attn.init_cache(cfg, rows, cache_len, True, self.dtype,
-                              self.device, sh)
+                              self.device, sh, seq=sh.seq_parallel(batch))
         kv = attn.attn_layout(cfg, sh).kv
         shape = (n, rows, CROSS_FRAMES, kv.stop - kv.start, cfg.head_dim)
         return {"self": {k: t.expand(n, *t.shape).clone()

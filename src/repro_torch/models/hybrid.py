@@ -41,9 +41,11 @@ On a device mesh (``mesh=``) both hold the rank's slices of
 Zamba2 the shared block's attention and MLP specs), run B5 on the rank's
 ``ssm_heads / tp`` heads and the shared attention's B3 / B4 on its heads
 (``models.ssm``, ``models.attention``), and split a served batch's rows
-over the data axes as ``TransformerLM`` does. ``cache_pspecs`` are the
-reference's; a rank's conv states hold its x channels and the whole B and
-C (``models.ssm``).
+over the data axes as ``TransformerLM`` does (a batch of 1: replicated,
+Zamba2's sites keeping the shard's cache slots, the Mamba2 states whole;
+``loss_fn(local_rows=True)`` for the mesh train step).
+``cache_pspecs`` are the reference's; a rank's conv states hold its x
+channels and the whole B and C (``models.ssm``).
 """
 from __future__ import annotations
 
@@ -123,12 +125,16 @@ def _ssm_zeros(cfg: ModelConfig, batch: int, lead: Tuple[int, ...],
             ssm.expand(*lead, *ssm.shape).clone())
 
 
-def _lm_loss(model: LMBase, batch: Dict):
+def _lm_loss(model: LMBase, batch: Dict, local_rows: bool = False):
     """The SSM and hybrid loss: cross entropy of the tied head's logits
-    (``cfg.ce_chunk`` is not read, as in the reference)."""
+    (``cfg.ce_chunk`` is not read, as in the reference); ``local_rows``:
+    the data shards' mean of their rows' losses (``TransformerLM.
+    loss_fn``)."""
     tokens = model.tokens(batch)
     h, _ = model.forward({"tokens": tokens[:, :-1]}, train=True)
     loss = cross_entropy(model.logits(h), tokens[:, 1:])
+    if local_rows:
+        loss = model.sh.mean_data(loss)
     return loss, {"ce": loss}
 
 
@@ -178,28 +184,32 @@ class MambaLM(LMBase):
                 _put(states, i, st)
         return x, states
 
-    def loss_fn(self, batch: Dict
+    def loss_fn(self, batch: Dict, local_rows: bool = False
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Next-token cross entropy over ``batch["tokens"]`` (B, S+1),
-        through the differentiable route: (loss, {"ce": loss})."""
-        return _lm_loss(self, batch)
+        through the differentiable route: (loss, {"ce": loss});
+        ``local_rows`` as ``TransformerLM.loss_fn``."""
+        return _lm_loss(self, batch, local_rows)
 
     def prefill(self, batch: Dict, cache_len: Optional[int] = None
                 ) -> Tuple[torch.Tensor, States]:
         """Last-token logits (B,1,V) and the states; ``cache_len`` is
-        ignored (the states do not grow), as in the reference."""
+        ignored (the states do not grow), as in the reference. A batch of
+        1 over several data shards runs replicated (so do its states)."""
+        rows = self.rows(batch)
         h, states = self.forward(self.split_batch(batch), with_cache=True)
-        return self.sh.gather_rows(self.logits(h[:, -1:])), states
+        return self.sh.gather_rows(self.logits(h[:, -1:]), rows), states
 
     def decode_step(self, caches: States, batch: Dict
                     ) -> Tuple[torch.Tensor, States]:
         """batch: {"token": (B,1) ints, "pos": ignored}. Returns (logits
         (B,1,V), caches), the states updated in place."""
+        rows = int(batch["token"].shape[0])
         x = self.embed_inputs(self.sh.split_rows(batch["token"]))
         conv, ssm = caches
         for i, blk in enumerate(self.blocks):
             x = blk.step(x, conv[i], ssm[i])
-        return self.sh.gather_rows(self.logits(x)), caches
+        return self.sh.gather_rows(self.logits(x), rows), caches
 
     def _zero_states(self, rows: int) -> States:
         return _ssm_zeros(self.cfg, rows, (self.cfg.n_layers,), self.dtype,
@@ -277,18 +287,19 @@ class Zamba2LM(LMBase):
         return x + p.ffn(x)[0], kv
 
     def forward(self, batch: Dict, with_cache: bool = False,
-                cache_len: Optional[int] = None, train: bool = False
-                ) -> Tuple[torch.Tensor, Optional[Dict]]:
+                cache_len: Optional[int] = None, train: bool = False,
+                seq: bool = False) -> Tuple[torch.Tensor, Optional[Dict]]:
         """Returns (hidden (B,S,D), caches or None). The caches hold every
         mamba block's states and every site's KV cache of
         ``max(cache_len, S)`` slots, the prompt's keys and values first and
-        zeros after (the reference grows its caches after the prefill)."""
+        zeros after (the reference grows its caches after the prefill);
+        with ``seq`` each site keeps the data shard's slots of it."""
         x = self.embed_inputs(batch["tokens"])
         b, s, _ = x.shape
         positions = torch.arange(s, dtype=torch.int32,
                                  device=self.device).expand(b, s)
-        caches = self._zero_caches(b, max(cache_len or s, s)) \
-            if with_cache else None
+        slots = max(cache_len or s, s)
+        caches = self._zero_caches(b, slots, seq) if with_cache else None
         on = train and self.cfg.remat
         site = remat(self._site, on)
         for g, group in enumerate(self.groups):
@@ -298,27 +309,32 @@ class Zamba2LM(LMBase):
                     _put(caches["mamba"], (g, l), st)
             x, kv = site(x, positions, with_cache, train)
             if with_cache:
-                for n, t in kv.items():
-                    caches["attn"][n][g, :, :s] = t
+                for n, t in attn.grow_cache(kv, self.cfg, True, slots, s,
+                                            self.sh, seq).items():
+                    caches["attn"][n][g] = t
         for t, blk in enumerate(self.tail):
             x, st = remat(blk.seq, on)(x, train)
             if with_cache:
                 _put(caches["tail"], t, st)
         return x, caches
 
-    def loss_fn(self, batch: Dict
+    def loss_fn(self, batch: Dict, local_rows: bool = False
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Next-token cross entropy over ``batch["tokens"]`` (B, S+1),
-        through the differentiable route: (loss, {"ce": loss})."""
-        return _lm_loss(self, batch)
+        through the differentiable route: (loss, {"ce": loss});
+        ``local_rows`` as ``TransformerLM.loss_fn``."""
+        return _lm_loss(self, batch, local_rows)
 
     def prefill(self, batch: Dict, cache_len: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Dict]:
         """Last-token logits (B,1,V) and the caches, every site's KV cache
-        holding ``cache_len`` slots when given."""
+        holding ``cache_len`` slots when given (a batch of 1 over several
+        data shards: replicated, each site keeping the shard's slots)."""
+        rows = self.rows(batch)
         h, caches = self.forward(self.split_batch(batch), with_cache=True,
-                                 cache_len=cache_len)
-        return self.sh.gather_rows(self.logits(h[:, -1:])), caches
+                                 cache_len=cache_len,
+                                 seq=self.sh.seq_parallel(rows))
+        return self.sh.gather_rows(self.logits(h[:, -1:]), rows), caches
 
     def decode_step(self, caches: Dict, batch: Dict
                     ) -> Tuple[torch.Tensor, Dict]:
@@ -326,6 +342,8 @@ class Zamba2LM(LMBase):
         (B,1,V), caches), the caches updated in place."""
         cfg, p = self.cfg, self.shared_attn
         pos = int(batch["pos"])
+        rows = int(batch["token"].shape[0])
+        seq = self.sh.seq_parallel(rows)
         x = self.embed_inputs(self.sh.split_rows(batch["token"]))
         conv, ssm = caches["mamba"]
         for g, group in enumerate(self.groups):
@@ -333,23 +351,26 @@ class Zamba2LM(LMBase):
                 x = blk.step(x, conv[g, l], ssm[g, l])
             site = {n: t[g] for n, t in caches["attn"].items()}
             h, _ = attn.attn_decode(p.attn, rms_norm(x, p.ln1, cfg.norm_eps),
-                                    site, pos, cfg, True, self.sh)
+                                    site, pos, cfg, True, self.sh, seq=seq)
             x = x + h
             x = x + p.ffn(x)[0]
         if self.n_tail:
             conv, ssm = caches["tail"]
             for t, blk in enumerate(self.tail):
                 x = blk.step(x, conv[t], ssm[t])
-        return self.sh.gather_rows(self.logits(x)), caches
+        return self.sh.gather_rows(self.logits(x), rows), caches
 
     def init_caches(self, batch: int, cache_len: int) -> Dict:
         """Zero caches for a batch of ``batch`` (on a mesh this data
-        shard's rows, the rank's heads and channels)."""
-        return self._zero_caches(self.sh.local_rows(batch), cache_len)
+        shard's rows, the rank's heads and channels; a batch of 1 over
+        several data shards: the shard's slots)."""
+        return self._zero_caches(self.sh.local_rows(batch), cache_len,
+                                 self.sh.seq_parallel(batch))
 
-    def _zero_caches(self, rows: int, cache_len: int) -> Dict:
+    def _zero_caches(self, rows: int, cache_len: int,
+                     seq: bool = False) -> Dict:
         cfg, dt, dev, sh = self.cfg, self.dtype, self.device, self.sh
-        one = attn.init_cache(cfg, rows, cache_len, True, dt, dev, sh)
+        one = attn.init_cache(cfg, rows, cache_len, True, dt, dev, sh, seq)
         caches = {"mamba": _ssm_zeros(cfg, rows, (self.n_groups,
                                                   cfg.hybrid_attn_every),
                                       dt, dev, sh),

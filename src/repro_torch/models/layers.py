@@ -27,6 +27,18 @@ draws the whole tensor in the same slices with or without a mesh and
 keeps the part ``index`` names, so a rank's weights are its slice of the
 unsharded draw.
 
+Data parallelism (item 13c). In training each data shard runs its rows
+and its loss is the whole batch's (``mean_data``: the shards' mean, over
+``reduce_data``, whose gradient passes to each shard's term); the train
+step sums the shards' gradients. ``gather_data(sum_grad=True)`` gathers a
+tensor sharded over the data axes whose gradient must sum over the
+shards (a reduce-scatter). A reduced value that each rank then uses for
+its own slice (RMSNorm's sum of squares over sharded channels) enters
+that use through ``enter``, so its gradient sums over the model axis. A
+batch of 1 over several data shards is sequence-parallel
+(``seq_parallel``): the row is replicated and each shard holds its
+``seq_slots`` of every KV cache.
+
 The losses are the reference's: ``cross_entropy`` (token-mean, float32,
 z-loss 1e-4, optional mask) and ``chunked_ce``, which never holds more than
 one sequence chunk's float32 logits: each chunk is a
@@ -132,16 +144,22 @@ class _Enter(torch.autograd.Function):
 
 class _Gather(torch.autograd.Function):
     """Every rank's slice concatenated along ``dim``; the gradient keeps
-    this rank's slice."""
+    this rank's slice (``sum_grad``: of the gradient summed over the
+    group, a reduce-scatter, where each rank's gradient is its own rows'
+    part of the whole)."""
 
     @staticmethod
-    def forward(ctx, x, dim, group, rank):
+    def forward(ctx, x, dim, group, rank, sum_grad=False):
         ctx.dim, ctx.rank, ctx.n = dim, rank, x.shape[dim]
+        ctx.group, ctx.sum_grad = group, sum_grad
         return all_gather(x, dim, group)
 
     @staticmethod
     def backward(ctx, g):
-        return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None, None
+        if ctx.sum_grad:
+            g = all_reduce(g, ctx.group)
+        return (g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None, None,
+                None)
 
 
 class Sharding:
@@ -228,25 +246,42 @@ class Sharding:
         return _Gather.apply(x, dim % x.dim(), self.group(), self.rank)
 
     def gather_data(self, x: torch.Tensor, dim: int,
-                    axes: Tuple[str, ...]) -> torch.Tensor:
+                    axes: Tuple[str, ...], sum_grad: bool = False
+                    ) -> torch.Tensor:
         """``x`` sharded along ``dim`` over the data ``axes``, whole; the
-        gradient keeps this rank's slice."""
+        gradient keeps this rank's slice (with ``sum_grad`` of the
+        gradient summed over ``axes``: each data shard saw its own rows)."""
         i, n = self.part(axes)
         if n == 1:
             return x
         return _Gather.apply(x, dim % x.dim(),
-                             data_group(self.mesh, tuple(axes)), i)
+                             data_group(self.mesh, tuple(axes)), i, sum_grad)
+
+    def reduce_data(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over the data shards; the gradient passes as
+        it is to each shard's term (every shard's loss is the one global
+        loss, and the train step sums the shards' gradients)."""
+        if self.n_data == 1:
+            return x
+        return _Reduce.apply(x, self.data_group())
+
+    def mean_data(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean of the data shards' ``x`` (``reduce_data`` / shards):
+        a loss over equal shares of the rows, each shard's a mean."""
+        return x if self.n_data == 1 else self.reduce_data(x) / self.n_data
 
     # ------------------------------------------------------- rows
+    def seq_parallel(self, batch: int) -> bool:
+        """A batch of 1 over more than one data shard: the row is
+        replicated and a cache's sequence is split over the data shards
+        instead (the reference's ``shard_seq``)."""
+        return batch == 1 and self.n_data > 1
+
     def local_rows(self, batch: int) -> int:
-        """This data shard's rows of a batch of ``batch``."""
-        if self.n_data == 1:
+        """This data shard's rows of a batch of ``batch`` (a batch of 1:
+        the row, on every shard)."""
+        if self.n_data == 1 or batch == 1:
             return batch
-        if batch == 1:
-            raise NotImplementedError(
-                f"a batch of 1 over {self.n_data} data shards needs "
-                f"sequence-parallel decode (the reference's shard_seq), "
-                f"ROADMAP queue A item 13c")
         if batch % self.n_data:
             raise ValueError(f"a batch of {batch} does not split over "
                              f"{self.n_data} data shards")
@@ -254,17 +289,29 @@ class Sharding:
 
     def split_rows(self, x):
         """This data shard's rows of a batched input (``batch_pspecs``:
-        batch on the data axes), any array; a scalar as it is."""
-        if self.n_data == 1 or getattr(x, "ndim", 0) == 0:
+        batch on the data axes; a batch of 1 replicated), any array; a
+        scalar as it is."""
+        if self.n_data == 1 or getattr(x, "ndim", 0) == 0 \
+                or x.shape[0] == 1:
             return x
         per = self.local_rows(x.shape[0])
         return x[self.data_rank * per:(self.data_rank + 1) * per]
 
-    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
-        """Every data shard's rows of ``x``, in data order."""
-        if self.n_data == 1:
+    def gather_rows(self, x: torch.Tensor, batch: int) -> torch.Tensor:
+        """Every data shard's rows of ``x``, in data order, for a batch of
+        ``batch`` rows (a batch of 1 is on every shard already)."""
+        if self.n_data == 1 or batch == 1:
             return x
         return all_gather(x, 0, self.data_group())
+
+    def seq_slots(self, slots: int) -> slice:
+        """This data shard's part ``[r·slots/n, (r+1)·slots/n)`` of a
+        cache's ``slots`` in sequence-parallel decode."""
+        if slots % self.n_data:
+            raise ValueError(f"a cache of {slots} slots does not split over "
+                             f"{self.n_data} data shards")
+        c = slots // self.n_data
+        return slice(self.data_rank * c, (self.data_rank + 1) * c)
 
 
 NO_MESH = Sharding(None)
@@ -377,13 +424,15 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
     """RMSNorm in float32, scaled by ``1 + scale`` (scales start at zero),
     cast back to x's dtype. With ``sh`` (tp > 1) ``x`` and ``scale`` hold
     the rank's slice of rows ``width`` wide: the sum of squares is summed
-    over the model axis."""
+    over the model axis (and, as each rank normalises its own slice with
+    it, so is its gradient)."""
     dt = x.dtype
     x = x.float()
     if sh is None or sh.tp == 1:
         var = x.square().mean(dim=-1, keepdim=True)
     else:
-        var = sh.reduce(x.square().sum(dim=-1, keepdim=True)) / width
+        var = sh.enter(sh.reduce(x.square().sum(dim=-1, keepdim=True))) \
+            / width
     return (x * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(dt)
 
 

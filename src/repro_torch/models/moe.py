@@ -44,12 +44,25 @@ expert's ``d_ff`` is split over the model axis (per-expert TP): every
 rank runs every expert on its ``F/tp`` columns and the partial outputs
 are summed. The second shard over "data" (``cfg.moe_shard``: ``ep_ftp``
 F, ``ep_fsdp`` D, ``ep_only`` none) is gathered over the data group just
-before use, by ``scatter`` and ``a2a`` alike. A server's rows split over
-the data axes (``local_rows``): capacity and the ranks within an expert
-are then the whole batch's (above 8,192 tokens the other shards' counts
-are gathered), so the same entries drop as in the unsharded model.
-Gradients through the sharded ``scatter`` are ROADMAP queue A item 13c's
-(it refuses them); ``a2a``'s are the reference's.
+before use, by ``scatter`` and ``a2a`` alike. A server's or the mesh
+train step's rows split over the data axes (``local_rows``): capacity
+and the ranks within an expert are then the whole batch's (above 8,192
+tokens the other shards' counts are gathered), so the same entries drop
+as in the unsharded model.
+
+Gradients on a mesh. With ``local_rows`` each rank's gradient is its own
+rows' part of the gradient of the one global loss, and the train step
+sums those over the data shards (``launch.steps``); a bank sharded over
+"data" is the exception, its gradient summed over the data group where
+it was gathered (a reduce-scatter). The sharded ``scatter`` routes every
+token on every model rank, but a rank's combine sees only its experts'
+(or its ``d_ff`` columns') outputs, so the tokens entering the experts
+and the router weights entering the combine sum their gradients over the
+model axis (``Sharding.enter``); in training (``train``) the aux loss is
+the whole batch's, ``E · Σ_e frac_e · prob_e`` of the data shards' mean
+fractions and probabilities, as the reference's GSPMD program computes
+it. ``a2a`` keeps the reference's aux (above); with ``local_rows`` its
+router and banks leave the data sum to the train step.
 """
 from __future__ import annotations
 
@@ -63,7 +76,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
-from ..core.collectives import all_gather, data_group, data_index
+from ..core.collectives import all_gather, all_reduce, data_group, data_index
 from .layers import (NO_MESH, P, Sharding, dense_init, divisible, he_init,
                      init_mlp, mlp_apply, mlp_params, mlp_pspec)
 
@@ -171,27 +184,31 @@ class MoE(nn.Module):
         if "dense" in self:
             init_mlp(self.dense, gen, d, cfg.d_ff_dense, cfg.act, self.sh)
 
-    def banks(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    def banks(self, sum_grad: bool = False
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """``wi``, ``wg``, ``wo`` with their second shard over the data
         axes gathered: this rank's experts whole (or its ``d_ff``
-        columns of every expert)."""
+        columns of every expert); ``sum_grad``: each data shard ran its
+        own rows, so the gathered gradient sums over the shards."""
         out = []
         for name in ("wi", "wg", "wo"):
             w = self[name]
             for dim, entry in enumerate(self.spec[name]):
                 if entry is not None and entry != "model":
-                    w = self.sh.gather_data(w, dim, (entry,))
+                    w = self.sh.gather_data(w, dim, (entry,), sum_grad)
             out.append(w)
         return tuple(out)
 
 
 def _route(p: Mapping[str, torch.Tensor], x2d: torch.Tensor,
-           cfg: ModelConfig
+           cfg: ModelConfig, data: Optional[Sharding] = None
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x2d: (T, D) -> (probs (T,k) float32, idx (T,k) int64, aux ()).
 
     The top k in ``lax.top_k``'s order: descending, the lower expert first
-    on a tie (a stable sort), since the dispatch ranks follow it."""
+    on a tie (a stable sort), since the dispatch ranks follow it. With
+    ``data`` (``x2d`` one data shard's rows of equal shares) the aux loss
+    is the whole batch's: the shards' mean fractions and probabilities."""
     logits = x2d.float() @ p["router"]                        # (T, E)
     gates = torch.softmax(logits, dim=-1)
     top_v, top_i = torch.sort(logits, dim=-1, descending=True, stable=True)
@@ -200,7 +217,11 @@ def _route(p: Mapping[str, torch.Tensor], x2d: torch.Tensor,
     # switch-style load-balance loss: E * sum_e fraction_e * prob_e
     e = cfg.n_experts
     frac = F.one_hot(top_i[:, 0], e).float().mean(dim=0)
-    aux = e * torch.sum(frac * gates.mean(dim=0))
+    prob = gates.mean(dim=0)
+    if data is not None and data.n_data > 1:
+        frac = all_reduce(frac, data.data_group()) / data.n_data
+        prob = data.mean_data(prob)
+    aux = e * torch.sum(frac * prob)
     return top_p, top_i, aux
 
 
@@ -286,7 +307,8 @@ class _GatherRows(torch.autograd.Function):
 class _SumGrad(torch.autograd.Function):
     """Identity whose backward sums the gradient over ``group`` and scales
     it: a weight replicated over the data shards, each of which sees only
-    its own tokens (``scale`` undoes the model ranks' copies of them)."""
+    its own tokens (``scale`` undoes the model ranks' copies of them;
+    ``group`` None: the scale alone)."""
 
     @staticmethod
     def forward(ctx, w, group, scale: float):
@@ -296,7 +318,8 @@ class _SumGrad(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
+        if ctx.group is not None:
+            dist.all_reduce(g, group=ctx.group)
         if ctx.scale != 1.0:
             g = g * ctx.scale
         return g, None, None
@@ -342,7 +365,8 @@ def _moe_a2a(p: Mapping[str, torch.Tensor], x2d: torch.Tensor,
     model axis: experts sharded over ``model_axis``, tokens over
     ``data_axes``; ``capacity`` is per (rank, remote rank) lane.
     ``local_rows``: ``x2d`` is already this data shard's rows, and so is
-    the output."""
+    the output; the router's and the banks' gradients are the rows' part
+    (the train step sums them over the data shards)."""
     e, k = cfg.n_experts, cfg.top_k
     m = _axis_size(mesh, model_axis)
     if e % m:
@@ -358,7 +382,8 @@ def _moe_a2a(p: Mapping[str, torch.Tensor], x2d: torch.Tensor,
     mgroup, dgroup = mesh.get_group(model_axis), data_group(mesh, data_axes)
     x_loc = x2d if local_rows else _Shard.apply(x2d, r, n, dgroup)
     t_l = x_loc.shape[0]
-    router = _SumGrad.apply(p["router"], dgroup, 1.0)
+    sum_group = None if local_rows else dgroup
+    router = _SumGrad.apply(p["router"], sum_group, 1.0)
     top_p, top_i, aux = _route({"router": router}, x_loc, cfg)
     ranks = _dispatch_ranks(top_i, e)
     # lane layout: (m destination ranks, e_local experts, capacity)
@@ -372,7 +397,8 @@ def _moe_a2a(p: Mapping[str, torch.Tensor], x2d: torch.Tensor,
     # recv: (m, e_local·capacity, d), every model rank's tokens for ours
     xs = recv.reshape(m, e_local, capacity, d).transpose(0, 1) \
         .reshape(e_local, m * capacity, d)
-    wi, wg, wo = (_SumGrad.apply(w, dgroup, 1.0 / m) for w in p.banks())
+    wi, wg, wo = (_SumGrad.apply(w, sum_group, 1.0 / m)
+                  for w in p.banks(sum_grad=local_rows))
     ys = _expert_ffn(wi, wg, wo, xs, cfg.act)
     back = _all_to_all(ys.reshape(e_local, m, capacity, d).transpose(0, 1)
                        .reshape(m * e_local * capacity, d), mgroup)
@@ -390,23 +416,21 @@ def _moe_a2a(p: Mapping[str, torch.Tensor], x2d: torch.Tensor,
 
 
 def _moe_sharded(p: "MoE", x2d: torch.Tensor, cfg: ModelConfig,
-                 sh: Sharding, local_rows: bool
+                 sh: Sharding, local_rows: bool, train: bool = False
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``scatter`` on a mesh: every token routed on every rank; the
     rank's experts (expert-parallel banks) or the rank's ``d_ff`` columns
     of every expert (per-expert TP) run their entries, and the partial
     combines are summed over the model axis. With ``local_rows`` the
-    capacity and the ranks are the whole batch's."""
-    if torch.is_grad_enabled() and (x2d.requires_grad or any(
-            w.requires_grad for w in p.parameters())):
-        raise NotImplementedError(
-            "gradients through the sharded scatter MoE are ROADMAP queue A "
-            "item 13c (the Trainer on a mesh)")
+    capacity and the ranks are the whole batch's, and with ``train`` the
+    aux loss too (see the module's docstring for the gradients)."""
     t, d = x2d.shape
     e, k = cfg.n_experts, cfg.top_k
     n = sh.n_data if local_rows else 1
     cap = capacity(cfg, t * n)
-    top_p, top_i, aux = _route(p, x2d, cfg)
+    top_p, top_i, aux = _route(p, x2d, cfg,
+                               sh if local_rows and train else None)
+    x2d, top_p = sh.enter(x2d), sh.enter(top_p)
     local = _dispatch_ranks(top_i, e)                         # (T, k)
     ranks = local
     if n > 1 and t * n > EXACT_TOKENS:
@@ -414,7 +438,7 @@ def _moe_sharded(p: "MoE", x2d: torch.Tensor, cfg: ModelConfig,
         every = all_gather(counts[None], 0, sh.data_group())  # (n, E)
         ranks = local + every[:sh.data_rank].sum(0)[top_i]
     cap_l = min(cap, t)           # a shard's entries of one expert <= t
-    wi, wg, wo = p.banks()
+    wi, wg, wo = p.banks(sum_grad=local_rows)
     ep = divisible(e, sh.spec_tp)
     lo, e_l = (sh.index(P("model"), (e,))[0].start, wi.shape[0]) if ep \
         else (0, e)
@@ -435,7 +459,7 @@ def moe_apply(p: Mapping[str, torch.Tensor], x: torch.Tensor,
               cfg: ModelConfig, impl: str = "scatter", mesh=None,
               data_axes: Tuple[str, ...] = ("data",),
               model_axis: str = "model", sh: Sharding = NO_MESH,
-              local_rows: bool = False
+              local_rows: bool = False, train: bool = False
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (y (B,S,D), aux_loss ()), the dense residual
     included. ``impl="a2a"`` dispatches over ``mesh`` (tokens over
@@ -443,7 +467,8 @@ def moe_apply(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     experts) and needs every rank of the mesh to call it alike. ``sh``:
     the layer's place on a mesh (``scatter`` runs sharded on it);
     ``local_rows``: ``x`` holds this data shard's rows of the batch, not
-    all of them (a server on a mesh)."""
+    all of them (a server or the train step on a mesh); ``train``: the
+    sharded ``scatter`` returns the whole batch's aux loss."""
     check_impl(impl, mesh)
     b, s, d = x.shape
     t = b * s
@@ -459,7 +484,7 @@ def moe_apply(p: Mapping[str, torch.Tensor], x: torch.Tensor,
         y, aux = _moe_a2a(p, x2d, cfg, cap_l, mesh, data_axes, model_axis,
                           local_rows)
     elif sh.tp > 1 or sh.n_data > 1:
-        y, aux = _moe_sharded(p, x2d, cfg, sh, local_rows)
+        y, aux = _moe_sharded(p, x2d, cfg, sh, local_rows, train)
     else:
         y, aux = _moe_scatter(p, x2d, cfg, capacity(cfg, t))
     y = y.reshape(b, s, d)

@@ -48,10 +48,14 @@ returns the whole logits and picks the unsharded model's greedy tokens.
 shard's rows of it (``batch_pspecs``: batch on the data axes), keep their
 caches (``cache_pspecs``; the rank's kv heads, see
 ``attention``) and return every row's logits, gathered over the data
-axes; ``forward`` and ``loss_fn`` run the whole batch on every rank, as
-the ``a2a`` training does. ``mesh_tp`` and the ``*_pspecs`` methods
-are the reference's, their keys the state dict's names (a cache spec's
-leading axes are its stacked layers', as the reference's).
+axes; a batch of 1 over several data shards runs replicated and keeps
+each shard's slots of every cache (sequence-parallel decode,
+``attention.attn_decode(seq=True)``). ``loss_fn`` runs the whole batch
+on every rank (PR 22's ``a2a`` training), or with ``local_rows`` this
+data shard's rows, the loss the whole batch's (the mesh train step of
+``launch.steps``). ``mesh_tp`` and the ``*_pspecs`` methods are the
+reference's, their keys the state dict's names (a cache spec's leading
+axes are its stacked layers', as the reference's).
 """
 from __future__ import annotations
 
@@ -218,17 +222,18 @@ class DenseBlock(nn.Module):
             init_mlp(self.mlp, gen, cfg.d_model, cfg.d_ff, cfg.act, self.sh)
 
     def ffn(self, x: torch.Tensor, moe_impl: str = "scatter", mesh=None,
-            data_axes: Tuple[str, ...] = ("data",), local_rows: bool = False
+            data_axes: Tuple[str, ...] = ("data",), local_rows: bool = False,
+            train: bool = False
             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """The pre-normed MLP (or MoE) branch and its aux loss (None for an
-        MLP); ``moe_impl``, ``mesh``, ``data_axes`` and ``local_rows`` go
-        to ``moe_apply``."""
+        MLP); ``moe_impl``, ``mesh``, ``data_axes``, ``local_rows`` and
+        ``train`` go to ``moe_apply``."""
         cfg = self.cfg
         hn = rms_norm(x, self.ln2, cfg.norm_eps)
         if cfg.n_experts:
             return moe_mod.moe_apply(self.moe, hn, cfg, moe_impl, mesh,
                                      data_axes, sh=self.sh,
-                                     local_rows=local_rows)
+                                     local_rows=local_rows, train=train)
         return mlp_apply(self.mlp, hn, cfg.act, self.sh, cfg.d_ff), None
 
 
@@ -285,9 +290,14 @@ class LMBase(nn.Module):
 
     def split_batch(self, batch: Dict) -> Dict:
         """This data shard's rows of every batched input (``batch_pspecs``:
-        batch on the data axes; batch 1 on more than one data shard is
-        sequence-parallel decode, ROADMAP queue A item 13c)."""
+        batch on the data axes; a batch of 1 is replicated, and served
+        sequence-parallel)."""
         return {k: self.sh.split_rows(v) for k, v in batch.items()}
+
+    def rows(self, batch: Dict) -> int:
+        """The batch's rows (of its first batched input)."""
+        return next(int(v.shape[0]) for v in batch.values()
+                    if getattr(v, "ndim", 0))
 
     def tokens(self, batch: Dict) -> torch.Tensor:
         """The batch's token ids on the model's device."""
@@ -444,17 +454,21 @@ class TransformerLM(LMBase):
             is_global, with_cache, train=train, sh=self.sh)
         x = x + h
         y, a = blk.ffn(x, self.moe_impl, self.mesh, self.data_axes,
-                       local_rows)
+                       local_rows, train)
         return x + y, c, a
 
     def forward(self, batch: Dict, with_cache: bool = False,
-                train: bool = False, local_rows: bool = False
+                train: bool = False, local_rows: bool = False,
+                cache_len: Optional[int] = None, seq: bool = False
                 ) -> Tuple[torch.Tensor, Optional[Caches], torch.Tensor]:
         """Returns (hidden (B,S,D), caches or None, the MoE aux loss summed
         over layers, 0 without experts). ``train`` takes the differentiable
         route, each layer recomputed in the backward pass when
         ``cfg.remat``. ``local_rows``: ``batch`` is this data shard's rows
-        (``prefill``'s), not the whole batch."""
+        (``prefill``'s and the mesh train step's), not the whole batch.
+        ``cache_len``: each layer's cache grown to it as it is made
+        (``attention.grow_cache``), and with ``seq`` only the data shard's
+        slots of it kept."""
         cfg = self.cfg
         x = self.embed_batch(batch)
         b, s, _ = x.shape
@@ -469,6 +483,9 @@ class TransformerLM(LMBase):
             if a is not None:
                 aux = aux + a
             if with_cache:
+                if cache_len is not None or seq:
+                    c = attn.grow_cache(c, cfg, is_global, cache_len or s,
+                                        s, self.sh, seq)
                 node = _node(caches, path)
                 lead = self._stacks[path][0]
                 for n, t in c.items():
@@ -478,16 +495,20 @@ class TransformerLM(LMBase):
         return x, caches, aux
 
     # --------------------------------------------------------------- loss
-    def loss_fn(self, batch: Dict
+    def loss_fn(self, batch: Dict, local_rows: bool = False
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Next-token cross entropy over ``batch["tokens"]`` (B, S+1) (the
         VLM's on its text positions only), through the differentiable
         route; ``cfg.ce_chunk > 1`` chunks it; MoE adds ``0.01 · aux``.
-        Returns (loss, {"ce": loss, "aux": aux}), as the reference."""
+        Returns (loss, {"ce": loss, "aux": aux}), as the reference.
+        ``local_rows``: ``batch`` is this data shard's rows; the loss is
+        the whole batch's (the shards' mean, the MoE's aux and capacity
+        the whole batch's) and each shard's gradients are its rows' part,
+        which the train step sums over the data shards."""
         cfg = self.cfg
         tokens = self.tokens(batch)
         h, _, aux = self.forward({**batch, "tokens": tokens[:, :-1]},
-                                 train=True)
+                                 train=True, local_rows=local_rows)
         labels = tokens[:, 1:]
         if cfg.family == "vlm" and "vision" in batch:
             h = h[:, batch["vision"].shape[1]:]
@@ -496,6 +517,8 @@ class TransformerLM(LMBase):
                               self.head(), labels, cfg.ce_chunk)
         else:
             loss = cross_entropy(self.logits(h), labels)
+        if local_rows:
+            loss = self.sh.mean_data(loss)
         if cfg.n_experts:
             loss = loss + 0.01 * aux
         return loss, {"ce": loss, "aux": aux}
@@ -505,16 +528,14 @@ class TransformerLM(LMBase):
                 ) -> Tuple[torch.Tensor, Caches]:
         """Last-token logits (B,1,V) and the caches, grown to
         ``cache_len`` when given (on a mesh: this data shard's rows of the
-        caches, every row's logits)."""
+        caches, every row's logits; a batch of 1 over several data shards
+        runs replicated and keeps the shard's slots of each cache)."""
+        rows = self.rows(batch)
+        seq = self.sh.seq_parallel(rows)
         h, caches, _ = self.forward(self.split_batch(batch), with_cache=True,
-                                    local_rows=True)
-        logits = self.sh.gather_rows(self.logits(h[:, -1:]))
-        if cache_len is not None:
-            for path, (_, is_global) in self._stacks.items():
-                node = _node(caches, path)
-                node.update(attn.grow_cache(node, self.cfg, is_global,
-                                            cache_len, h.shape[1]))
-        return logits, caches
+                                    local_rows=not seq, cache_len=cache_len,
+                                    seq=seq)
+        return self.sh.gather_rows(self.logits(h[:, -1:]), rows), caches
 
     def decode_step(self, caches: Caches, batch: Dict
                     ) -> Tuple[torch.Tensor, Caches]:
@@ -522,16 +543,18 @@ class TransformerLM(LMBase):
         (B,1,V), caches), the caches updated in place."""
         cfg = self.cfg
         pos = int(batch["pos"])
+        rows = int(batch["token"].shape[0])
+        seq = self.sh.seq_parallel(rows)
         x = self.embed_inputs(self.sh.split_rows(batch["token"]))
         for blk, is_global, (path, idx) in self._layers:
             layer = {n: t[idx] for n, t in _node(caches, path).items()}
             h, _ = attn.attn_decode(
                 blk.attn, rms_norm(x, blk.ln1, cfg.norm_eps), layer, pos,
-                cfg, is_global, self.sh)
+                cfg, is_global, self.sh, seq=seq)
             x = x + h
             x = x + blk.ffn(x, self.moe_impl, self.mesh,
-                            self.data_axes, local_rows=True)[0]
-        return self.sh.gather_rows(self.logits(x)), caches
+                            self.data_axes, local_rows=not seq)[0]
+        return self.sh.gather_rows(self.logits(x), rows), caches
 
     # ------------------------------------------------------------- caches
     def init_caches(self, batch: int, cache_len: int) -> Caches:
@@ -541,7 +564,8 @@ class TransformerLM(LMBase):
         rows = self.sh.local_rows(batch)
         for path, (lead, is_global) in self._stacks.items():
             one = attn.init_cache(self.cfg, rows, cache_len, is_global,
-                                  self.dtype, self.device, self.sh)
+                                  self.dtype, self.device, self.sh,
+                                  seq=self.sh.seq_parallel(batch))
             _node(caches, path).update(
                 {n: t.expand(*lead, *t.shape).clone() for n, t in one.items()})
         return caches

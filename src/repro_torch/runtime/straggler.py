@@ -5,9 +5,10 @@ In synchronous data parallelism one slow host gates every step (the
 collective waits). Detection is cheap: keep an EWMA + EWVar of the step
 time; a step slower than ``mean + k·std`` (and ``> ratio × mean``) flags
 a straggler. Mitigation at scale is out-of-band (re-schedule the host,
-shrink the mesh, ROADMAP queue A item 13c); here the detector reports and
-the trainer logs + counts, and the restart/elastic path is exercised by
-tests.
+shrink the mesh via ``runtime.elastic``: the trainer on a mesh restores
+its whole-tensor checkpoints onto any mesh); here the detector reports
+and the trainer logs + counts, on a mesh every rank the same flag (rank
+0's step time), and the restart/elastic path is exercised by tests.
 
 Welford-style EWMA keeps no history; O(1) per step.
 

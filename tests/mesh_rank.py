@@ -25,6 +25,19 @@ and each writes its results to ``OUT`` with ``-<rank>.npz`` appended;
   reference's, whole, cut to the rank's slices), the prefill of IN's batch and ``SERVE_STEPS``
   greedy decode steps, every step's logits and the tokens.
 
+* ``seq-decode`` — batch-1 sequence-parallel serving on ``(WORLD, 1)``:
+  every ``SEQ_CASES`` model from IN's weights (whole, cut to the rank's
+  slices), the prefill of IN's one-row batch and greedy decode steps
+  (every step's logits), ``Server.generate``'s tokens, and the slots of
+  the rank's first KV cache;
+* ``train`` — the train step and the ``Trainer`` on a mesh: at world 2
+  on ``(2, 1)`` and ``(1, 2)``, at world 4 on ``(2, 2)``, every
+  ``SERVE_CASES`` model's ``loss_fn`` over the rank's rows of IN's batch
+  and its gradients summed over the data shards as the train step sums
+  them; at world 2 also the ``TRAIN_RUNS`` trainers from IN's initial
+  parameters and a crash after step 2 saved on ``(2, 1)`` and restored
+  on ``(1, 2)``.
+
 Imported by the tests for ``spawn``, the problems, the configs and the
 input makers.
 """
@@ -170,6 +183,72 @@ def serve_start(cfg, batch):
     return n + batch["tokens"].shape[1]
 
 
+#: the sequence-parallel cases: (arch, fields replaced in its reduced
+#: float32 config, prompt length). A prompt of 40 and 8 new tokens (a cache
+#: of 48 slots; gemma3's and mixtral's rings of 32 wrap); "short" (20 + 8:
+#: 7 slots a rank at world 4) leaves rank 3 with no live slot at first
+SEQ_CASES = {
+    "qwen3": ("qwen3-0.6b", {}, 40),
+    "gemma3": ("gemma3-27b", {}, 40),
+    "mixtral": ("mixtral-8x7b", {}, 40),
+    "zamba2": ("zamba2-7b", {}, 40),
+    "whisper": ("whisper-medium", {}, 40),
+    "int8": ("qwen3-0.6b", {"kv_dtype": "int8"}, 40),
+    "short": ("qwen3-0.6b", {}, 20),
+}
+SEQ_NEW = 8
+
+
+def seq_cfg(get, case):
+    arch, kw, prompt = SEQ_CASES[case]
+    return dataclasses.replace(get(arch).reduced(), dtype="float32",
+                               **kw), prompt
+
+
+def run_seq_decode(rank, world):
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.launch.mesh import build_mesh
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import shard_state_dict
+    inp = np.load(sys.argv[6])
+    mesh = build_mesh(None, (world, 1), ("data", "model"), device="cpu")
+    out = {}
+    for case in SEQ_CASES:
+        cfg, prompt = seq_cfg(get, case)
+        srv = Server(cfg, 1, prompt, SEQ_NEW, eos_id=-1, mesh=mesh,
+                     device="cpu")
+        model = srv.model
+        pre = f"{case}.param."
+        full = {k[len(pre):]: torch.from_numpy(inp[k])
+                for k in inp.files if k.startswith(pre)}
+        model.load_state_dict(shard_state_dict(
+            full, model.param_pspecs(), model.sh))
+        pre = f"{case}.batch."
+        batch = {k[len(pre):]: inp[k] for k in inp.files
+                 if k.startswith(pre)}
+        pos = serve_start(cfg, batch)
+        with torch.inference_mode():
+            lg, caches = model.prefill(batch, cache_len=prompt + SEQ_NEW)
+            logits, toks = [lg], []
+            for i in range(SEQ_NEW - 1):
+                toks.append(lg[:, -1].argmax(-1)[:, None].int())
+                lg, caches = model.decode_step(
+                    caches, {"token": toks[-1].numpy(), "pos": pos + i})
+                logits.append(lg)
+            toks.append(lg[:, -1].argmax(-1)[:, None].int())
+        out[f"{case}.logits"] = torch.cat(logits, 1).numpy()
+        out[f"{case}.tokens"] = torch.cat(toks, 1).numpy()
+        out[f"{case}.generate"] = srv.generate(batch)["tokens"]
+        kv = caches["self"] if cfg.family == "encdec" else (
+            caches["attn"] if cfg.family == "hybrid" else caches)
+        while isinstance(kv, dict) and "k" not in kv:
+            kv = next(iter(kv.values()))
+        out[f"{case}.slots"] = np.array(kv["k"].shape[-3])
+    return out
+
+
 def run_serve(rank, world):
     import torch
 
@@ -204,6 +283,149 @@ def run_serve(rank, world):
                     logits.append(lg)
             out[f"{tag}.{case}.logits"] = torch.cat(logits, 1).numpy()
             out[f"{tag}.{case}.tokens"] = torch.cat(toks, 1).numpy()
+    return out
+
+
+#: the train batch's rows (2 a data shard) and length (17 tokens: 16
+#: positions after the labels' shift; whisper: 16 frames and 9 tokens;
+#: the VLM: 8 vision embeddings ahead of the tokens)
+TRAIN_BATCH, TRAIN_SEQ = 4, 17
+#: the trainers run on each mesh of world 2: TrainerConfig fields
+TRAIN_RUNS = {"plain": {}, "accum": {"accum": 2},
+              "compress": {"compress_grads": True}}
+#: their model, shape and optimiser (``tests/test_torch_train_loop.py``'s)
+TRAIN_STEPS, TRAIN_SHAPE = 6, (64, 4)
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=24, weight_decay=0.01)
+
+
+def train_meshes(world):
+    """``(data, model)`` shapes trained at a world: 2 -> (2, 1), (1, 2);
+    4 -> (2, 2), (1, 4) (the fallbacks of ``SERVE_CASES`` at tp 4)."""
+    return [(2, 1), (1, 2)] if world == 2 else [(2, 2), (1, 4)]
+
+
+def train_batch(cfg, seed):
+    """``tests/test_torch_train_step.py``'s batch at ``TRAIN_BATCH`` rows."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ),
+                        dtype=np.int32)
+    if cfg.family == "encdec":
+        return {"audio_embeds": rng.standard_normal(
+            (TRAIN_BATCH, 16, cfg.d_model)).astype(np.float32),
+            "tokens": toks[:, :9]}
+    if cfg.family == "vlm":
+        return {"vision": rng.standard_normal(
+            (TRAIN_BATCH, 8, cfg.d_model)).astype(np.float32),
+            "tokens": toks}
+    return {"tokens": toks}
+
+
+def trainer_for(get, mesh, ckpt=None, fail_at=(), **kw):
+    """The reduced qwen3 ``Trainer`` of the trainer cases (``mesh=None``:
+    one device, no mesh)."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.train import Trainer, TrainerConfig
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import FailureInjector
+    tcfg = TrainerConfig(steps=TRAIN_STEPS, log_every=1, ckpt_dir=ckpt,
+                         ckpt_every=2, keep_n=5, **kw)
+    return Trainer(get("qwen3-0.6b").reduced(),
+                   ShapeSpec("test", *TRAIN_SHAPE, "train"), tcfg,
+                   AdamWConfig(**TRAIN_OPT), device="cpu", mesh=mesh,
+                   injector=FailureInjector(fail_at=tuple(fail_at)))
+
+
+def run_train(rank, world):
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get
+    from repro_torch.launch.mesh import build_mesh
+    from repro_torch.launch.steps import MeshPlan
+    from repro_torch.models import build_model, shard_state_dict
+    from repro_torch.runtime import SimulatedFailure
+    inp = np.load(sys.argv[6])
+    out = {}
+
+    def loaded(cfg, mesh, impl, pre):
+        model = build_model(cfg, device="cpu", mesh=mesh, moe_impl=impl)
+        full = {k[len(pre):]: torch.from_numpy(inp[k])
+                for k in inp.files if k.startswith(pre)}
+        model.load_state_dict(shard_state_dict(
+            full, model.param_pspecs(), model.sh))
+        return model.requires_grad_(True)
+
+    for shape in train_meshes(world):
+        mesh = build_mesh(None, shape, ("data", "model"), device="cpu")
+        tag = "x".join(map(str, shape))
+        for case in map(str, inp["cases"]):
+            cfg, impl = serve_cfg(get, case)
+            model = loaded(cfg, mesh, impl, f"{case}.param.")
+            batch = {k[len(case) + 7:]: inp[k] for k in inp.files
+                     if k.startswith(f"{case}.batch.")}
+            loss, _ = model.loss_fn({k: model.sh.split_rows(v)
+                                     for k, v in batch.items()},
+                                    local_rows=True)
+            loss.backward()
+            plan = MeshPlan(model, ("data",), zero1=True)
+            grads = plan.sum_data({n: w.grad for n, w in
+                                   model.named_parameters()})
+            out[f"{tag}.{case}.loss"] = loss.detach().numpy()
+            for name, g in grads.items():
+                out[f"{tag}.{case}.g.{name}"] = g.numpy()
+                out[f"{tag}.{case}.slice.{name}"] = np.array(
+                    [[i.start, i.stop] for i in model.sh.index(
+                        plan.specs[name], plan.full[name])])
+            if impl == "a2a":       # PR 22's whole-batch a2a loss_fn
+                whole = loaded(cfg, mesh, impl, f"{case}.param.")
+                wl, _ = whole.loss_fn(batch)
+                wl.backward()
+                out[f"{tag}.{case}.whole.loss"] = wl.detach().numpy()
+                for name, w in whole.named_parameters():
+                    out[f"{tag}.{case}.whole.g.{name}"] = w.grad.numpy()
+    if world != 2:
+        return out
+    init = {k[len("trainer.param."):]: torch.from_numpy(inp[k])
+            for k in inp.files if k.startswith("trainer.param.")}
+    for shape in train_meshes(world):
+        mesh = build_mesh(None, shape, ("data", "model"), device="cpu")
+        tag = "x".join(map(str, shape))
+        for run, kw in TRAIN_RUNS.items():
+            t = trainer_for(get, mesh, **kw)
+            t.init_params = init
+            res = t.train()
+            for f in ("loss", "grad_norm", "lr", "step"):
+                out[f"{tag}.{run}.{f}"] = np.array(
+                    [m[f] for m in res["metrics"]])
+            opt = t._final[0] if kw.get("compress_grads") else t._final
+            out[f"{tag}.{run}.mu_numel"] = np.array(
+                sum(m.numel() for m in opt.mu.values()))
+            out[f"{tag}.{run}.param_numel"] = np.array(
+                sum(p.numel() for p in t.params.values()))
+    # a crash after step 2's checkpoint on (2, 1), restored on (1, 2); a
+    # copy of the checkpoints for the test's world-of-one restore
+    ckpt = Path(sys.argv[6]).parent / "ckpt"
+    crashy = trainer_for(get, build_mesh(None, (2, 1), ("data", "model"),
+                                         device="cpu"),
+                         ckpt=str(ckpt), fail_at=(3,))
+    crashy.init_params = init
+    try:
+        crashy.train(max_restarts=0)
+    except SimulatedFailure:
+        pass
+    crashy.mgr.wait()
+    if rank == 0:
+        shutil.copytree(ckpt, Path(sys.argv[6]).parent / "ckpt-one")
+    dist.barrier()
+    resumed = trainer_for(get, build_mesh(None, (1, 2), ("data", "model"),
+                                          device="cpu"), ckpt=str(ckpt))
+    res = resumed.train()
+    out["resumed.loss"] = np.array([m["loss"] for m in res["metrics"]])
+    out["resumed.step"] = np.array([m["step"] for m in res["metrics"]])
+    out["crashed.step"] = np.array([m["step"] for m in
+                                    crashy.metrics_log])
     return out
 
 
@@ -451,8 +673,10 @@ def main():
     rank, world = int(sys.argv[2]), int(sys.argv[3])
     dist.init_process_group("gloo", store=dist.FileStore(sys.argv[4], world),
                             rank=rank, world_size=world)
-    if task == "serve":
-        np.savez(f"{sys.argv[5]}-{rank}.npz", **run_serve(rank, world))
+    if task in ("serve", "seq-decode", "train"):
+        run = {"serve": run_serve, "seq-decode": run_seq_decode,
+               "train": run_train}[task]
+        np.savez(f"{sys.argv[5]}-{rank}.npz", **run(rank, world))
         dist.destroy_process_group()
         return
     from repro_torch.launch.mesh import data_index, make_test_mesh

@@ -480,6 +480,43 @@ def test_decode_kernel_forced_splits_match_plain(cuda_device, dtype, valid,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c,kh,g,hd,valid,splits", [
+    (1, 1040, 8, 2, 128, 1, None),     # qwen3-0.6b's slice of 2,080 slots
+    (1, 1040, 8, 2, 128, 1000, None),  # ends inside a chunk
+    (1, 1040, 8, 2, 128, 1040, None),
+    (1, 1040, 32, 1, 112, 777, None),  # zamba2-7b's head_dim
+    (1, 512, 16, 2, 128, 512, None),   # a half of gemma3's ring of 1,024
+    (2, 300, 2, 6, 64, 199, 5),        # two head groups, forced splits
+])
+def test_decode_kernel_lse_matches_plain(cuda_device, dtype, b, c, kh, g,
+                                         hd, valid, splits):
+    """B4 with ``return_lse``: one launch, the output as without it, and
+    each head's log-sum-exp of its live scores against the plain
+    version's ``torch.logsumexp`` (float32 throughout: 2e-5 absolute at
+    either dtype, the scores being the same products)."""
+    q = _randn((b, kh, g, hd), dtype, cuda_device, 11)
+    k = _randn((b, c, kh, hd), dtype, cuda_device, 12)
+    v = _randn((b, c, kh, hd), dtype, cuda_device, 13)
+    k[:, valid:] = 1e9
+    v[:, valid:] = -1e9
+    ks, vs = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+    before = da.decode_attention_folded.launches
+    got, lse = da.decode_attention_folded(q, ks, vs, valid, splits=splits,
+                                          return_lse=True)
+    alone = da.decode_attention_folded(q, ks, vs, valid, splits=splits)
+    torch.cuda.synchronize()
+    assert da.decode_attention_folded.launches == before + 2
+    assert lse.dtype == torch.float32 and lse.shape == (b, kh, g)
+    torch.testing.assert_close(got, alone, rtol=0, atol=0)
+    want, want_lse = da.decode_attention_plain(q, ks, vs, valid,
+                                               return_lse=True)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, want_lse, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
 def test_attention_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     q = torch.zeros((1, 8, 1, 1, 32), device=cuda_device)
     k = torch.zeros((1, 8, 1, 32), device=cuda_device)

@@ -18,6 +18,7 @@ the layouts they are named for.
 """
 import dataclasses
 
+import numpy as np
 import pytest
 
 from repro.configs import SHAPES as REF_SHAPES
@@ -34,7 +35,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import batch_pspecs, build_model, layers
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
-from repro_torch.models.layers import Sharding
+from repro_torch.models.layers import NO_MESH, Sharding
 
 TPS = [None, 1, 2, 4, 8, 16]
 ARCHS = list(names())
@@ -236,15 +237,21 @@ def test_moe_and_mlp_fallbacks_reached():
 
 
 def test_batch_one_over_data_shards_names_item_13c():
-    """A batch of 1 over two data shards would need sequence-parallel
-    decode (the reference's ``shard_seq``): it raises, naming item 13c;
-    rows that do not divide raise too."""
+    """A batch of 1 over two data shards is sequence-parallel (the
+    reference's ``shard_seq``, item 13c): the row is replicated and a
+    cache's slots split over the shards; rows and slots that do not
+    divide raise."""
     sh = Sharding(PortMesh((2, 1), (1, 0)))
     assert sh.local_rows(4) == 2
-    with pytest.raises(NotImplementedError, match="item 13c"):
-        sh.local_rows(1)
+    assert sh.local_rows(1) == 1 and sh.seq_parallel(1)
+    assert not sh.seq_parallel(4) and not NO_MESH.seq_parallel(1)
+    assert sh.split_rows(np.arange(4)[:, None]).ravel().tolist() == [2, 3]
+    assert sh.split_rows(np.arange(1)[:, None]).ravel().tolist() == [0]
+    assert sh.seq_slots(2080) == slice(1040, 2080)
     with pytest.raises(ValueError, match="does not split"):
         sh.local_rows(3)
+    with pytest.raises(ValueError, match="does not split"):
+        sh.seq_slots(7)
 
 
 def test_default_server_issues_no_collective(monkeypatch):

@@ -137,8 +137,17 @@ def test_cli_trains_on_the_cpu(capsys):
 
 
 def test_model_axis_and_missing_card_raise(monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 13"):
-        _trainer(TrainerConfig(model_axis=2))
+    """A model axis of 2 trains on ``elastic_mesh(model=2)`` over the
+    world's ranks: a world of one cannot host it (``tests/
+    test_torch_train_mesh.py`` trains on meshes of 2 and 4 ranks)."""
+    import torch.distributed as dist
+    started = dist.is_initialized()
+    try:
+        with pytest.raises(ValueError, match="cannot host model=2"):
+            _trainer(TrainerConfig(model_axis=2))
+    finally:
+        if dist.is_initialized() and not started:
+            dist.destroy_process_group()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_cli.trainer_from_args(train_cli.parse_args(
