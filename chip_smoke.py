@@ -245,7 +245,24 @@ result line):
                against the meshless server's printed); float32 2-layer
                qwen3, 2-layer gemma3 (local rings of 1,024, 512 a rank),
                7-layer zamba2 and 2 + 2-layer whisper against the meshless
-               batch-1 runs (logits 1e-4, tokens equal), ranks bit for bit.
+               batch-1 runs (logits 1e-4, tokens equal), ranks bit for bit;
+ 26. dryrun  — the dry run and its counter (``launch.dryrun``,
+               ``launch.analysis.trace_step``): (a) ``python -m
+               repro_torch.launch.dryrun`` for qwen3-0.6b ``train_4k`` and
+               ``decode_32k`` on 256 fake ranks and mixtral-8x7b
+               ``prefill_32k --multi-pod`` on 512, in subprocesses that see
+               no card, each record ``ok`` and its roofline printed; (b)
+               meanwhile, meshless on the card, qwen3-0.6b bf16 at full
+               width and depth: a prefill of 8 x 2,048 (caches of 2,080),
+               one decode step on that cache and a train step of 4 x 4,096;
+               (c) mamba2-2.7b with 2 blocks, float32, a prefill of 2 x
+               1,000. Each warm step is traced on the card and on ``meta``:
+               FLOPs, bytes, kernel calls and collectives equal, the kernel
+               calls equal the launch counters (28 B3; 28 B4; none; 2 B5),
+               and the counter's peak within 5 % + 256 MiB of
+               ``max_memory_allocated``; the memory breakdown (the live
+               storages at the peak by the operator that made them) and the
+               step's ms against its roofline bound are printed.
 
 Training runs on none of the hand-written kernels, as the reference trains
 on none of its Pallas kernels: the ``kernels`` line below is the serving
@@ -265,6 +282,7 @@ import gc
 import importlib
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -279,17 +297,19 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+from repro_torch.launch.analysis import HW  # noqa: E402
 
 RTOL = 1e-5          # kernel vs plain version: both float32
 #: plan cost vs the float64 numpy oracle: a float32 running sum over up to
 #: 11,100 edges (Fig. 8) drifts ~1e-5 relative from the float64 sum
 ORACLE_RTOL = 1e-4
 SEED = 0
-#: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 non-tensor FLOP/s,
-#: bf16 dense tensor-core FLOP/s
-HBM_BYTES_PER_S = 3.35e12
+#: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and bf16 dense
+#: tensor-core FLOP/s (``launch.analysis.HW``, the dry run's figures), f32
+#: non-tensor FLOP/s
+HBM_BYTES_PER_S = HW().hbm_bw
 F32_OPS_PER_S = 67e12
-BF16_OPS_PER_S = 989e12
+BF16_OPS_PER_S = HW().peak_flops
 #: device spin ahead of a timed stretch of attention calls (~25 ms at the
 #: H100's clocks), so the host queues every call before the stretch starts
 SLEEP_CYCLES = 50_000_000
@@ -1235,6 +1255,213 @@ def seq_rank(rank: int, tmp: str) -> int:
     np.savez(f"{tmp}/rank{rank}.npz", **out)
     dist.destroy_process_group()
     return 0
+
+
+#: dryrun: the dry run's cells on 256 fake ranks (512 with --multi-pod)
+DRYRUN_CELLS = (("qwen3-0.6b", "train_4k", ()),
+                ("qwen3-0.6b", "decode_32k", ()),
+                ("mixtral-8x7b", "prefill_32k", ("--multi-pod",)))
+#: the counter's peak vs ``max_memory_allocated``: 5 % + 256 MiB (the
+#: allocator's 512-byte rounding, cuBLAS's workspaces, kernels' scratch)
+PEAK_RTOL, PEAK_SLACK = 0.05, 256 << 20
+#: dryrun (b): qwen3-0.6b prefill and decode batch, prompt and cache
+DRY_BATCH, DRY_PROMPT, DRY_CACHE = 8, 2048, 2080
+
+
+def start_dryruns(tmp):
+    """``python -m repro_torch.launch.dryrun`` on each ``DRYRUN_CELLS``
+    cell, all started together, no card visible; returns the processes
+    with their cells and output paths."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    env.pop("REPRO_DRYRUN_DEVICES", None)
+    procs = []
+    for arch, shape, flags in DRYRUN_CELLS:
+        out = f"{tmp}/{arch}_{shape}.json"
+        procs.append(((arch, shape, flags), out, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, *flags, "--out", out],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=env, cwd=ROOT)))
+    return procs
+
+
+def finish_dryruns(procs):
+    """Wait for ``start_dryruns``' processes; each must exit 0 with an
+    ``ok`` record, whose roofline is printed."""
+    for (arch, shape, flags), out, proc in procs:
+        text, _ = proc.communicate(timeout=900)
+        print(text.strip(), flush=True)
+        assert proc.returncode == 0, (arch, shape, proc.returncode)
+        with open(out) as f:
+            rec = json.load(f)
+        assert rec["status"] == "ok", rec
+        r, m, c = rec["roofline"], rec["memory"], rec["collective"]
+        print(f"[dryrun] {arch} x {shape} {' '.join(flags)}: mesh "
+              f"{rec['mesh']} ({rec['n_chips']} fake ranks), traced in "
+              f"{rec['trace_s']} s; per chip {rec['flops_per_chip']:.4g} "
+              f"FLOPs, {rec['hbm_bytes_per_chip']:.4g} bytes, "
+              f"{c['count']} collectives ({c['ici_bytes']:.4g} bytes NVLink, "
+              f"{c['dcn_bytes']:.4g} DCN), peak {m['peak_bytes'] / 1e9:.3f} "
+              f"GB (fits 80 GB: {rec['fits_hbm']}); roofline compute "
+              f"{1e3 * r['compute_s']:.4f} ms, memory "
+              f"{1e3 * r['memory_s']:.4f} ms, collective "
+              f"{1e3 * r['collective_s']:.4f} ms, dominant {r['dominant']}; "
+              f"kernels {rec['kernel_calls']}", flush=True)
+
+
+def dry_cells():
+    """dryrun (b), (c): ``(tag, make, launches)``: ``make(device)`` builds
+    a model there (seeded weights on the card), its step and the step's
+    arguments; ``launches`` the (B3, B4, B5) launches the step must make."""
+    from repro_torch.configs import get
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.steps import make_train_objects
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init
+    qwen = get("qwen3-0.6b")
+    mamba = dataclasses.replace(get("mamba2-2.7b"), n_layers=2,
+                                dtype="float32")
+
+    def tokens(dev, b, s, vocab):
+        if dev.type == "meta":
+            return torch.zeros((b, s), dtype=torch.int32, device=dev)
+        g = torch.Generator(device=dev).manual_seed(SEED + 3)
+        return torch.randint(0, vocab, (b, s), generator=g, device=dev,
+                             dtype=torch.int32)
+
+    def model_on(cfg, dev):
+        model = build_model(cfg, device=dev)
+        if dev.type != "meta":
+            model.init(torch.Generator(device=dev).manual_seed(SEED))
+        return model
+
+    def prefill(cfg, batch, prompt, cache):
+        def make(dev):
+            model = model_on(cfg, dev)
+            step = torch.no_grad()(
+                lambda b: model.prefill(b, cache_len=cache))
+            return model, step, ({"tokens": tokens(
+                dev, batch, prompt, cfg.vocab)},)
+        return make
+
+    def decode(dev):
+        model, step, (batch,) = prefill(qwen, DRY_BATCH, DRY_PROMPT,
+                                        DRY_CACHE)(dev)
+        _, caches = step(batch)
+        return model, torch.no_grad()(model.decode_step), (caches, {
+            "token": tokens(dev, DRY_BATCH, 1, qwen.vocab),
+            "pos": DRY_PROMPT})
+
+    def train(dev):
+        model, step, _ = make_train_objects(
+            qwen, ShapeSpec("train_4k, batch cut to 4", 4096, 4, "train"),
+            device=dev)
+        if dev.type != "meta":
+            model.init(torch.Generator(device=dev).manual_seed(SEED))
+        opt = adamw_init({n: step.plan.zslice(n, p)
+                          for n, p in model.named_parameters()})
+        return model, step, (opt, {"tokens": tokens(dev, 4, 4097,
+                                                    qwen.vocab)})
+    layers = qwen.n_layers
+    return (("qwen3-0.6b prefill bf16 8 x 2048",
+             prefill(qwen, DRY_BATCH, DRY_PROMPT, DRY_CACHE), (layers, 0, 0)),
+            ("qwen3-0.6b decode step bf16 8 x 2080 slots", decode,
+             (0, layers, 0)),
+            ("qwen3-0.6b train step bf16 4 x 4096", train, (0, 0, 0)),
+            ("mamba2-2.7b (2 blocks) prefill float32 2 x 1000",
+             prefill(mamba, 2, 1000, 1000), (0, 0, 2)))
+
+
+def dry_cell(dev, tag, make, launches):
+    """One dryrun (b) / (c) cell: the warm step traced on the card and on
+    ``meta`` (equal FLOPs, bytes, kernel calls and collectives; the kernel
+    calls the launch counters'), the counter's peak against
+    ``max_memory_allocated`` over what was resident before the model
+    (``PEAK_RTOL`` + ``PEAK_SLACK``), and the step's ms against its
+    roofline bound ``max(compute, memory)``."""
+    from repro_torch.launch.analysis import (collective_bytes, roofline_terms,
+                                             trace_step)
+    free_card()
+    base = torch.cuda.memory_allocated(dev)
+    model, step, args = make(dev)
+    live = [*model.parameters(), *model.buffers()]
+    out = step(*args)                        # warm: builds, cuBLAS, caches
+    del out
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    resident = torch.cuda.memory_allocated(dev) - base
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = _kernel_launches()
+    out, card = trace_step(step, *args, live=live)
+    torch.cuda.synchronize(dev)
+    measured = torch.cuda.max_memory_allocated(dev) - base
+    got = tuple(a - b for a, b in zip(_kernel_launches(), before))
+    del out
+    times = []
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = step(*args)
+        ev[1].record()
+        torch.cuda.synchronize(dev)
+        times.append(ev[0].elapsed_time(ev[1]))
+        del out
+    ms = float(np.median(times))
+    del model, step, args, live
+    free_card()
+    meta_model, meta_step, meta_args = make(torch.device("meta"))
+    _, meta = trace_step(meta_step, *meta_args,
+                         live=[*meta_model.parameters(),
+                               *meta_model.buffers()])
+    calls = card.kernels_by_name()
+    by_kernel = tuple(calls.get(n, {}).get("calls", 0) for n in (
+        "flash_attention", "decode_attention", "ssd_scan"))
+    terms = roofline_terms(card.flops, card.bytes,
+                           collective_bytes(card.collectives))
+    bound = 1e3 * max(terms["compute_s"], terms["memory_s"])
+    top = sorted(meta.peak_by_op.items(), key=lambda kv: -kv[1])[:6]
+    print(f"[dryrun] {tag}: card {card.flops:.6g} FLOPs ({card.kernel_flops:.4g} "
+          f"in kernels), {card.bytes:.6g} bytes, {card.ops} operators, "
+          f"kernel calls {calls}, {len(card.collectives)} collectives; meta "
+          f"equal: flops {meta.flops == card.flops}, bytes "
+          f"{meta.bytes == card.bytes}, kernel calls "
+          f"{meta.kernel_calls == card.kernel_calls}, collectives "
+          f"{meta.collectives == card.collectives}; launches (B3, B4, B5) "
+          f"{got}", flush=True)
+    print(f"[dryrun] {tag}: memory (GB) argument "
+          f"{meta.argument_bytes / 1e9:.3f} (resident before the step "
+          f"{resident / 1e9:.3f}), output {meta.output_bytes / 1e9:.3f}, "
+          f"alias {meta.alias_bytes / 1e9:.3f}, temp "
+          f"{meta.temp_bytes / 1e9:.3f}, peak predicted "
+          f"{meta.peak_bytes / 1e9:.3f} (card trace "
+          f"{card.peak_bytes / 1e9:.3f}), measured {measured / 1e9:.3f} "
+          f"(max_memory_allocated over {base / 1e9:.3f} resident before "
+          f"the model); at the peak besides the arguments: "
+          f"{', '.join(f'{k} {v / 1e9:.3f}' for k, v in top)}", flush=True)
+    print(f"[dryrun] {tag}: step {ms:.3f} ms (median of "
+          f"{[round(t, 3) for t in times]}), roofline compute "
+          f"{1e3 * terms['compute_s']:.4f} ms, memory "
+          f"{1e3 * terms['memory_s']:.4f} ms: bound {bound:.4f} ms, "
+          f"{bound / ms:.4f} of the step", flush=True)
+    assert (meta.flops, meta.bytes) == (card.flops, card.bytes), tag
+    assert meta.kernel_calls == card.kernel_calls, tag
+    assert meta.collectives == card.collectives, tag
+    assert got == launches == by_kernel, (tag, got, launches, by_kernel)
+    assert abs(meta.peak_bytes - measured) <= PEAK_RTOL * measured \
+        + PEAK_SLACK, (tag, meta.peak_bytes, measured)
+    del meta_model, meta_step, meta_args
+
+
+def dryrun(dev):
+    """dryrun: (a) the dry run on fake fleets in subprocesses, while (b)
+    and (c) trace steps on the card and on ``meta``."""
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = start_dryruns(tmp)
+        for tag, make, launches in dry_cells():
+            dry_cell(dev, tag, make, launches)
+        finish_dryruns(procs)
+    print(f"[dryrun] card: {smi_field('name,power.limit')}", flush=True)
 
 
 def main() -> int:
@@ -2737,19 +2964,12 @@ def main() -> int:
         return (float(np.median([r[0] for r in k])),
                 float(np.median([r[0] for r in lib])), p[0])
 
-    def band_pairs(S, causal, window):
-        """(query, key) pairs inside B3's causal / window band."""
-        qpos = np.arange(S)
-        lo = np.maximum(0, qpos - window + 1) if window else 0 * qpos
-        hi = qpos + 1 if causal else S + 0 * qpos
-        return int((hi - lo).sum())
-
     def time_flash(tag, kv, g, hd, S=SERVE_PROMPT, causal=True, window=0):
         """B3 at a serving prefill (bf16, batch SERVE_BATCH, ``S`` tokens,
         ``kv`` kv heads of ``g`` query heads each; causal, banded or
         bidirectional) against SDPA in turns (a boolean band mask for a
-        window); returns the timing record. The bound counts the band's
-        pairs."""
+        window); returns the timing record. The bound is ``fa.cost``'s: the
+        band's pairs."""
         dt = torch.bfloat16
         B, h = SERVE_BATCH, kv * g
         q = randn((B, S, kv, g, hd), dt, 1)
@@ -2774,8 +2994,9 @@ def main() -> int:
             lambda: flash_plain(q, k, v, causal, window), 20, 3)
         lib_err = float((sdpa().transpose(1, 2).reshape(q.shape).float()
                          - kernel().float()).abs().max())
-        flops = 4 * B * h * band_pairs(S, causal, window) * hd
-        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        work = fa.cost(q.permute(0, 2, 3, 1, 4), k.permute(0, 2, 1, 3),
+                       v.permute(0, 2, 1, 3), causal=causal, window=window)
+        flops, nbytes = work["flops"], work["bytes"]
         t_ops, t_bytes = flops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
         rec_ = dict(ms=ms, plain_ms=plain, library_ms=lib,
                     bound_ms=1e3 * max(t_ops, t_bytes),
@@ -2820,8 +3041,8 @@ def main() -> int:
         lib_err = float((sdpa_d().reshape(qd.shape).float()
                          - ops.decode_attention(qd, kc, vc, valid).float()
                          ).abs().max())
-        nbytes = 2 * B * valid * kv * hd * 2 + 2 * 2 * qd.numel()
-        flops = 4 * B * h * valid * hd
+        work = da.cost(qd, kf, vf, valid)
+        flops, nbytes = work["flops"], work["bytes"]
         t_ops, t_bytes = flops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
         rec_ = dict(ms=ms, plain_ms=plain, library_ms=lib,
                     bound_ms=1e3 * max(t_ops, t_bytes),
@@ -2978,19 +3199,17 @@ def main() -> int:
             dataclasses.replace(zamba2, n_layers=7)])
 
     # 19. time-ssd: B5 at the serving shapes --------------------------------
-    def ssd_bound(shape):
-        """Least time of one B5 launch, two ways. The float32 CUDA-core
-        bound: the causal band's operations (scores C_i . B_j once per
-        chunk, 2N each; per head a weight, 3 operations, and P multiply-adds)
-        over the fp32 peak, against x and out once, cum, B and C once over
-        HBM bandwidth. The bound of the kernel's route: three TF32 products
-        (3xTF32) for each of the band's multiply-adds at the dense TF32
-        tensor-core peak, against the same bytes."""
-        bc, q, h, p, n = shape
-        pairs = q * (q + 1) // 2
-        ops_ = bc * pairs * (2 * n + h * (2 * p + 3))
-        mma = 3 * bc * pairs * (2 * n + 2 * h * p)
-        nbytes = 4 * bc * q * (2 * h * p + h + 2 * n)
+    def ssd_bound(args):
+        """Least time of one B5 launch on ``args``, two ways, from
+        ``ssd_scan.cost``. The float32 CUDA-core bound: the causal band's
+        operations (scores C_i . B_j once per chunk, 2N each; per head a
+        weight, 3 operations, and P multiply-adds) over the fp32 peak,
+        against x and out once, cum, B and C once over HBM bandwidth. The
+        bound of the kernel's route: three TF32 products (3xTF32) for each
+        of the band's multiply-adds at the dense TF32 tensor-core peak,
+        against the same bytes."""
+        work = ssd_scan.cost(*args)
+        ops_, mma, nbytes = work["flops"], work["tf32_flops"], work["bytes"]
         t_bytes = nbytes / HBM_BYTES_PER_S
         out = {}
         for name, t_ops in (("fp32", ops_ / F32_OPS_PER_S),
@@ -3006,7 +3225,7 @@ def main() -> int:
             k = [queued_ms(lambda: b5(*args), 20) for _ in range(5)]
             p = queued_ms(lambda: ssd_scan.ssd_intra_plain(*args), 3)
             ms = float(np.median([r[0] for r in k]))
-            bounds, ops_, mma, nbytes = ssd_bound(shape)
+            bounds, ops_, mma, nbytes = ssd_bound(args)
             (f_ms, f_by), (r_ms, r_by) = bounds["fp32"], bounds["route"]
             print(f"[time-ssd] B5 {cfg.name} {shape}: kernel ms per round "
                   f"{[round(r[0], 5) for r in k]} (host ms per call "
@@ -3204,6 +3423,9 @@ def main() -> int:
 
     # 25. seq-decode: batch-1 sequence-parallel decode over two ranks ---------
     _phase("seq-decode", seq_decode, failures, dev)
+
+    # 26. dryrun: the dry run's counts, and held against real steps ----------
+    _phase("dryrun", dryrun, failures, dev)
 
     jax_loaded = "jax" in sys.modules
     print(f"[imports] jax loaded: {jax_loaded}")

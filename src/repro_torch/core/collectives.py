@@ -9,17 +9,59 @@ group takes no card tensor for every collective, so there a card tensor
 goes through host memory (two processes sharing one card meet over
 ``gloo``). The model layer (``models.layers.Sharding``, ``models.moe``)
 and the launch layer (``launch.mesh``) both read them from here.
+
+Every tensor collective of the model and train paths goes through this
+module (``all_reduce``, ``all_gather``, ``all_to_all``), and so does its
+backward where it has one. ``record_collectives()`` makes each of them
+append a ``Collective(op, result_bytes, ranks)`` while it is open: the
+HLO op it stands for (``all-reduce``, ``all-gather``, ``all-to-all``), the
+bytes of its result as the HLO's result shape counts them (the gathered
+tensor of an all-gather) and the global ranks of its group in group
+order. ``launch.analysis.trace_step`` prices them as the reference prices
+the collectives of a compiled program. Off, a collective costs one test.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
 __all__ = ["data_axes_of", "data_index", "data_group", "model_group",
-           "all_reduce", "all_gather"]
+           "all_reduce", "all_gather", "all_to_all", "Collective",
+           "record_collectives"]
+
+
+class Collective(NamedTuple):
+    """One collective as it ran: the HLO op it stands for, its result's
+    bytes and its group's global ranks."""
+    op: str
+    result_bytes: int
+    ranks: Tuple[int, ...]
+
+
+#: the list ``record_collectives`` appends to; ``None`` when off
+_RECORDS: Optional[List[Collective]] = None
+
+
+@contextlib.contextmanager
+def record_collectives():
+    """Collect every collective this process issues (on any thread) into
+    the list it yields, until the block ends."""
+    global _RECORDS
+    prev, _RECORDS = _RECORDS, []
+    try:
+        yield _RECORDS
+    finally:
+        _RECORDS = prev
+
+
+def _note(op: str, result_bytes: int, group) -> None:
+    if _RECORDS is not None:
+        _RECORDS.append(Collective(
+            op, result_bytes, tuple(dist.get_process_group_ranks(group))))
 
 
 def data_axes_of(mesh) -> Tuple[str, ...]:
@@ -75,6 +117,7 @@ def all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM
                ) -> torch.Tensor:
     """The sum (or ``op``) of every rank's ``t`` over ``group``, as a new
     tensor."""
+    _note("all-reduce", t.numel() * t.element_size(), group)
     if _via_host(t, group):
         h = t.detach().cpu()
         dist.all_reduce(h, op=op, group=group)
@@ -91,5 +134,34 @@ def all_gather(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     src = t.detach().cpu() if _via_host(t, group) else t.detach()
     src = src.contiguous()
     parts = [torch.empty_like(src) for _ in range(n)]
+    _note("all-gather", n * src.numel() * src.element_size(), group)
     dist.all_gather(parts, src, group=group)
     return torch.cat(parts, dim=dim).to(t.device)
+
+
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all_single`` of equal splits; the backward is the reverse
+    exchange of the gradient (as ``torch.distributed.nn``'s)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _exchange(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.group), None
+
+
+def _exchange(x: torch.Tensor, group) -> torch.Tensor:
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    _note("all-to-all", out.numel() * out.element_size(), group)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """Rows of ``x`` in equal blocks, block ``j`` sent to the group's
+    ``j``-th rank, the received blocks in rank order; autograd-aware."""
+    return _AllToAll.apply(x, group)

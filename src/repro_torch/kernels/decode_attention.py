@@ -27,22 +27,26 @@ cache (``models.attention``).
 
 ``decode_attention_folded`` picks by the tensors' device: plain on the
 CPU, the kernel on CUDA, where it raises on anything the kernel does not
-take. Its ``launches`` attribute counts kernel launches (one per call).
+take, and on ``meta`` the kernel's checks and its outputs without a
+launch. Its ``launches`` attribute counts kernel launches (one per call).
+``cost`` is the kernel's analytic work (``flash_attention.cost``'s
+counterpart over the live slots).
 It refuses inputs that require grad while grad mode is on
 (``flash_attention.refuse_grad``): the kernel has no backward.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
+from ._trace import kernel_call
 from .flash_attention import (DTYPE_CODES, HEAD_DIMS, NEG_INF,
                               check_operand, refuse_grad)
 
 __all__ = ["decode_attention_folded", "decode_attention_plain",
-           "decode_split"]
+           "decode_split", "cost"]
 
 #: blocks per (batch, kv head) row at most: the portable cluster size
 MAX_SPLIT = 8
@@ -121,18 +125,41 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, (lse if q.dim() == 4 else lse[:, 0])
 
 
+def cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid_len, *,
+         splits: Optional[int] = None, return_lse: bool = False
+         ) -> Dict[str, int]:
+    """One call's work: ``flops``, the two products over the ``valid_len``
+    live slots (2 FLOPs a multiply-add); ``bytes``, the live slots' keys
+    and values and q read once, the output (and the float32 lse) written
+    once."""
+    q4, k4, _ = _split(q, k, v)
+    B, K, G, hd = q4.shape
+    n = _valid(valid_len, k4.shape[2])
+    nbytes = q4.element_size() * (2 * B * K * n * hd + 2 * q4.numel())
+    return {"flops": 4 * B * K * G * n * hd,
+            "bytes": nbytes + (4 * B * K * G if return_lse else 0)}
+
+
 def decode_attention_folded(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, valid_len, *,
                             splits: Optional[int] = None,
                             return_lse: bool = False):
     """Decode attention over the folded (or row-split) layout: the plain
-    version on the CPU, the kernel on CUDA (or it raises). ``splits``
-    overrides the kernel's blocks per row (``decode_split``);
-    ``return_lse`` returns ``(out, lse)``."""
+    version on the CPU, the kernel on CUDA (or it raises), its outputs
+    unwritten on ``meta``. ``splits`` overrides the kernel's blocks per
+    row (``decode_split``); ``return_lse`` returns ``(out, lse)``."""
     refuse_grad("decode_attention_folded", q, k, v)
-    if q.device.type == "cpu":
-        return decode_attention_plain(q, k, v, valid_len, return_lse)
-    if q.device.type != "cuda":
+    return kernel_call("decode_attention", _route, cost, q, k, v,
+                       valid_len, splits=splits, return_lse=return_lse)
+
+
+def _route(q, k, v, valid_len, *, splits, return_lse):
+    if q.device.type == "cpu":           # in the kernel's layout: q's
+        out = decode_attention_plain(q, k, v, valid_len, return_lse)
+        if not return_lse:
+            return torch.empty_like(q).copy_(out)
+        return torch.empty_like(q).copy_(out[0]), out[1]
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"no decode attention for tensors on {q.device}")
     return _launch(q, k, v, valid_len, splits, return_lse)
 
@@ -157,6 +184,8 @@ def _launch(q, k, v, valid_len, splits, return_lse=False):
     check_operand("o", o, q4)
     lse = torch.empty((B, K, G), dtype=torch.float32, device=q.device) \
         if return_lse else None
+    if q.device.type == "meta":          # the dry run: shapes, no launch
+        return _outputs(q, o, lse)
     st = (ctypes.c_longlong * 12)(*q4.stride()[:3], *k4.stride()[:3],
                                   *v4.stride()[:3], *o.stride()[:3])
     lib = _lib()
@@ -170,6 +199,11 @@ def _launch(q, k, v, valid_len, splits, return_lse=False):
         raise RuntimeError(
             "decode_attention kernel launch failed: "
             f"{lib.decode_attention_error_string(err).decode()}")
+    return _outputs(q, o, lse)
+
+
+def _outputs(q, o, lse):
+    """The caller's layout of the kernel's ``o`` (and ``lse``)."""
     out = o if q.dim() == 4 else o[:, 0]
     if lse is None:
         return out

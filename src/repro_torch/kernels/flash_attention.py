@@ -21,8 +21,12 @@ model's ``(B, S, K, G, hd)`` tensors, which it reads through their strides
 without a copy. The output has q's shape and dtype (float32 or bfloat16).
 
 ``flash_attention_folded`` picks by the tensors' device: plain on the CPU,
-the kernel on CUDA, where it raises on anything the kernel does not take.
-Its ``launches`` attribute counts kernel launches. The kernel has no
+the kernel on CUDA, where it raises on anything the kernel does not take,
+and on ``meta`` the kernel's checks and its output without a launch (the
+dry run, ``launch.dryrun``). Its ``launches`` attribute counts kernel
+launches. ``cost`` is the kernel's analytic work (FLOPs of the band,
+bytes moved): its bound in ``chip_smoke.py`` and its count in
+``launch.analysis.trace_step``. The kernel has no
 backward (nor has the reference's), so on either device it refuses inputs
 that require grad while grad mode is on (``refuse_grad``): training takes
 the models' differentiable route instead.
@@ -30,11 +34,14 @@ the models' differentiable route instead.
 from __future__ import annotations
 
 import ctypes
+from typing import Dict
 
 import torch
 
+from ._trace import kernel_call
+
 __all__ = ["flash_attention_folded", "flash_attention_plain", "NEG_INF",
-           "HEAD_DIMS", "refuse_grad"]
+           "HEAD_DIMS", "refuse_grad", "band_pairs", "cost"]
 
 #: the reference's large-but-finite mask value
 NEG_INF = -2.0 ** 30
@@ -101,14 +108,45 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out if q.dim() == 5 else out[:, 0]
 
 
+def band_pairs(S: int, causal: bool, window: int) -> int:
+    """(query, key) pairs inside the causal / window band of ``S``
+    positions: key ``j`` of query ``i`` when ``i - window < j`` (a window)
+    and ``j <= i`` (causal)."""
+    if causal:
+        w = min(window, S) if window else S
+        return w * (w + 1) // 2 + (S - w) * w
+    if window and S > window:
+        return S * S - (S - window) * (S - window + 1) // 2
+    return S * S
+
+
+def cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+         causal: bool, window: int) -> Dict[str, int]:
+    """One call's work: ``flops``, the two products (scores and P·V, 2
+    FLOPs a multiply-add) over the band's pairs; ``bytes``, q, k and v read
+    once and the output written once."""
+    q5, k4, v4 = _split(q, k, v)
+    B, K, G, S, hd = q5.shape
+    return {"flops": 4 * B * K * G * band_pairs(S, causal, window) * hd,
+            "bytes": q5.element_size() * (2 * q5.numel() + k4.numel()
+                                          + v4.numel())}
+
+
 def flash_attention_folded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            *, causal: bool, window: int) -> torch.Tensor:
     """Prefill attention over the folded (or row-split) layout: the plain
-    version on the CPU, the kernel on CUDA (or it raises)."""
+    version on the CPU, the kernel on CUDA (or it raises), its output
+    unwritten on ``meta``."""
     refuse_grad("flash_attention_folded", q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
-    if q.device.type != "cuda":
+    return kernel_call("flash_attention", _route, cost, q, k, v,
+                       causal=causal, window=window)
+
+
+def _route(q, k, v, *, causal: bool, window: int) -> torch.Tensor:
+    if q.device.type == "cpu":           # in the kernel's layout: q's
+        return torch.empty_like(q).copy_(flash_attention_plain(
+            q, k, v, causal=causal, window=window))
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"no flash attention for tensors on {q.device}")
     return _launch(q, k, v, causal=causal, window=window)
 
@@ -150,6 +188,8 @@ def _launch(q, k, v, *, causal: bool, window: int):
         check_operand(name, t, q5)
     o = torch.empty_like(q5)             # q's layout: dense views stay dense
     check_operand("o", o, q5)
+    if q.device.type == "meta":          # the dry run: shapes, no launch
+        return o if q.dim() == 5 else o[:, 0]
     st = (ctypes.c_longlong * 14)(*q5.stride()[:4], *k4.stride()[:3],
                                   *v4.stride()[:3], *o.stride()[:4])
     lib = _lib()

@@ -27,8 +27,11 @@ column slices of a wider tensor; it takes ``Q <= 256`` and ``P``, ``N``
 multiples of 4 up to 128.
 
 ``ssd_intra_folded`` picks by the tensors' device: plain on the CPU, the
-kernel on CUDA, where it raises on anything the kernel does not take. Its
-``launches`` attribute counts kernel launches. Like the attention kernels
+kernel on CUDA, where it raises on anything the kernel does not take, and
+on ``meta`` the kernel's checks and its output without a launch. Its
+``launches`` attribute counts kernel launches. ``cost`` is the kernel's
+analytic work: the causal band's float32 operations, the 3xTF32 route's
+tensor-core operations and the bytes moved. Like the attention kernels
 it refuses inputs that require grad while grad mode is on
 (``flash_attention.refuse_grad``): ``models.ssm`` trains on the plain
 form.
@@ -36,12 +39,14 @@ form.
 from __future__ import annotations
 
 import ctypes
+from typing import Dict
 
 import torch
 
+from ._trace import kernel_call
 from .flash_attention import refuse_grad
 
-__all__ = ["ssd_intra_folded", "ssd_intra_plain", "check_aligned"]
+__all__ = ["ssd_intra_folded", "ssd_intra_plain", "check_aligned", "cost"]
 
 #: the longest chunk and the widest head_dim / state the kernel takes
 MAX_Q, MAX_PN = 256, 128
@@ -100,15 +105,36 @@ def ssd_intra_plain(xc: torch.Tensor, cum: torch.Tensor, Bc: torch.Tensor,
     return torch.einsum("bijh,bjhp->bihp", scores[..., None] * decay, xc)
 
 
+def cost(xc: torch.Tensor, cum: torch.Tensor, Bc: torch.Tensor,
+         Cc: torch.Tensor) -> Dict[str, int]:
+    """One call's work over the causal band's ``Q(Q+1)/2`` pairs of each
+    chunk: ``flops``, its float32 operations (the scores ``C_i . B_j``
+    once a chunk, 2N each; per head a weight, 3 operations, and P
+    multiply-adds); ``tf32_flops``, the kernel's route (three TF32
+    products, 3xTF32, for each multiply-add of both products); ``bytes``,
+    x, cum, B and C read once and the output written once."""
+    bc, q, h, p = xc.shape
+    n = Bc.shape[-1]
+    pairs = q * (q + 1) // 2
+    return {"flops": bc * pairs * (2 * n + h * (2 * p + 3)),
+            "tf32_flops": 3 * bc * pairs * (2 * n + 2 * h * p),
+            "bytes": 4 * bc * q * (2 * h * p + h + 2 * n)}
+
+
 def ssd_intra_folded(xc: torch.Tensor, cum: torch.Tensor, Bc: torch.Tensor,
                      Cc: torch.Tensor) -> torch.Tensor:
     """The intra-chunk form over the folded layout: the plain version on
-    the CPU, the kernel on CUDA (or it raises)."""
+    the CPU, the kernel on CUDA (or it raises), its output unwritten on
+    ``meta``."""
     refuse_grad("ssd_intra_folded", xc, cum, Bc, Cc)
     _check(xc, cum, Bc, Cc)
-    if xc.device.type == "cpu":
-        return ssd_intra_plain(xc, cum, Bc, Cc)
-    if xc.device.type != "cuda":
+    return kernel_call("ssd_scan", _route, cost, xc, cum, Bc, Cc)
+
+
+def _route(xc, cum, Bc, Cc):
+    if xc.device.type == "cpu":          # in the kernel's layout: dense
+        return ssd_intra_plain(xc, cum, Bc, Cc).contiguous()
+    if xc.device.type not in ("cuda", "meta"):
         raise ValueError(f"no SSD intra-chunk form for tensors on "
                          f"{xc.device}")
     return _launch(xc, cum, Bc, Cc)
@@ -131,6 +157,8 @@ def _launch(xc, cum, Bc, Cc):
     for name, t in (("xc", xc), ("Bc", Bc), ("Cc", Cc)):
         check_aligned(name, t)
     out = torch.empty((bc, q, h, p), dtype=torch.float32, device=xc.device)
+    if xc.device.type == "meta":         # the dry run: shapes, no launch
+        return out
     st = (ctypes.c_longlong * 10)(*xc.stride()[:3], *cum.stride(),
                                   *Bc.stride()[:2], *Cc.stride()[:2])
     lib = _lib()

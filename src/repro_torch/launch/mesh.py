@@ -94,9 +94,10 @@ def world_devices(devices: Optional[Sequence[int]], device=None
 
 def make_production_mesh(*, multi_pod: bool = False,
                          device=None) -> DeviceMesh:
-    """The target fleet: one v5e pod = 16x16 = 256 chips, axes (data,
-    model); multi-pod = 2 pods = 512 with a leading "pod" axis. Needs a
-    world of exactly that many ranks."""
+    """The target fleet, the reference's 16 x 16 = 256 devices (here 32
+    nodes of 8 H100s), axes (data, model); multi-pod = 2 pods = 512 with a
+    leading "pod" axis. Needs a world of exactly that many ranks (the dry
+    run's fake one, ``launch.dryrun``)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     init_world(device)

@@ -265,13 +265,16 @@ class EncDecLM(nn.Module):
     def decode_step(self, caches: Caches, batch: Dict
                     ) -> Tuple[torch.Tensor, Caches]:
         """batch: {"token": (B,1) ints, "pos": int}. Returns (logits
-        (B,1,V), caches), the self caches updated in place."""
+        (B,1,V), caches), the self caches updated in place. A position
+        past the learned table takes its last row, as the reference's
+        ``dynamic_slice`` clamps it."""
         cfg = self.cfg
         pos = int(batch["pos"])
         rows = int(batch["token"].shape[0])
         seq = self.sh.seq_parallel(rows)
+        row = min(pos, DEC_POSITIONS - 1)
         x = embed_lookup(self.embed, self.sh.split_rows(batch["token"]),
-                         self.sh, cfg.vocab) + self.dec_pos[pos:pos + 1]
+                         self.sh, cfg.vocab) + self.dec_pos[row:row + 1]
         cross = caches["cross"]
         for i, blk in enumerate(self.dec_blocks):
             layer = {n: t[i] for n, t in caches["self"].items()}

@@ -67,16 +67,15 @@ router and banks leave the data sum to the train step.
 from __future__ import annotations
 
 import math
-import warnings
 from typing import Mapping, Optional, Tuple
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
-from ..core.collectives import all_gather, all_reduce, data_group, data_index
+from ..core.collectives import (all_gather, all_reduce, all_to_all,
+                                data_group, data_index)
 from .layers import (NO_MESH, P, Sharding, dense_init, divisible, he_init,
                      init_mlp, mlp_apply, mlp_params, mlp_pspec)
 
@@ -286,7 +285,7 @@ class _Shard(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _all_gather(g, ctx.n, ctx.group), None, None, None
+        return all_gather(g, 0, ctx.group), None, None, None
 
 
 class _GatherRows(torch.autograd.Function):
@@ -297,7 +296,7 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, y, r: int, n: int, group):
         ctx.r, ctx.t_l = r, y.shape[0]
-        return _all_gather(y, n, group)
+        return all_gather(y, 0, group)
 
     @staticmethod
     def backward(ctx, g):
@@ -317,9 +316,8 @@ class _SumGrad(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = g.contiguous().clone()
-        if ctx.group is not None:
-            dist.all_reduce(g, group=ctx.group)
+        g = g.contiguous().clone() if ctx.group is None \
+            else all_reduce(g, ctx.group)
         if ctx.scale != 1.0:
             g = g * ctx.scale
         return g, None, None
@@ -338,22 +336,6 @@ class _AuxOf(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g / ctx.n, None, None
-
-
-def _all_gather(x: torch.Tensor, n: int, group) -> torch.Tensor:
-    parts = [torch.empty_like(x) for _ in range(n)]
-    dist.all_gather(parts, x.contiguous(), group=group)
-    return torch.cat(parts)
-
-
-def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
-    """``all_to_all_single`` over ``group`` with autograd (its backward is
-    the reverse exchange)."""
-    from torch.distributed.nn.functional import all_to_all_single
-    with warnings.catch_warnings():     # deprecated in favour of a private
-        warnings.simplefilter("ignore", FutureWarning)   # module
-        return all_to_all_single(torch.empty_like(x), x.contiguous(),
-                                 group=group)
 
 
 def _moe_a2a(p: Mapping[str, torch.Tensor], x2d: torch.Tensor,
@@ -393,24 +375,23 @@ def _moe_a2a(p: Mapping[str, torch.Tensor], x2d: torch.Tensor,
                        m * e_local * capacity).reshape(-1)
     buf = x_loc.new_zeros((m * e_local * capacity + 1, d))
     buf[slot] = x_loc.repeat_interleave(k, dim=0)             # token-major
-    recv = _all_to_all(buf[:-1], mgroup)
+    recv = all_to_all(buf[:-1], mgroup)
     # recv: (m, e_local·capacity, d), every model rank's tokens for ours
     xs = recv.reshape(m, e_local, capacity, d).transpose(0, 1) \
         .reshape(e_local, m * capacity, d)
     wi, wg, wo = (_SumGrad.apply(w, sum_group, 1.0 / m)
                   for w in p.banks(sum_grad=local_rows))
     ys = _expert_ffn(wi, wg, wo, xs, cfg.act)
-    back = _all_to_all(ys.reshape(e_local, m, capacity, d).transpose(0, 1)
+    back = all_to_all(ys.reshape(e_local, m, capacity, d).transpose(0, 1)
                        .reshape(m * e_local * capacity, d), mgroup)
     flat = torch.cat([back, back.new_zeros((1, d))])
     gathered = flat[slot].reshape(t_l, k, d)
     y = torch.sum(gathered * top_p[..., None].to(gathered.dtype), dim=1)
     # the value: data shard 0's aux averaged over the model axis; the
     # gradient: that of the data shards' mean (see the module docstring)
-    val = aux.detach().clone()
-    dist.all_reduce(val, group=mgroup)
+    val = all_reduce(aux, mgroup)
     val = val / m if r == 0 else torch.zeros_like(val)
-    dist.all_reduce(val, group=dgroup)
+    val = all_reduce(val, dgroup)
     aux = _AuxOf.apply(aux, val, n)
     return (y if local_rows else _GatherRows.apply(y, r, n, dgroup)), aux
 

@@ -108,13 +108,34 @@ def test_flash_folded_and_split_layouts_agree(causal, window):
     assert torch.equal(model, split.permute(0, 3, 1, 2, 4))
 
 
+class _Elsewhere(torch.Tensor):
+    """A tensor's metadata on a device the kernels have no route for."""
+
+    @staticmethod
+    def __new__(cls, shape):
+        return torch.Tensor._make_wrapper_subclass(
+            cls, shape, dtype=torch.float32, device=torch.device("xpu"))
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise NotImplementedError(func)
+
+
 def test_flash_attention_refuses_bad_operands():
     q = torch.zeros(1, 8, 1, 1, 16)
     k = torch.zeros(1, 8, 1, 16)
     with pytest.raises(ValueError):
         ops.flash_attention(q, k[:, :4], k[:, :4])
-    with pytest.raises(ValueError):        # no route off the CPU and card
-        ops.flash_attention(q.to("meta"), k.to("meta"), k.to("meta"))
+    with pytest.raises(ValueError):        # meta runs the kernel's checks
+        ops.flash_attention(q.to("meta"), k[:, :4].to("meta"),
+                            k[:, :4].to("meta"))
+    out = ops.flash_attention(q.to("meta"), k.to("meta"), k.to("meta"))
+    assert out.device.type == "meta" and out.shape == q.shape
+    with pytest.raises(ValueError):        # no route off the CPU, card, meta
+        fa.flash_attention_folded(_Elsewhere((1, 1, 1, 8, 16)),
+                                  _Elsewhere((1, 1, 8, 16)),
+                                  _Elsewhere((1, 1, 8, 16)), causal=True,
+                                  window=0)
 
 
 def test_operand_check_takes_the_model_layout_views():

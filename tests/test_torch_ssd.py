@@ -108,8 +108,23 @@ def test_ssd_intra_refuses_bad_operands():
         ssd_scan.ssd_intra_folded(fold[0], fold[1][:, :8], *fold[2:])
     with pytest.raises(ValueError, match="Bc and Cc"):
         ssd_scan.ssd_intra_folded(*fold[:3], fold[3][..., :2])
-    with pytest.raises(ValueError):        # no route off the CPU and card
-        ssd_scan.ssd_intra_folded(*(a.to("meta") for a in fold))
+    out = ssd_scan.ssd_intra_folded(*(a.to("meta") for a in fold))
+    assert out.device.type == "meta" and out.shape == fold[0].shape
+    with pytest.raises(ValueError):        # no route off the CPU, card, meta
+        ssd_scan.ssd_intra_folded(*(_Elsewhere(a.shape) for a in fold))
+
+
+class _Elsewhere(torch.Tensor):
+    """A tensor's metadata on a device the kernel has no route for."""
+
+    @staticmethod
+    def __new__(cls, shape):
+        return torch.Tensor._make_wrapper_subclass(
+            cls, shape, dtype=torch.float32, device=torch.device("xpu"))
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise NotImplementedError(func)
 
 
 def test_alignment_check_refuses_what_the_kernel_cannot_load():
