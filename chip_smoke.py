@@ -9,7 +9,9 @@ result line):
 
   1. build   — compile every CUDA kernel of ``_build.SOURCES`` (every
                ``src/repro_torch/kernels/csrc/*.cu``) with nvcc, one process
-               per source, all started together;
+               per source, all started together; B3's wgmma kernel at head_dim
+               64, 112 and 128: ptxas's registers and spills (none allowed)
+               and its dynamic shared memory;
   2. check   — each kernel against its plain PyTorch version on CUDA
                tensors, for seeded random swarms. B1 (zero-load replay):
                resnet101 on the paper fleet (both fidelity modes), the
@@ -107,7 +109,10 @@ result line):
                log-sum-exp output (``return_lse``) against the plain
                version's ``torch.logsumexp`` to 2e-5 at a rank's slice of
                the batch-1 caches (qwen3's 1,040 of 2,080 slots with valid
-               1, 1000 and 1040, zamba2's, half of gemma3's ring);
+               1, 1000 and 1040, zamba2's, half of gemma3's ring); the edges
+               of B3's 128-row tiles: seq 1 and 17, 256 (whole tiles), 129
+               (hd 64 bidirectional, hd 112 causal), a window of 7 and G 3
+               and 4 at hd 128;
  12. serve   — the LM main path: ``repro_torch.launch.serve.Server`` with
                qwen3-0.6b at full width and depth (28 layers, bfloat16,
                seeded weights on the card), batch 8, prompt 2048, 32 new
@@ -143,7 +148,9 @@ result line):
                serving shapes (CUDA events over calls queued behind a device
                sleep, five rounds in turns with one
                ``scaled_dot_product_attention`` call as the yardstick,
-               medians), beside their plain versions and bounds; also B3 at
+               medians), beside their plain versions and bounds (B3 also at
+               the tensor-core FLOPs its wgmma route issues: whole tiles,
+               P.V for the weights' hi and lo parts); also B3 at
                gemma3-27b's local shape (window 1024, SDPA with a boolean band
                mask) and whisper-medium's encoder (bidirectional, SDPA with
                ``is_causal=False``), and B4 over gemma3's 1024-slot ring;
@@ -283,6 +290,7 @@ import importlib
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -491,6 +499,22 @@ def plain_kernels():
 #: ≤ 4.3e-6 against the reference), the loss to LOSS_RTOL
 GRAD_RTOL = 1e-4
 LOSS_RTOL = 1e-5
+
+
+def wgmma_ptxas(log):
+    """(head_dim, ptxas's spill and register lines) for each instance of B3's
+    wgmma kernel in an nvcc ``-Xptxas=-v`` log (none for a cached build)."""
+    lines = (log or "").splitlines()
+    out = []
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry.*flash_bf16_wgmma_kernelILi(\d+)E",
+                      line)
+        if m:
+            body = [x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
+                    if "spill" in x or "Used" in x]
+            if body:
+                out.append((int(m.group(1)), "; ".join(body)))
+    return out
 
 
 def free_card():
@@ -1501,6 +1525,31 @@ def main() -> int:
               f"{time.perf_counter() - t0:.2f} s")
         for name in names:
             importlib.import_module(f"repro_torch.kernels.{name}")._lib()
+        # B3's wgmma route: registers (the consumers get 240 at run time by
+        # setmaxnreg), spills, shared memory
+        from repro_torch.kernels import flash_attention as fa
+        lib = fa._lib()
+        log = _build.build_log("flash_attention")
+        found = wgmma_ptxas(log)
+        if log is None:
+            print("[build] B3 wgmma: library cached, ptxas not rerun")
+        else:
+            assert {hd for hd, _ in found} == set(fa.WGMMA_HEAD_DIMS), \
+                f"ptxas lines for B3 wgmma at {[hd for hd, _ in found]}"
+        for hd, line in found:
+            print(f"[build] B3 wgmma hd {hd}: {line}; "
+                  f"{lib.flash_attention_wgmma_smem(hd)} bytes of dynamic "
+                  f"shared memory", flush=True)
+            assert " 0 bytes spill stores" in line, f"B3 wgmma hd {hd} spills"
+        # the host's bf16 route and tiles (the CPU emulation's) are the
+        # library's
+        for hd in fa.HEAD_DIMS:
+            for r in ("mma", "wgmma"):
+                want = (fa.tile_geometry(hd, torch.bfloat16)
+                        if fa.route(hd, torch.bfloat16) == r else None)
+                got = fa.library_tiles(hd, r)
+                assert got == want, f"B3 {r} hd {hd}: library {got}, host {want}"
+        print("[build] B3 host routes and tiles match the library")
     _phase("build", build, failures)
 
     # 2. check ------------------------------------------------------------
@@ -2591,7 +2640,16 @@ def main() -> int:
             ((SERVE_BATCH, CROSS_FRAMES // 8, wkv, 1, 64), 0,
              "whisper decoder serve")]] + [
             ((SERVE_BATCH, CROSS_FRAMES, wkv, 1, 64), False, 0,
-             "whisper encoder serve (bidirectional)")]
+             "whisper encoder serve (bidirectional)")] + [
+            # the edges of the wgmma route's 128-row q and kv tiles
+            ((1, 1, 2, 2, 128), True, 0, "one token"),
+            ((2, 17, 2, 2, 64), True, 0, "seq inside a q tile"),
+            ((1, 256, 2, 2, 128), True, 0, "seq of whole tiles"),
+            ((1, 300, 2, 2, 128), True, 7, "window inside a kv tile"),
+            ((1, 300, 2, 3, 128), True, 0, "G 3"),
+            ((1, 300, 1, 4, 128), True, 0, "G 4"),
+            ((2, 129, 2, 1, 64), False, 0, "a row past a tile"),
+            ((1, 129, 2, 2, 112), True, 0, "hd 112 a row past a tile")]
         decode_cases = [
             ((SERVE_BATCH, serve_cache, KV, G, HD), v, f"qwen3 valid {v}")
             for v in (1, 7, 1000, SERVE_PROMPT, serve_cache)] + [
@@ -2994,16 +3052,21 @@ def main() -> int:
             lambda: flash_plain(q, k, v, causal, window), 20, 3)
         lib_err = float((sdpa().transpose(1, 2).reshape(q.shape).float()
                          - kernel().float()).abs().max())
-        work = fa.cost(q.permute(0, 2, 3, 1, 4), k.permute(0, 2, 1, 3),
-                       v.permute(0, 2, 1, 3), causal=causal, window=window)
+        folded = (q.permute(0, 2, 3, 1, 4), k.permute(0, 2, 1, 3),
+                  v.permute(0, 2, 1, 3))
+        work = fa.cost(*folded, causal=causal, window=window)
         flops, nbytes = work["flops"], work["bytes"]
+        # what the wgmma route issues: whole tiles, P.V for hi and lo
+        issued = fa.issued_flops(*folded, causal=causal, window=window)
         t_ops, t_bytes = flops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
         rec_ = dict(ms=ms, plain_ms=plain, library_ms=lib,
                     bound_ms=1e3 * max(t_ops, t_bytes),
                     bound_by="operations" if t_ops >= t_bytes else "bytes")
         print(f"[time-attn] B3 {tag} bf16 q {tuple(q.shape)} causal "
               f"{causal} window {window}: kernel "
-              f"{ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), plain "
+              f"{ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s of the band, "
+              f"{issued / ms / 1e9:.2f} TFLOP/s issued: {issued:.4g} "
+              f"tensor-core FLOPs), plain "
               f"{plain:.3f} ms, sdpa {lib:.4f} ms ({flops / lib / 1e9:.2f} "
               f"TFLOP/s; max |diff| {lib_err:.3g}), bound "
               f"{rec_['bound_ms']:.4f} ms ({rec_['bound_by']}: {flops:.4g} "

@@ -1,4 +1,5 @@
-// Causal / sliding-window GQA flash prefill attention for Hopper (sm_90a).
+// Causal / sliding-window / bidirectional GQA flash prefill attention for
+// Hopper (sm_90a).
 //
 // Port of the Pallas TPU kernel repro/kernels/flash_attention.py:40
 // (_flash_kernel, called through flash_attention_folded). It computes, for
@@ -15,44 +16,67 @@
 // G = 2, S = 2048, hd = 128) the causal band is 1.375e11 FLOPs against
 // ~0.2 GB of q/k/v/o, far above the card's ridge point, so it is bound by
 // operations: 0.139 ms at the 989 TFLOP/s bf16 tensor-core peak. There are
-// two routes, by dtype, behind one entry point:
+// three routes behind one entry point, chosen by the wrapper
+// (flash_attention.py::route) from the dtype and head_dim:
 //
-// bfloat16 (the served models): flash_bf16_mma_kernel, on the tensor cores.
-//   * one block owns a (128-row q tile, kv-head row, group head): 4 warps of
-//     32 query rows (two m16 tiles, so each K and V fragment read from
-//     shared memory feeds two products), two blocks per SM; at hd 256, 8
-//     warps of 16 rows (registers). The TPU's sequential kv-tile grid axis
-//     becomes a loop over only the kv tiles that meet the tile's causal /
-//     window band; a warp skips a tile that lies wholly outside its own
-//     rows' band. kv tiles are 64 rows, 32 at hd 128 and 256, so that the
-//     fp32 accumulators of O and S fit the 255 registers without spilling;
-//   * q, k and v stay bf16 and are copied in place from the model's
-//     (B, S, K, G, hd) / (B, S, K, hd) layout, through element strides, into
-//     shared memory with 16-byte cp.async copies; rows past seq are
-//     zero-filled. K and V tiles go through a ring of 2 stages (64-row
-//     tiles) or 3 (32-row tiles): the next tiles are requested before tile
-//     j's products run. Rows are padded by 8 bf16 so ldmatrix is free of
-//     bank conflicts;
-//   * both products are mma.sync m16n8k16 bf16 x bf16 -> fp32. Q's A
-//     fragments come from shared memory by ldmatrix (held in registers for
-//     the whole q tile where they fit: hd <= 128 at 16 rows per warp), K's B
-//     fragments by ldmatrix and V's by ldmatrix.trans;
-//   * the online softmax runs in registers: a row's max reduces over the 4
-//     lanes that share it in the accumulator fragment, and O is rescaled
-//     only when some row of the warp raised its max. The weights go to P.V
-//     straight from the score registers (the m16n8k16 C layout is its A
-//     layout) as two bf16 parts, hi = bf16(p) and lo = bf16(p - hi), each
-//     multiplied by V: P.V keeps the fp32 weights of the reference to
-//     2^-18, where one bf16 rounding (2^-9) put the served 2-layer model's
-//     logits past the bf16 tolerance (PERF.md). The lo part doubles the
-//     P.V products. l sums the fp32 weights.
-//     The scale is applied to the fp32 scores, folded with log2(e) into
-//     exp2f, so a masked score (NEG_INF) still underflows to exactly 0 once
-//     a row has a live key, and a wholly masked first tile (p = exp2(0) = 1)
-//     is wiped by corr = 0 at the next, as in the reference. Masks are
-//     evaluated only on tiles that cross the diagonal, the window's edge or
-//     the ragged tail.
-//   wgmma and TMA are the next step (ROADMAP).
+// bfloat16 at head_dim 64, 112 and 128 (every served prefill):
+//   flash_bf16_wgmma_kernel, on the tensor cores through wgmma.
+//   * what bounds it: operations. The tensor cores issue 1.5x the band's
+//     products (P.V runs twice, once for each bf16 part of the weights,
+//     below) over whole 128 x 128 tiles, so the floor is 1.5x the band's
+//     FLOPs at the peak; the softmax's exp2f, max and conversions run on
+//     the other pipes and must hide behind the products. The design keeps
+//     the tensor cores fed: the only instruction that reaches the peak
+//     (wgmma), loads that cost the consumers no instructions (TMA), and
+//     two consumer warpgroups that take turns at the tensor cores, each
+//     running a tile's softmax while the products of its last tile and of
+//     the other warpgroup run.
+//   * one block of 384 threads owns a (128-row q tile, kv-head row, group
+//     head): warpgroup 0 is the producer, warpgroups 1 and 2 the consumers,
+//     each owning 64 query rows. setmaxnreg moves registers from the
+//     producer (24 a thread) to the consumers (240).
+//   * the producer's one thread loads q once and then every 128-row K and
+//     V tile of the block's band by TMA (cp.async.bulk.tensor) straight
+//     from the model's (B, S, K, G, hd) / (B, S, K, hd) layout: the host
+//     builds one 5-D (q) or 4-D (k, v) tensor map over the element
+//     strides. A tile lands as 64-column blocks with the 128-byte swizzle
+//     that wgmma reads; rows past seq and columns past head_dim (112 in a
+//     128-column tile) are zero-filled by the TMA unit. K and V go through
+//     a ring of stages (3 at hd 112 and 128, 4 at hd 64) guarded by a full
+//     mbarrier (the TMA's bytes) and an empty one (one arrival per
+//     consumer warp once its products on the stage have completed);
+//   * S = Q.K^T is wgmma m64n128k16 with both operands in shared memory
+//     (K-major descriptors; the k16 steps advance 32 bytes inside a
+//     swizzle atom; at hd 112 the seven steps stop short of the zero
+//     columns). The online softmax runs on the accumulator registers: a
+//     row's max reduces over the 4 lanes that share it, O is rescaled only
+//     when some row of the warp raised its max, and masks are evaluated
+//     only on tiles that cross the diagonal, the window's edge or the
+//     ragged tail;
+//   * O += P.V is wgmma m64n{hd}k16 with A from registers: the weights are
+//     split straight from the S accumulators (the accumulator layout of
+//     wgmma is its register-A layout, row pairs of 8 columns) into two
+//     bf16 parts, hi = bf16(p) and lo = bf16(p - hi), each multiplied by
+//     V: hi + lo is p to 2^-18, where one bf16 rounding (2^-9) put the
+//     served 2-layer model's logits past the bf16 tolerance (PERF.md).
+//     V is the B operand read MN-major through the descriptor's
+//     transpose bit. l sums the fp32 weights;
+//   * a consumer issues tile j's S and tile j - 1's P.V together in its
+//     turn (named barriers hand the turn between the two consumers), then
+//     waits for S only: tile j's softmax overlaps the P.V. O is rescaled
+//     and P rewritten once that P.V has completed. Registers: O (hd / 2),
+//     S (64) and P's two parts (64) a thread, 0 bytes of spill at 240.
+//
+// The scale is applied to the fp32 scores, folded with log2(e) into exp2f,
+// so a masked score (NEG_INF) still underflows to exactly 0 once a row has
+// a live key, and a wholly masked first tile (p = exp2(0) = 1) is wiped by
+// corr = 0 at the next, as in the reference.
+//
+// bfloat16 at head_dim 16 (the reduced test configs) and 256 (gemma-7b):
+//   flash_bf16_mma_kernel, the Ampere-style route: mma.sync m16n8k16,
+//   ldmatrix and cp.async, 128-row q tiles of 4 warps (8 at hd 256), kv
+//   tiles of 64 rows (32 at hd 256) in a ring, the same softmax and the
+//   same hi + lo weights.
 //
 // float32 (the exact model checks): flash_f32_kernel, scalar fp32 FMAs on
 //   the CUDA cores, to stay within 2e-5 of the plain version (TF32 would
@@ -63,12 +87,15 @@
 //   second column exists for tx < 12 only: every use is guarded by
 //   col < HD); row max and sum reduce over 16 lanes with shuffles.
 //
-// Both routes issue q tiles heaviest first (the last causal tile has the
+// Every route issues q tiles heaviest first (the last causal tile has the
 // most kv tiles), so the tail of the grid is short. The C entry point
 // launches on the caller's stream, allocates nothing, and returns
 // cudaGetLastError().
+#include <cuda.h>            // CUtensorMap; the encoder is fetched at run time
+#include <cudaTypedefs.h>    // PFN_cuTensorMapEncodeTiled
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -324,7 +351,8 @@ cudaError_t launch(const FlashArgs& a, int G, int BK, cudaStream_t st) {
 }  // namespace f32
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor cores (mma.sync, ldmatrix, cp.async as inline PTX)
+// bfloat16 at head_dim 16 and 256: tensor cores (mma.sync, ldmatrix,
+// cp.async as inline PTX)
 // ---------------------------------------------------------------------------
 
 namespace tc {
@@ -334,8 +362,8 @@ constexpr int kBQ = 128;                    // query rows per block
 // per head_dim: m16 tiles (16 q rows) per warp (2, so each K and V fragment
 // feeds two products; 1 at hd 256, for registers), warps, kv rows per tile,
 // ring stages, blocks per SM. O and S take MT * (HD + BKV) / 2 fp32
-// registers a thread: kv tiles are 64 rows while that stays within 176
-// (ptxas spills at hd 128 and 64 rows), else 32
+// registers a thread: kv tiles are 64 rows while that stays within 176,
+// else 32 (hd 256)
 template <int HD>
 struct Cfg {
   static constexpr int MT = HD >= 256 ? 1 : 2;
@@ -685,12 +713,604 @@ cudaError_t launch(const FlashArgs& a, int G, int BK, cudaStream_t st) {
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// bfloat16 at head_dim 64, 112, 128: wgmma, TMA and mbarriers, warp
+// specialised (inline PTX)
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+constexpr int kBQ = 128;      // query rows per block: two consumers of 64
+constexpr int kBKV = 128;     // kv rows per tile (the n of S = Q.K^T)
+constexpr int kThreads = 384; // the producer warpgroup and two consumers
+constexpr int kConsumerWarps = 8;
+
+// per head_dim: 64-column blocks of a tile (the 128-byte swizzle atom is 64
+// bf16 wide; hd 112 takes two, the second zero-filled past column 112), k16
+// steps of Q.K^T, ring stages, and shared-memory bytes of q, of one K (or V)
+// stage, and in all (the 1024-byte alignment the swizzle needs, the tiles,
+// then the q barrier and each stage's full and empty barriers)
 template <int HD>
-cudaError_t launch_hd(const FlashArgs& a, int dtype, int G, int BK,
+struct Cfg {
+  static constexpr int NB = (HD + 63) / 64;
+  static constexpr int KS = HD / 16;
+  static constexpr int STAGES = HD <= 64 ? 4 : 3;
+  static constexpr int Q_BYTES = NB * kBQ * 128;
+  static constexpr int KV_BYTES = NB * kBKV * 128;
+  static constexpr int SMEM =
+      1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * (1 + 2 * STAGES);
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+// one arrival that also expects `bytes` of TMA transactions
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// until the barrier's phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
+}
+
+// a box of the tensor map at the given element coordinates (innermost
+// first) into shared memory at `dst`, completing on `bar`
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* m,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(m)), "r"(bar), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* m,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(m)), "r"(bar), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand at `addr`:
+// `lbo` and `sbo` are the leading and stride byte offsets. K-major (q and
+// K): lbo unused, sbo = 1024 between 8-row groups. MN-major (V): lbo = the
+// 64-column blocks' stride, sbo = 1024 between groups of 8 k rows
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// until at most N of this warpgroup's committed wgmma groups are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// named barrier `id` over `n` threads: wait for it, or arrive without
+// waiting
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+// registers an asynchronous wgmma reads or writes: kept in place (and
+// alive) until its wait_group has passed
+template <int R>
+__device__ __forceinline__ void hold(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+template <int R>
+__device__ __forceinline__ void hold(unsigned (&d)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(d[i][e]) :: "memory");
+}
+
+// the accumulator operands of a wgmma: d[i .. i + 7], d[i .. i + 31]
+#define WG_ACC8(i)                                                   \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),        \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_ACC32(i) \
+  WG_ACC8(i), WG_ACC8(i + 8), WG_ACC8(i + 16), WG_ACC8(i + 24)
+
+// d (m64 x n128, fp32) = [d +] A . B^T, A and B bf16 K-major in shared
+// memory; `accumulate` 0 overwrites d
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WG_ACC32(0), WG_ACC32(32)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (m64 x nN, fp32) += A . B for N = 64, 112 and 128 (the head_dims), A
+// bf16 from registers, B bf16 MN-major in shared memory (the transpose bit)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const unsigned (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_ACC32(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[56],
+                                         const unsigned (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55"
+      "}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+      : WG_ACC32(0), WG_ACC8(32), WG_ACC8(40), WG_ACC8(48)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const unsigned (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : WG_ACC32(0), WG_ACC32(32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef WG_ACC32
+#undef WG_ACC8
+
+// shared-memory layout of a block: q, then the ring's K and V stages (all
+// 1024-aligned: the swizzle is a function of the address), then the q
+// barrier and each stage's full and empty barriers
+template <int HD>
+struct Smem {
+  uint32_t q, k, v, qbar;
+  __device__ explicit Smem(uint32_t base)
+      : q(base), k(base + Cfg<HD>::Q_BYTES),
+        v(k + Cfg<HD>::STAGES * Cfg<HD>::KV_BYTES),
+        qbar(v + Cfg<HD>::STAGES * Cfg<HD>::KV_BYTES) {}
+  __device__ uint32_t full(int s) const { return qbar + 8u * (1 + s); }
+  __device__ uint32_t empty(int s) const {
+    return qbar + 8u * (1 + Cfg<HD>::STAGES + s);
+  }
+};
+
+// the producer's one thread: q, then K and V tile j of the band into stage
+// (j - j0) % STAGES once every consumer warp has freed it
+template <int HD>
+__device__ __forceinline__ void produce(const CUtensorMap* tq,
+                                        const CUtensorMap* tk,
+                                        const CUtensorMap* tv,
+                                        const Smem<HD>& sm, int q0, int g,
+                                        int kh, int b, int j0, int j1) {
+  using C = Cfg<HD>;
+  mbar_expect_tx(sm.qbar, C::Q_BYTES);
+  for (int c = 0; c < C::NB; ++c)
+    tma_load_5d(sm.q + c * kBQ * 128, tq, sm.qbar, 64 * c, q0, g, kh, b);
+  for (int j = j0; j < j1; ++j) {
+    const int it = j - j0, s = it % C::STAGES;
+    if (it >= C::STAGES) mbar_wait(sm.empty(s), (it / C::STAGES - 1) & 1);
+    mbar_expect_tx(sm.full(s), 2 * C::KV_BYTES);
+    for (int c = 0; c < C::NB; ++c) {
+      const uint32_t off = s * C::KV_BYTES + c * kBKV * 128;
+      tma_load_4d(sm.k + off, tk, sm.full(s), 64 * c, j * kBKV, kh, b);
+      tma_load_4d(sm.v + off, tv, sm.full(s), 64 * c, j * kBKV, kh, b);
+    }
+  }
+}
+
+// S = Q . K^T for one kv tile into `sc` (fp32), issued and committed as one
+// wgmma group: KS k16 steps, each advancing 32 bytes inside the swizzle
+// atom of q and of K
+template <int HD>
+__device__ __forceinline__ void issue_s(float (&sc)[kBKV / 2], uint32_t qa,
+                                        uint32_t ks) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < Cfg<HD>::KS; ++kk) {
+    const uint32_t col = (kk % 4) * 32;
+    wgmma_ss(sc, desc(qa + (kk / 4) * kBQ * 128 + col, 16, 1024),
+             desc(ks + (kk / 4) * kBKV * 128 + col, 16, 1024), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// O += P . V for one kv tile, as one wgmma group: V's k16 step kk is its
+// rows 16 kk .. 16 kk + 15, multiplied by the hi and then the lo part of P
+template <int R>
+__device__ __forceinline__ void issue_pv(float (&o)[R],
+                                         const unsigned (&ph)[kBKV / 16][4],
+                                         const unsigned (&pl)[kBKV / 16][4],
+                                         uint32_t vs) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kBKV / 16; ++kk) {
+    const uint64_t dv = desc(vs + kk * 16 * 128, kBKV * 128, 1024);
+    wgmma_rs(o, ph[kk], dv);
+    wgmma_rs(o, pl[kk], dv);
+  }
+  wgmma_commit();
+}
+
+// a consumer warpgroup: q rows wq0 .. wq0 + 63 of the block's tile; thread
+// t holds rows r0 and r0 + 8 of them (accumulator index 4 n + 2 h + e: row
+// r0 + 8 h, column 8 n + c0 + e).
+//
+// The two consumers take turns at the tensor cores (named barriers 1 and 2,
+// warpgroup 0 first): in its turn a warpgroup issues tile j's scores and
+// tile j - 1's P.V, then hands the turn over and runs tile j's softmax
+// while the tensor cores multiply, first its own P.V, then the other
+// warpgroup's products. Both consumers visit every tile of the block's
+// band, so their turns pair up; a tile wholly outside a warpgroup's rows'
+// band is all NEG_INF, and its weights are wiped by corr = 0 at the row's
+// first live tile.
+template <int HD>
+__device__ __forceinline__ void consume(const FlashArgs& a,
+                                        const Smem<HD>& sm, int cw, int t,
+                                        int q0, int g, int kh, int b, int j0,
+                                        int j1) {
+  using bf16 = __nv_bfloat16;
+  using C = Cfg<HD>;
+  constexpr int STAGES = C::STAGES;
+  constexpr int NS = kBKV / 8;          // 8-column n tiles of S
+  constexpr int NO = HD / 8;            // 8-column n tiles of O
+  constexpr int PK = kBKV / 16;         // k16 steps of P.V
+  const int lane = t % 32;
+  const int wq0 = q0 + 64 * cw;
+  const int r0 = 16 * (t / 32) + (lane >> 2), c0 = 2 * (lane & 3);
+  const int S = a.S;
+  const float sl2 = a.scale * 1.4426950408889634f;   // scale * log2(e)
+  const uint32_t qa = sm.q + cw * 64 * 128;
+  auto stage = [&](int j) { return (j - j0) % STAGES; };
+  auto arrived = [&](int j) {           // tile j is in its stage
+    mbar_wait(sm.full(stage(j)), ((j - j0) / STAGES) & 1);
+  };
+  auto release = [&](int j) {           // this warp is done with tile j
+    if (lane == 0) mbar_arrive(sm.empty(stage(j)));
+  };
+  // this warpgroup's turn at the tensor cores, and the hand-over (the last
+  // of warpgroup 1 has no turn to pair with)
+  auto my_turn = [&]() { bar_sync(1 + cw, 256); };
+  auto hand_over = [&](bool last) {
+    if (!(last && cw == 1)) bar_arrive(2 - cw, 256);
+  };
+
+  float o[HD / 2], sc[kBKV / 2];
+  unsigned ph[PK][4], pl[PK][4];
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kBKV / 2; ++i) sc[i] = 0.f;
+
+  // tile j's scores (complete in sc) -> its weights in ph, pl, with O
+  // rescaled by the change of each row's max; first, where `wait_pv`,
+  // tile j - 1's P.V must complete (O, ph and pl are its operands). Masks
+  // only where the tile crosses the diagonal, the window's edge or the
+  // ragged tail; a row's max reduces over the 4 lanes that hold it; O is
+  // rescaled only when some row of the warp raised its max (corr is exactly
+  // 1 otherwise)
+  auto softmax = [&](int j, bool wait_pv) {
+    const int k0 = j * kBKV;
+    if (k0 + kBKV > S || (a.causal && k0 + kBKV - 1 > wq0) ||
+        (a.window && k0 <= wq0 + 63 - a.window)) {
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = k0 + 8 * n + c0 + (e & 1);
+          const int qpos = wq0 + r0 + 8 * (e >> 1);
+          bool ok = kpos < S;
+          if (a.causal) ok = ok && kpos <= qpos;
+          if (a.window) ok = ok && kpos > qpos - a.window;
+          if (!ok) sc[4 * n + e] = kNegInf;
+        }
+    }
+    float corr[2];
+    bool moved = false;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+        mx = fmaxf(mx, fmaxf(sc[4 * n + 2 * h], sc[4 * n + 2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[h], mx);
+      corr[h] = exp2f((m[h] - m_new) * sl2);
+      moved = moved || m_new != m[h];
+      const float mb = m_new * sl2;
+      m[h] = m_new;
+      l[h] *= corr[h];
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        sc[4 * n + 2 * h] = exp2f(fmaf(sc[4 * n + 2 * h], sl2, -mb));
+        sc[4 * n + 2 * h + 1] = exp2f(fmaf(sc[4 * n + 2 * h + 1], sl2, -mb));
+        l[h] += sc[4 * n + 2 * h] + sc[4 * n + 2 * h + 1];
+      }
+    }
+    if (wait_pv) {
+      wgmma_wait<0>();
+      hold(o);
+      hold(ph);
+      hold(pl);
+      release(j - 1);
+    }
+    if (__any_sync(0xffffffffu, moved)) {
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        o[4 * n] *= corr[0];
+        o[4 * n + 1] *= corr[0];
+        o[4 * n + 2] *= corr[1];
+        o[4 * n + 3] *= corr[1];
+      }
+    }
+    // the weights as bf16 hi and lo parts in wgmma's register-A order: k16
+    // step kk holds S's n tiles 2 kk (regs 0, 1) and 2 kk + 1 (regs 2, 3)
+#pragma unroll
+    for (int kk = 0; kk < PK; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        tc::split_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1], ph[kk][e],
+                       pl[kk][e]);
+  };
+
+  if (cw == 1) bar_arrive(1, 256);     // warpgroup 0 takes the first turn
+  mbar_wait(sm.qbar, 0);
+  arrived(j0);
+  my_turn();
+  issue_s<HD>(sc, qa, sm.k + stage(j0) * C::KV_BYTES);
+  hand_over(false);
+  wgmma_wait<0>();
+  hold(sc);
+  softmax(j0, false);
+  for (int j = j0 + 1; j < j1; ++j) {
+    arrived(j);
+    my_turn();
+    issue_s<HD>(sc, qa, sm.k + stage(j) * C::KV_BYTES);
+    issue_pv(o, ph, pl, sm.v + stage(j - 1) * C::KV_BYTES);
+    hand_over(false);
+    wgmma_wait<1>();                    // S of tile j (P.V of j - 1 runs on)
+    hold(sc);
+    softmax(j, true);
+  }
+  my_turn();
+  issue_pv(o, ph, pl, sm.v + stage(j1 - 1) * C::KV_BYTES);
+  hand_over(true);
+  wgmma_wait<0>();
+  hold(o);
+  hold(ph);
+  hold(pl);
+  release(j1 - 1);
+
+  // epilogue: the row sums over the 4 lanes of a row, divide, round, store
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float lr = l[h];
+    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    const int qpos = wq0 + r0 + 8 * h;
+    if (qpos >= S) continue;
+    const float inv = 1.f / fmaxf(lr, 1e-30f);
+    bf16* orow = static_cast<bf16*>(a.o) + b * a.o_sb + kh * a.o_sk +
+                 g * a.o_sg + (long long)qpos * a.o_ss + c0;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) =
+          __floats2bfloat162_rn(o[4 * n + 2 * h] * inv,
+                                o[4 * n + 2 * h + 1] * inv);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const FlashArgs a) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const Smem<HD> sm((smem_addr(smem_raw) + 1023u) & ~1023u);
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
+  const int g = blockIdx.y;
+  const int b = blockIdx.z / a.K, kh = blockIdx.z % a.K;
+  const int q0 = qt * kBQ;
+  const int tid = threadIdx.x;
+  int j0, j1;
+  kv_range(a, q0, kBQ, kBKV, j0, j1);
+
+  if (tid == 0) {
+    mbar_init(sm.qbar, 1);
+    for (int s = 0; s < Cfg<HD>::STAGES; ++s) {
+      mbar_init(sm.full(s), 1);
+      mbar_init(sm.empty(s), kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the two roles never reconverge (setmaxnreg holds for each to its end)
+  if (tid < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid == 0) produce<HD>(&tq, &tk, &tv, sm, q0, g, kh, b, j0, j1);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    consume<HD>(a, sm, tid / 128 - 1, tid % 128, q0, g, kh, b, j0, j1);
+  }
+}
+
+// cuTensorMapEncodeTiled is a driver function: fetched once through the
+// runtime, so that the library links nothing but libcudart
+PFN_cuTensorMapEncodeTiled_v12000 encoder() {
+  static const PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a bf16 tensor map of `rank` dims (innermost first: head_dim, seq, then
+// the head and batch axes) over element strides `st` (of dims 1..rank-1),
+// boxes of 64 columns x 128 rows, 128-byte swizzle, zero fill out of
+// bounds. A dim of extent 1 is never stepped: its stride is set to 16 bytes
+// so the map takes any view
+bool tensor_map(CUtensorMap* map, const void* ptr, int rank,
+                const long long* dims, const long long* st) {
+  cuuint64_t gdim[5], gst[4];
+  cuuint32_t box[5], es[5];
+  for (int i = 0; i < rank; ++i) {
+    gdim[i] = static_cast<cuuint64_t>(dims[i]);
+    box[i] = i == 0 ? 64 : i == 1 ? 128 : 1;
+    es[i] = 1;
+  }
+  for (int i = 1; i < rank; ++i)
+    gst[i - 1] = dims[i] == 1 ? 16 : static_cast<cuuint64_t>(st[i - 1]) * 2;
+  PFN_cuTensorMapEncodeTiled_v12000 encode = encoder();
+  return encode != nullptr &&
+         encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+                const_cast<void*>(ptr), gdim, gst, box, es,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+cudaError_t launch(const FlashArgs& a, int B, int G, cudaStream_t st) {
+  using C = Cfg<HD>;
+  CUtensorMap tq, tk, tv;
+  const long long qd[5] = {HD, a.S, G, a.K, B};
+  const long long qs[4] = {a.q_ss, a.q_sg, a.q_sk, a.q_sb};
+  const long long kd[4] = {HD, a.S, a.K, B};
+  const long long ks[3] = {a.k_ss, a.k_sk, a.k_sb};
+  const long long vs[3] = {a.v_ss, a.v_sk, a.v_sb};
+  if (!tensor_map(&tq, a.q, 5, qd, qs) || !tensor_map(&tk, a.k, 4, kd, ks) ||
+      !tensor_map(&tv, a.v, 4, kd, vs))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bf16_wgmma_kernel<HD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (err != cudaSuccess) return err;
+  const int n_q = (a.S + kBQ - 1) / kBQ;
+  flash_bf16_wgmma_kernel<HD>
+      <<<dim3(n_q, G, B * a.K), kThreads, C::SMEM, st>>>(tq, tk, tv, a);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+
+// routes (flash_attention.py::ROUTES): 0 float32 on the CUDA cores, 1 bf16
+// mma.sync (head_dim 16 and 256), 2 bf16 wgmma (head_dim 64, 112, 128)
+template <int HD>
+constexpr int bf16_route() { return HD == 16 || HD == 256 ? 1 : 2; }
+
+template <int HD>
+cudaError_t launch_hd(const FlashArgs& a, int route, int B, int G,
                       cudaStream_t st) {
-  if (dtype == 0) return f32::launch<HD>(a, G, BK, st);
-  if (dtype == 1) return tc::launch<HD>(a, G, BK, st);
-  return cudaErrorInvalidValue;
+  if (route == 0) return f32::launch<HD>(a, G, B * a.K, st);
+  if (route != bf16_route<HD>()) return cudaErrorInvalidValue;
+  if constexpr (bf16_route<HD>() == 1) return tc::launch<HD>(a, G, B * a.K, st);
+  else return wg::launch<HD>(a, B, G, st);
+}
+
+// the bf16 `route`'s query rows per block and kv rows per tile at HD into
+// `t`; 0 where that route does not run at HD
+template <int HD>
+int tiles_hd(int route, int* t) {
+  if (route != bf16_route<HD>()) return 0;
+  if constexpr (bf16_route<HD>() == 1) {
+    t[0] = tc::kBQ;
+    t[1] = tc::Cfg<HD>::BKV;
+  } else {
+    t[0] = wg::kBQ;
+    t[1] = wg::kBKV;
+  }
+  return 1;
 }
 
 }  // namespace
@@ -701,14 +1321,39 @@ const char* flash_attention_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// the dynamic shared memory the wgmma route launches with at `hd`, in bytes
+// (0 where the route does not run)
+int flash_attention_wgmma_smem(int hd) {
+  switch (hd) {
+    case 64: return wg::Cfg<64>::SMEM;
+    case 112: return wg::Cfg<112>::SMEM;
+    case 128: return wg::Cfg<128>::SMEM;
+    default: return 0;
+  }
+}
+
+// the tiles of bf16 route `route` (1 or 2) at `hd` into `tiles` (query rows
+// per block, kv rows per tile), as flash_attention.py::tile_geometry must
+// give them; returns 0 where that route does not run at `hd`
+int flash_attention_tiles(int hd, int route, int* tiles) {
+  switch (hd) {
+    case 16: return tiles_hd<16>(route, tiles);
+    case 64: return tiles_hd<64>(route, tiles);
+    case 112: return tiles_hd<112>(route, tiles);
+    case 128: return tiles_hd<128>(route, tiles);
+    case 256: return tiles_hd<256>(route, tiles);
+    default: return 0;
+  }
+}
+
 // q, o: (B, K, G, S, hd) and k, v: (B, K, S, hd) addressed through the 14
 // element strides in `st` (q b,k,g,s; k b,k,s; v b,k,s; o b,k,g,s); head_dim
-// contiguous. dtype 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).
-// Launches on `stream` and returns cudaGetLastError().
+// contiguous. `route` as launch_hd's; float32 tensors for route 0, bfloat16
+// for 1 and 2. Launches on `stream` and returns cudaGetLastError().
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, const long long* st, int B, int K, int G,
                            int S, int hd, int causal, int window, float scale,
-                           int dtype, void* stream) {
+                           int route, void* stream) {
   FlashArgs a;
   a.q = q; a.k = k; a.v = v; a.o = o;
   a.q_sb = st[0]; a.q_sk = st[1]; a.q_sg = st[2]; a.q_ss = st[3];
@@ -719,11 +1364,11 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (hd) {
-    case 16: err = launch_hd<16>(a, dtype, G, B * K, s); break;
-    case 64: err = launch_hd<64>(a, dtype, G, B * K, s); break;
-    case 112: err = launch_hd<112>(a, dtype, G, B * K, s); break;
-    case 128: err = launch_hd<128>(a, dtype, G, B * K, s); break;
-    case 256: err = launch_hd<256>(a, dtype, G, B * K, s); break;
+    case 16: err = launch_hd<16>(a, route, B, G, s); break;
+    case 64: err = launch_hd<64>(a, route, B, G, s); break;
+    case 112: err = launch_hd<112>(a, route, B, G, s); break;
+    case 128: err = launch_hd<128>(a, route, B, G, s); break;
+    case 256: err = launch_hd<256>(a, route, B, G, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

@@ -4,11 +4,16 @@ CUDA kernel's wrapper and its plain PyTorch version.
 The hand-written Hopper kernel (``csrc/flash_attention.cu``) is the port
 of the Pallas kernel ``repro/kernels/flash_attention.py::_flash_kernel``:
 an online softmax with fp32 running max, sum and accumulator over the kv
-tiles that meet each query tile's causal / window band. It has two routes
-behind one entry point, by dtype: bfloat16 (the served models) on the
-tensor cores (``mma.sync`` with fp32 accumulators, the weights entering
-P·V as two bf16 parts so they keep fp32 precision), checked at 2e-2;
-float32 on the CUDA cores (scalar fp32 FMAs, no TF32), checked at 2e-5.
+tiles that meet each query tile's causal / window band. It has three
+routes behind one entry point, which ``route`` picks from the dtype and
+head_dim: bfloat16 at head_dim 64, 112 and 128 (every served prefill) on
+the tensor cores through ``wgmma``, with TMA loads and warp-specialised
+warpgroups; bfloat16 at head_dim 16 and 256 through ``mma.sync``; both
+with fp32 accumulators and the weights entering P·V as two bf16 parts so
+they keep fp32 precision, checked at 2e-2; float32 on the CUDA cores
+(scalar fp32 FMAs, no TF32), checked at 2e-5. ``tile_geometry`` gives
+each bf16 route's query and kv tile; ``library_tiles`` reads them from the
+built library, and ``chip_smoke.py``'s build phase holds the two equal.
 ``flash_attention_plain`` is the same function in plain PyTorch, with the
 masks and fp32 math of ``repro/kernels/ref.py::flash_attention_ref``; the
 CPU path and the checks on the card use it.
@@ -34,14 +39,16 @@ the models' differentiable route instead.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from ._trace import kernel_call
 
 __all__ = ["flash_attention_folded", "flash_attention_plain", "NEG_INF",
-           "HEAD_DIMS", "refuse_grad", "band_pairs", "cost"]
+           "HEAD_DIMS", "ROUTES", "route", "tile_geometry", "library_tiles",
+           "refuse_grad",
+           "band_pairs", "cost", "issued_flops"]
 
 #: the reference's large-but-finite mask value
 NEG_INF = -2.0 ** 30
@@ -51,6 +58,48 @@ NEG_INF = -2.0 ** 30
 HEAD_DIMS = (16, 64, 112, 128, 256)
 #: the dtypes the kernels take, with the code their C entry points use
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: B3's routes, with the code its C entry point takes: float32 on the CUDA
+#: cores, bfloat16 through ``mma.sync`` (head_dim 16 and 256) or through
+#: ``wgmma`` with TMA loads (head_dim 64, 112 and 128)
+ROUTES = {"f32": 0, "mma": 1, "wgmma": 2}
+#: the head_dims of the ``wgmma`` route
+WGMMA_HEAD_DIMS = (64, 112, 128)
+
+
+def route(hd: int, dtype: torch.dtype) -> str:
+    """The kernel route for ``head_dim`` and dtype (a key of ``ROUTES``)."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} is not one the kernel is built for "
+                         f"{HEAD_DIMS}")
+    if dtype == torch.float32:
+        return "f32"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"dtype {dtype}; the kernel takes float32 or "
+                        f"bfloat16")
+    return "wgmma" if hd in WGMMA_HEAD_DIMS else "mma"
+
+
+def tile_geometry(hd: int, dtype: torch.dtype) -> Dict[str, int]:
+    """The bf16 route's query rows per block (``bq``) and kv rows per tile
+    (``bkv``), as the kernel sets them (``library_tiles`` reads them back):
+    the kv tiles are where the online softmax rescales, so the CPU
+    emulation of the bf16 routes and ``issued_flops`` follow them."""
+    r = route(hd, dtype)
+    if r == "wgmma":
+        return {"bq": 128, "bkv": 128}
+    if r == "mma":
+        return {"bq": 128, "bkv": 64 if hd < 256 else 32}
+    raise ValueError("the float32 route has no tensor-core tiles")
+
+
+def library_tiles(hd: int, r: str) -> Optional[Dict[str, int]]:
+    """The tiles the built kernel library runs bf16 route ``r`` (``"mma"``
+    or ``"wgmma"``) with at ``hd``, or None where it does not run that
+    route there: what ``route`` and ``tile_geometry`` must agree with."""
+    t = (ctypes.c_int * 2)()
+    if not _lib().flash_attention_tiles(hd, ROUTES[r], t):
+        return None
+    return {"bq": t[0], "bkv": t[1]}
 
 
 def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
@@ -132,6 +181,27 @@ def cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                           + v4.numel())}
 
 
+def issued_flops(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 causal: bool, window: int) -> int:
+    """The tensor-core FLOPs the ``wgmma`` route issues for one call: every
+    kv tile that meets a 128-row q tile's band, whole (the masks zero what
+    lies outside the band), with the scores over head_dim and P·V twice,
+    for the hi and the lo part of the weights."""
+    q5, k4, v4 = _split(q, k, v)
+    B, K, G, S, hd = q5.shape
+    if route(hd, q.dtype) != "wgmma":
+        raise ValueError(f"head_dim {hd} in {q.dtype} does not take the "
+                         f"wgmma route")
+    t = tile_geometry(hd, q.dtype)
+    bq, bkv = t["bq"], t["bkv"]
+    tiles = 0
+    for q0 in range(0, S, bq):           # the kernel's kv_range
+        hi = min(S, q0 + bq) if causal else S
+        lo = max(0, q0 - window + 1) if window else 0
+        tiles += -(-hi // bkv) - lo // bkv
+    return B * K * G * tiles * bq * bkv * 2 * 3 * hd
+
+
 def flash_attention_folded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            *, causal: bool, window: int) -> torch.Tensor:
     """Prefill attention over the folded (or row-split) layout: the plain
@@ -177,9 +247,7 @@ def _launch(q, k, v, *, causal: bool, window: int):
     q5, k4, v4 = _split(q, k, v)
     _check_shapes(q5, k4, v4)
     B, K, G, S, hd = q5.shape
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} is not one the kernel is built for "
-                         f"{HEAD_DIMS}")
+    code = ROUTES[route(hd, q.dtype)]
     if S < 1 or window < 0:
         raise ValueError(f"need seq >= 1 and window >= 0, got {S}, {window}")
     if B * K > 65535 or G > 65535:
@@ -197,8 +265,7 @@ def _launch(q, k, v, *, causal: bool, window: int):
     flash_attention_folded.launches += 1
     err = lib.flash_attention_launch(
         q5.data_ptr(), k4.data_ptr(), v4.data_ptr(), o.data_ptr(), st, B, K,
-        G, S, hd, int(bool(causal)), int(window), hd ** -0.5,
-        DTYPE_CODES[q.dtype], stream)
+        G, S, hd, int(bool(causal)), int(window), hd ** -0.5, code, stream)
     if err != 0:
         raise RuntimeError("flash_attention kernel launch failed: "
                            f"{lib.flash_attention_error_string(err).decode()}")
@@ -218,6 +285,10 @@ def _lib():
             [vp] * 4 + [ctypes.POINTER(ctypes.c_longlong)] + [ci] * 7
             + [ctypes.c_float, ci, vp])
         lib.flash_attention_launch.restype = ci
+        lib.flash_attention_wgmma_smem.argtypes = [ci]
+        lib.flash_attention_wgmma_smem.restype = ci
+        lib.flash_attention_tiles.argtypes = [ci, ci, ctypes.POINTER(ci)]
+        lib.flash_attention_tiles.restype = ci
         lib.flash_attention_error_string.argtypes = [ci]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         _LIB = lib

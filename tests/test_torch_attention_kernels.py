@@ -153,6 +153,57 @@ def test_operand_check_takes_the_model_layout_views():
         fa.check_operand("q", q.half(), q)
 
 
+def test_flash_route_and_tiles_follow_head_dim_and_dtype():
+    """B3's route, chosen on the host: wgmma for bf16 at the served
+    head_dims, mma.sync at 16 and 256, the CUDA cores in float32; each
+    bf16 route's tiles as the kernel sets them (held to the built library
+    by ``chip_smoke.py`` and ``test_torch_cuda.py``)."""
+    for hd in fa.HEAD_DIMS:
+        assert fa.route(hd, torch.float32) == "f32"
+        assert fa.route(hd, torch.bfloat16) == (
+            "wgmma" if hd in (64, 112, 128) else "mma")
+        with pytest.raises(ValueError, match="float32"):
+            fa.tile_geometry(hd, torch.float32)
+    assert all(fa.tile_geometry(hd, torch.bfloat16) == {"bq": 128, "bkv": 128}
+               for hd in (64, 112, 128))
+    assert fa.tile_geometry(16, torch.bfloat16) == {"bq": 128, "bkv": 64}
+    assert fa.tile_geometry(256, torch.bfloat16) == {"bq": 128, "bkv": 32}
+    assert set(fa.ROUTES) == {"f32", "mma", "wgmma"}
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.route(32, torch.bfloat16)
+    with pytest.raises(TypeError):
+        fa.route(64, torch.float16)
+
+
+def test_flash_issued_flops_count_whole_tiles_and_the_lo_products():
+    """The wgmma route's issued work: 1.5x the band's FLOPs (P.V twice)
+    where the band fills whole 128 x 128 tiles, more where tiles cross the
+    diagonal, the window's edge or the ragged tail."""
+    def args(b, s, kh, g, hd):
+        return (torch.empty((b, kh, g, s, hd), dtype=torch.bfloat16,
+                            device="meta"),
+                torch.empty((b, kh, s, hd), dtype=torch.bfloat16,
+                            device="meta"),
+                torch.empty((b, kh, s, hd), dtype=torch.bfloat16,
+                            device="meta"))
+    full = args(2, 256, 2, 2, 128)
+    band = fa.cost(*full, causal=False, window=0)["flops"]
+    assert fa.issued_flops(*full, causal=False, window=0) == 3 * band // 2
+    # qwen3-0.6b's prefill: 136 of the 16 x 16 tiles, 16 on the diagonal
+    qwen = args(8, 2048, 8, 2, 128)
+    assert fa.issued_flops(*qwen, causal=True, window=0) == \
+        8 * 8 * 2 * 136 * 128 * 128 * 6 * 128
+    assert fa.issued_flops(*qwen, causal=True, window=0) > \
+        3 * fa.cost(*qwen, causal=True, window=0)["flops"] // 2
+    # a window of 7: the second and third q tiles reach back into the kv
+    # tile before their own
+    w7 = args(1, 300, 1, 1, 128)
+    assert fa.issued_flops(*w7, causal=True, window=7) == \
+        (1 + 2 + 2) * 128 * 128 * 6 * 128
+    with pytest.raises(ValueError, match="wgmma"):
+        fa.issued_flops(*args(1, 64, 1, 1, 256), causal=True, window=0)
+
+
 def _b3_tensor_core_emulation(q, k, v, *, causal, window):
     """What the bfloat16 B3 kernel computes, in float32 torch ops on the
     CPU: q (BK, G, S, hd), k, v (BK, S, hd) bf16 -> bf16. Scores are fp32
@@ -163,7 +214,7 @@ def _b3_tensor_core_emulation(q, k, v, *, causal, window):
     row's band adds exactly nothing (a wholly masked first tile's weights
     are wiped by corr = 0), which is why the kernel may skip it."""
     bk, g, s, hd = q.shape
-    bkv = 64 if hd <= 112 else 32                  # the kernel's kv tile
+    bkv = fa.tile_geometry(hd, torch.bfloat16)["bkv"]   # the kernel's kv tile
     sl2 = torch.tensor(np.float32(hd ** -0.5) * np.float32(1.4426950408889634))
     qf, kf, vf = q.float(), k.float(), v.float()
     qpos = torch.arange(s)[:, None]
@@ -196,29 +247,34 @@ def _b3_tensor_core_emulation(q, k, v, *, causal, window):
 @pytest.mark.parametrize("b,s,kh,g,hd", [
     (1, 64, 1, 1, 64),       # the reference's sweep
     (2, 128, 2, 2, 64),
-    (1, 300, 1, 4, 64),
-    (2, 257, 2, 1, 128),     # 32-row kv tiles
+    (1, 300, 1, 4, 64),      # wgmma: a ragged third 128-row kv tile
+    (2, 257, 2, 1, 128),
     (1, 512, 4, 2, 64),
     (2, 200, 2, 1, 112),     # zamba2's head_dim: 7 k-steps, 14 n-tiles
-    (1, 100, 2, 3, 256),     # 16-row warps
+    (1, 100, 2, 3, 256),     # mma.sync: 32-row kv tiles, 16-row warps
 ])
-@pytest.mark.parametrize("window", [0, 64])
-def test_tensor_core_flash_numerics_match_reference(b, s, kh, g, hd, window):
+@pytest.mark.parametrize("window,causal", [
+    (0, True), (64, True), (0, False), (64, False)],
+    ids=["0", "64", "0-bidirectional", "64-bidirectional"])
+def test_tensor_core_flash_numerics_match_reference(b, s, kh, g, hd, window,
+                                                    causal):
     """The bf16 B3's rounding points stay within the bf16 tolerance of the
-    reference's Pallas kernel (interpret mode) on the same inputs."""
-    rng = np.random.default_rng(7 * b + s + hd + window)
+    reference's Pallas kernel (interpret mode) on the same inputs, causal
+    and bidirectional (the whisper encoder's prefill)."""
+    rng = np.random.default_rng(7 * b + s + hd + window + int(not causal))
     x = [rng.standard_normal(sh).astype(np.float32) for sh in
          ((b * kh, g, s, hd), (b * kh, s, hd), (b * kh, s, hd))]
     q, k, v = (torch.from_numpy(t).to(torch.bfloat16) for t in x)
-    got = _b3_tensor_core_emulation(q, k, v, causal=True, window=window)
+    got = _b3_tensor_core_emulation(q, k, v, causal=causal, window=window)
     want = np.asarray(ref_flash_folded(
-        *(jnp.asarray(t, jnp.bfloat16) for t in x), causal=True,
+        *(jnp.asarray(t, jnp.bfloat16) for t in x), causal=causal,
         window=window, interpret=True), np.float32)
     tol = DTYPES["bfloat16"][2]
     err = np.abs(got.float().numpy() - want)
     margin = float((err / (tol + tol * np.abs(want))).max())
-    print(f"B3 bf16 emulation {(b, s, kh, g, hd)} window {window}: max_abs_err "
-          f"{err.max():.3g}, worst error / (tol + tol |ref|) {margin:.3f}")
+    print(f"B3 bf16 emulation {(b, s, kh, g, hd)} causal {causal} window "
+          f"{window}: max_abs_err {err.max():.3g}, worst error / (tol + tol "
+          f"|ref|) {margin:.3f}")
     assert np.isfinite(got.float().numpy()).all() and margin <= 1.0
 
 

@@ -36,3 +36,22 @@ def test_the_replay_kernels_share_their_header():
         text = (_build.CSRC / f"{name}.cu").read_text()
         assert '#include "replay_common.cuh"' in text
     assert (_build.CSRC / "replay_common.cuh").is_file()
+
+
+def test_every_kernel_is_found_by_the_profiler():
+    """``launch/breakdown.py`` reads each kernel's device time by its symbol:
+    every ``__global__`` function under ``csrc/`` matches exactly one of its
+    patterns, so a renamed kernel fails here rather than reading 0 ms."""
+    import re
+
+    from repro_torch.launch.breakdown import KERNELS
+
+    names = []
+    for src in sorted(_build.CSRC.glob("*.cu")):
+        names += re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
+                            r"(\w+)\s*\(", src.read_text())
+    assert len(names) >= 8
+    for name in names:
+        hits = [key for key, (symbol, _) in KERNELS.items()
+                if re.search(symbol, f"void {name}<128>(FlashArgs)")]
+        assert len(hits) == 1, (name, hits)

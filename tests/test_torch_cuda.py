@@ -394,6 +394,15 @@ def _randn(shape, dtype, device, seed):
     (8, 2048, 16, 2, 128, True, 1024),  # gemma3-27b's local layers
     (8, 1500, 16, 1, 64, False, 0),    # whisper-medium's encoder
     (8, 187, 16, 1, 64, True, 0),      # whisper-medium's decoder prefill
+    # the edges of the wgmma route's 128-row q and kv tiles
+    (1, 1, 2, 2, 128, True, 0),        # one token
+    (2, 17, 2, 2, 64, True, 0),        # seq inside one q tile
+    (1, 256, 2, 2, 128, True, 0),      # seq of whole tiles
+    (1, 300, 2, 2, 128, True, 7),      # a window inside one kv tile
+    (1, 300, 2, 3, 128, True, 0),      # G 3
+    (1, 300, 1, 4, 128, True, 0),      # G 4
+    (2, 129, 2, 1, 64, False, 0),      # one row past a tile, bidirectional
+    (1, 129, 2, 2, 112, True, 0),      # one row past a tile at hd 112
 ])
 def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, b, s, kh, g,
                                             hd, causal, window):
@@ -413,6 +422,17 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, b, s, kh, g,
                                     window=window).permute(0, 3, 1, 2, 4)
     tol = ATTN_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", fa.HEAD_DIMS)
+def test_flash_host_route_and_tiles_match_the_library(cuda_device, hd):
+    """The host's ``route`` and ``tile_geometry`` for bf16 are what the
+    built kernel library runs: the CPU emulation follows the same tiles."""
+    for r in ("mma", "wgmma"):
+        want = (fa.tile_geometry(hd, torch.bfloat16)
+                if fa.route(hd, torch.bfloat16) == r else None)
+        assert fa.library_tiles(hd, r) == want, (hd, r)
 
 
 @pytest.mark.cuda
