@@ -11,7 +11,11 @@ result line):
                ``src/repro_torch/kernels/csrc/*.cu``) with nvcc, one process
                per source, all started together; B3's wgmma kernel at head_dim
                64, 112 and 128: ptxas's registers and spills (none allowed)
-               and its dynamic shared memory;
+               and its dynamic shared memory; every instance of B4's
+               ``decode_tma_kernel`` (2 dtypes x 5 head_dims x 4 head-group
+               sizes) and of its ``decode_merge_kernel``: registers and
+               spills (none allowed), and B4's host tiles against the
+               library's;
   2. check   — each kernel against its plain PyTorch version on CUDA
                tensors, for seeded random swarms. B1 (zero-load replay):
                resnet101 on the paper fleet (both fidelity modes), the
@@ -98,8 +102,7 @@ result line):
                cache 2080; causal and a 512 window; valid_len 1, 7, 1000,
                2048, 2080), zamba2-7b's (32 q and 32 kv heads of head_dim
                112; valid_len 1, 2049, 2079), windows whose first kv tile is
-               wholly masked for some rows, a decode split with empty blocks,
-               and ragged shapes of the CPU sweep (head_dim 16 to 256, 112
+               wholly masked for some rows, and ragged shapes of the CPU sweep (head_dim 16 to 256, 112
                among them); new in the serving families' slice: gemma3-27b's
                local layers (batch 8, prompt 2048, 16 kv heads of 2 query
                heads, head_dim 128, window 1024), whisper-medium's encoder
@@ -109,7 +112,11 @@ result line):
                log-sum-exp output (``return_lse``) against the plain
                version's ``torch.logsumexp`` to 2e-5 at a rank's slice of
                the batch-1 caches (qwen3's 1,040 of 2,080 slots with valid
-               1, 1000 and 1040, zamba2's, half of gemma3's ring); the edges
+               1, 1000 and 1040, zamba2's, half of gemma3's ring, qwen3's 1 x
+               8,200 slice of four cards); every B4 case with and without
+               ``return_lse``, and B4's edges: one row over many blocks,
+               ranges that cross rows (a forced grid), valid inside the first
+               tile, G 8 and 12, head_dim 16 and 256; the edges
                of B3's 128-row tiles: seq 1 and 17, 256 (whole tiles), 129
                (hd 64 bidirectional, hd 112 causal), a window of 7 and G 3
                and 4 at hd 128;
@@ -153,9 +160,14 @@ result line):
                P.V for the weights' hi and lo parts); also B3 at
                gemma3-27b's local shape (window 1024, SDPA with a boolean band
                mask) and whisper-medium's encoder (bidirectional, SDPA with
-               ``is_causal=False``), and B4 over gemma3's 1024-slot ring;
-               B4 with and without ``return_lse`` in turns at qwen3's
-               serving cache and at a rank's batch-1 slice;
+               ``is_causal=False``), and B4 over gemma3's 1024-slot ring and
+               qwen3's 1 x 8,200 rank slice (every slot live); beside each B4
+               shape a read ceiling (``torch.sum`` in float32 over the same
+               live K and V, in the same turns), a cold figure (calls
+               rotating over copies of the cache that exceed 4 x the 50 MB
+               L2) and B4's time by grid size (``blocks=``, the chosen
+               default printed); B4 with and without ``return_lse`` in turns
+               at qwen3's serving cache and at a rank's batch-1 slice;
  15. check-ssd — B5 (the SSD intra-chunk form) against its plain version
                on CUDA tensors, every element within 1e-4 + 1e-4 |plain|:
                the reference's sweep shapes, chunks of 17 and 37 rows,
@@ -318,6 +330,9 @@ SEED = 0
 HBM_BYTES_PER_S = HW().hbm_bw
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = HW().peak_flops
+#: the H100's L2 cache (NVIDIA data sheet): B4's cold figure rotates over
+#: copies of a cache that exceed four times it
+L2_BYTES = 50 * 10 ** 6
 #: device spin ahead of a timed stretch of attention calls (~25 ms at the
 #: H100's clocks), so the host queues every call before the stretch starts
 SLEEP_CYCLES = 50_000_000
@@ -501,19 +516,19 @@ GRAD_RTOL = 1e-4
 LOSS_RTOL = 1e-5
 
 
-def wgmma_ptxas(log):
-    """(head_dim, ptxas's spill and register lines) for each instance of B3's
-    wgmma kernel in an nvcc ``-Xptxas=-v`` log (none for a cached build)."""
+def ptxas_report(log, entry):
+    """(the groups of ``entry``, ptxas's spill and register lines) for each
+    kernel instance whose mangled name matches the regular expression
+    ``entry`` in an nvcc ``-Xptxas=-v`` log (none for a cached build)."""
     lines = (log or "").splitlines()
     out = []
     for i, line in enumerate(lines):
-        m = re.search(r"Compiling entry.*flash_bf16_wgmma_kernelILi(\d+)E",
-                      line)
+        m = re.search(r"Compiling entry.*" + entry, line)
         if m:
             body = [x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
                     if "spill" in x or "Used" in x]
             if body:
-                out.append((int(m.group(1)), "; ".join(body)))
+                out.append((m.groups(), "; ".join(body)))
     return out
 
 
@@ -1159,6 +1174,9 @@ def seq_models(dev, mesh=None):
 
 #: seq-decode: a batch of 1, prompt 2,048 and 32 new tokens
 SEQ_PROMPT, SEQ_NEW = 2048, 32
+#: a card's slots of qwen3-0.6b's batch-1 cache over four cards (prompt
+#: 32,768 and 32 new tokens, sequence-parallel decode): B4's longest rows
+SLICE_SLOTS = (32768 + SEQ_NEW) // 4
 
 
 def seq_decode(dev):
@@ -1530,7 +1548,8 @@ def main() -> int:
         from repro_torch.kernels import flash_attention as fa
         lib = fa._lib()
         log = _build.build_log("flash_attention")
-        found = wgmma_ptxas(log)
+        found = [(int(hd), line) for (hd,), line in ptxas_report(
+            log, r"flash_bf16_wgmma_kernelILi(\d+)E")]
         if log is None:
             print("[build] B3 wgmma: library cached, ptxas not rerun")
         else:
@@ -1550,6 +1569,34 @@ def main() -> int:
                 got = fa.library_tiles(hd, r)
                 assert got == want, f"B3 {r} hd {hd}: library {got}, host {want}"
         print("[build] B3 host routes and tiles match the library")
+        # B4: every instance (dtype, head_dim, head group) without spills;
+        # the host's tiles (work_split's, the CPU emulation's) the library's
+        from repro_torch.kernels import decode_attention as da
+        log = _build.build_log("decode_attention")
+        found = ptxas_report(log, r"decode_(tma|merge)_kernelI"
+                                  r"(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E")
+        if log is None:
+            print("[build] B4: library cached, ptxas not rerun")
+        else:
+            want = {(k, t, str(hd), str(gc)) for k in ("tma", "merge")
+                    for t in ("f", "13__nv_bfloat16")
+                    for hd in fa.HEAD_DIMS for gc in (1, 2, 4, 8)}
+            assert {k for k, _ in found} == want, \
+                f"ptxas lines for B4 at {sorted(k for k, _ in found)}"
+        for (k, t, hd, gc), line in found:
+            dt = torch.float32 if t == "f" else torch.bfloat16
+            occ = (f"; {da._blocks_per_sm(int(hd), dt, int(gc))} blocks an SM"
+                   if k == "tma" else "")
+            print(f"[build] B4 {k} {str(dt)[6:]} hd {hd} heads {gc}: "
+                  f"{line}{occ}", flush=True)
+            assert " 0 bytes spill stores" in line and \
+                " 0 bytes spill loads" in line, f"B4 {k} {t} {hd} {gc} spills"
+        for hd in fa.HEAD_DIMS:
+            for dt in (torch.float32, torch.bfloat16):
+                got = da.library_geometry(hd, dt)
+                want = (*da.geometry(hd, dt), da.CONSUMER_WARPS)
+                assert got == want, f"B4 {dt} hd {hd}: library {got}, host {want}"
+        print("[build] B4 host tiles match the library")
     _phase("build", build, failures)
 
     # 2. check ------------------------------------------------------------
@@ -2650,10 +2697,12 @@ def main() -> int:
             ((1, 300, 1, 4, 128), True, 0, "G 4"),
             ((2, 129, 2, 1, 64), False, 0, "a row past a tile"),
             ((1, 129, 2, 2, 112), True, 0, "hd 112 a row past a tile")]
+        # (shape, valid, tag, B4's grid: None for the default)
         decode_cases = [
-            ((SERVE_BATCH, serve_cache, KV, G, HD), v, f"qwen3 valid {v}")
-            for v in (1, 7, 1000, SERVE_PROMPT, serve_cache)] + [
-            ((1, 600, 1, 1, 128), 520, "empty splits"),
+            ((SERVE_BATCH, serve_cache, KV, G, HD), v, f"qwen3 valid {v}",
+             None) for v in (1, 7, 1000, SERVE_PROMPT, serve_cache)] + [
+            (*case, None) for case in [
+            ((1, 600, 1, 1, 128), 520, "one row, 520 of 600 slots"),
             ((2, 100, 1, 8, 64), 1, "G 8 single slot"),
             ((1, 1000, 2, 2, 64), 999, "ragged"),
             ((1, 64, 2, 3, 16), 64, "hd 16 G 3 full"),
@@ -2666,7 +2715,44 @@ def main() -> int:
             ((SERVE_BATCH, CROSS_FRAMES + SERVE_NEW, wkv, 1, 64),
              CROSS_FRAMES + 1, "whisper self cache"),
             ((SERVE_BATCH, CROSS_FRAMES + SERVE_NEW, wkv, 1, 64),
-             CROSS_FRAMES + SERVE_NEW, "whisper self cache full")]
+             CROSS_FRAMES + SERVE_NEW, "whisper self cache full"),
+            # B4's split and tiles at their edges
+            ((1, 4000, 1, 2, 128), 4000, "one row over many blocks"),
+            ((2, 600, 2, 2, 128), 1, "valid 1, three warps empty"),
+            ((2, 300, 2, 3, 128), 250, "G 3"),
+            ((2, 300, 1, 12, 64), 299, "G 12, two head groups"),
+            ((2, 1000, 2, 2, 16), 777, "hd 16, 256-slot tiles"),
+            ((2, 300, 2, 2, 256), 250, "hd 256, G 2")]] + [
+            ((3, 300, 2, 2, 64), 200, "ranges across rows", 5),
+            ((2, 600, 2, 2, 128), 20, "valid inside the first tile", 3),
+            ((2, 300, 1, 8, 64), 299, "G 8, a forced grid", 7)]
+
+        def check_decode(i, b, c, kh, g, hd, valid, tag, blocks, dtype):
+            """One B4 case, without and with ``return_lse`` (the output
+            bit for bit the same)."""
+            q = randn((b, kh, g, hd), dtype, 100 + 3 * i)
+            k = randn((b, c, kh, hd), dtype, 101 + 3 * i)
+            v = randn((b, c, kh, hd), dtype, 102 + 3 * i)
+            k[:, valid:] = 1e9                     # dead slots
+            v[:, valid:] = -1e9
+            kf, vf = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+            got = b4(q, kf, vf, valid, blocks=blocks)
+            got2, lse = b4(q, kf, vf, valid, blocks=blocks, return_lse=True)
+            torch.cuda.synchronize()
+            want, want_lse = decode_plain(q, k, v, valid, True)
+            grid = "" if blocks is None else f" blocks {blocks}"
+            attn_check("decode", f"{tag} {(b, c, kh, g, hd)}{grid}", got,
+                       want, dtype)
+            assert torch.equal(got, got2), f"{tag}: the lse changed o"
+            err = (lse - want_lse).abs()
+            bad = int((err > LSE_TOL + LSE_TOL * want_lse.abs()).sum())
+            rec["decode_lse_max_abs_err"] = max(
+                rec["decode_lse_max_abs_err"], float(err.max()))
+            print(f"[check-attn] decode lse {tag} {str(dtype)[6:]}: "
+                  f"max_abs_err {float(err.max()):.3g} (tol {LSE_TOL:g})"
+                  f" outside {bad}", flush=True)
+            assert bad == 0 and bool(torch.isfinite(lse).all()), tag
+
         for dtype in (torch.float32, torch.bfloat16):
             for i, ((b, s, kh, g, hd), causal, window, tag) in enumerate(
                     flash_cases):
@@ -2680,20 +2766,12 @@ def main() -> int:
                 attn_check("flash", f"{tag} {(b, s, kh, g, hd)} causal "
                            f"{causal} window {window}", got, want, dtype)
                 del want
-            for i, ((b, c, kh, g, hd), valid, tag) in enumerate(decode_cases):
-                q = randn((b, kh, g, hd), dtype, 100 + 3 * i)
-                k = randn((b, c, kh, hd), dtype, 101 + 3 * i)
-                v = randn((b, c, kh, hd), dtype, 102 + 3 * i)
-                k[:, valid:] = 1e9                 # dead slots
-                v[:, valid:] = -1e9
-                got = ops.decode_attention(q, k, v, valid)
-                torch.cuda.synchronize()
-                attn_check("decode", f"{tag} {(b, c, kh, g, hd)}", got,
-                           decode_plain(q, k, v, valid), dtype)
+            for i, case in enumerate(decode_cases):
+                check_decode(i, *case[0], *case[1:], dtype)
         # B4's log-sum-exp output (sequence-parallel decode) at a rank's
         # slice of the batch-1 caches: qwen3's 1,040 of 2,080 slots,
-        # zamba2's, and half of gemma3's ring of 1,024; valid lengths
-        # ending inside a block's chunk
+        # zamba2's, half of gemma3's ring of 1,024, and qwen3's 8,200 slots
+        # a card of four at 32,768; valid lengths ending inside a tile
         half = (SEQ_PROMPT + SEQ_NEW) // 2
         zkv, zhd = zamba2.n_kv_heads, zamba2.head_dim
         lse_cases = [((1, half, KV, G, HD), v, f"qwen3 slice valid {v}")
@@ -2701,28 +2779,11 @@ def main() -> int:
             ((1, half, zkv, zamba2.n_heads // zkv, zhd), 777,
              "zamba2 slice valid 777"),
             ((1, gemma3.window // 2, gkv, gg, ghd), gemma3.window // 2,
-             "gemma3 half ring")]
+             "gemma3 half ring"),
+            ((1, SLICE_SLOTS, KV, G, HD), SLICE_SLOTS, "qwen3 1 x 8,200 slice")]
         for dtype in (torch.float32, torch.bfloat16):
-            for i, ((b, c, kh, g, hd), valid, tag) in enumerate(lse_cases):
-                q = randn((b, kh, g, hd), dtype, 300 + 3 * i)
-                k = randn((b, c, kh, hd), dtype, 301 + 3 * i)
-                v = randn((b, c, kh, hd), dtype, 302 + 3 * i)
-                k[:, valid:] = 1e9
-                v[:, valid:] = -1e9
-                got, lse = ops.decode_attention(q, k, v, valid,
-                                                return_lse=True)
-                torch.cuda.synchronize()
-                want, want_lse = decode_plain(q, k, v, valid, True)
-                attn_check("decode", f"{tag} {(b, c, kh, g, hd)} with lse",
-                           got, want, dtype)
-                err = (lse - want_lse).abs()
-                bad = int((err > LSE_TOL + LSE_TOL * want_lse.abs()).sum())
-                rec["decode_lse_max_abs_err"] = max(
-                    rec["decode_lse_max_abs_err"], float(err.max()))
-                print(f"[check-attn] decode lse {tag} {str(dtype)[6:]}: "
-                      f"max_abs_err {float(err.max()):.3g} (tol {LSE_TOL:g})"
-                      f" outside {bad}", flush=True)
-                assert bad == 0 and bool(torch.isfinite(lse).all()), tag
+            for i, (shape, valid, tag) in enumerate(lse_cases):
+                check_decode(100 + i, *shape, valid, tag, None, dtype)
     _phase("check-attn", check_attn, failures)
 
     # 12. serve: qwen3-0.6b at full width and depth --------------------------
@@ -3005,22 +3066,31 @@ def main() -> int:
     _phase("serve-mesh", serve_mesh, failures)
 
     # 14. time-attn: B3 and B4 at the serving shapes ------------------------
-    def in_turns(tag, kernel, library, plain, reps, plain_reps, rounds=5):
-        """Kernel and library call timed in turns, ``rounds`` times each,
-        then the plain version once; medians of the device times."""
-        k, lib = [], []
+    def in_turns(tag, kernel, library, plain, reps, plain_reps, rounds=5,
+                 ceiling=None):
+        """Kernel and library call (and ``ceiling``, if given) timed in
+        turns, ``rounds`` times each, then the plain version once; medians
+        of the device times (the ceiling's last)."""
+        k, lib, ceil = [], [], []
         for _ in range(rounds):
             k.append(queued_ms(kernel, reps))
             lib.append(queued_ms(library, reps))
+            if ceiling is not None:
+                ceil.append(queued_ms(ceiling, reps))
         p = queued_ms(plain, plain_reps)
-        queued = all(r[2] for r in k + lib) and p[2]
+        queued = all(r[2] for r in k + lib + ceil) and p[2]
+        extra = f", read ceiling ms per round {[round(r[0], 5) for r in ceil]}" \
+            if ceil else ""
         print(f"[time-attn] {tag}: kernel ms per round "
               f"{[round(r[0], 5) for r in k]} (host ms per call "
               f"{float(np.median([r[1] for r in k])):.4f}), sdpa ms per "
-              f"round {[round(r[0], 5) for r in lib]}, plain {p[0]:.4f} ms; "
-              f"every call queued ahead of the device: {queued}", flush=True)
-        return (float(np.median([r[0] for r in k])),
-                float(np.median([r[0] for r in lib])), p[0])
+              f"round {[round(r[0], 5) for r in lib]}{extra}, plain "
+              f"{p[0]:.4f} ms; every call queued ahead of the device: "
+              f"{queued}", flush=True)
+        out = (float(np.median([r[0] for r in k])),
+               float(np.median([r[0] for r in lib])), p[0])
+        return out + (float(np.median([r[0] for r in ceil])),) if ceil \
+            else out
 
     def time_flash(tag, kv, g, hd, S=SERVE_PROMPT, causal=True, window=0):
         """B3 at a serving prefill (bf16, batch SERVE_BATCH, ``S`` tokens,
@@ -3073,11 +3143,16 @@ def main() -> int:
               f"FLOPs, {nbytes:.4g} bytes)", flush=True)
         return rec_
 
-    def time_decode(tag, kv, g, hd, C=serve_cache, valid=SERVE_PROMPT):
-        """B4 at a serving decode step (bf16 cache of ``C`` slots, ``valid``
-        live) against SDPA with a slot mask in turns."""
+    def time_decode(tag, kv, g, hd, C=serve_cache, valid=SERVE_PROMPT,
+                    B=SERVE_BATCH):
+        """B4 at a serving decode step (a bf16 cache of ``B`` rows of ``C``
+        slots, ``valid`` live) against SDPA with a slot mask in turns, with
+        the read ceiling in the same turns: ``torch.sum`` in float32 over
+        the same live K and V. Then a cold figure, the calls rotating over
+        copies of the cache that exceed 4 x the 50 MB L2, and B4's time by
+        grid size (``blocks=``) beside the default grid."""
         dt = torch.bfloat16
-        B, h = SERVE_BATCH, kv * g
+        h = kv * g
         qd = randn((B, kv, g, hd), dt, 4)
         kc, vc = randn((B, C, kv, hd), dt, 5), randn((B, C, kv, hd), dt, 6)
         qsd = qd.reshape(B, h, 1, hd)
@@ -3089,17 +3164,40 @@ def main() -> int:
             return F.scaled_dot_product_attention(qsd, ksd, vsd,
                                                   attn_mask=live,
                                                   enable_gqa=True)
-        ms, lib, plain = in_turns(
+
+        def read():
+            return (kc[:, :valid].sum(dtype=torch.float32),
+                    vc[:, :valid].sum(dtype=torch.float32))
+        ms, lib, plain, read_ms = in_turns(
             f"B4 {tag}", lambda: ops.decode_attention(qd, kc, vc, valid),
-            sdpa_d, lambda: decode_plain(qd, kc, vc, valid), 50, 20)
-        # blocks per row: decode_split's choice against every count
+            sdpa_d, lambda: decode_plain(qd, kc, vc, valid), 50, 20,
+            ceiling=read)
+        # cold: every call on another copy of the cache, > 4 x the L2
+        n_copies = -(-4 * L2_BYTES // (kc.nbytes + vc.nbytes)) + 1
+        copies = [(kc.clone(), vc.clone()) for _ in range(n_copies)]
+        turn = iter(range(10 ** 9))
+
+        def cold_call():
+            kx, vx = copies[next(turn) % n_copies]
+            return ops.decode_attention(qd, kx, vx, valid)
+        cold = float(np.median([queued_ms(cold_call, 50)[0]
+                                for _ in range(3)]))
+        del copies
+        # the grid: the default (da.default_grid over the SMs times the
+        # blocks that fit one) against multiples of the SMs
         kf, vf = kc.permute(0, 2, 1, 3), vc.permute(0, 2, 1, 3)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        slots = sms * da._blocks_per_sm(hd, dt, g)
+        rows = B * kv * -(-g // da.group_size(g))
+        chosen = da.default_grid(rows, -(-valid // da.geometry(hd, dt)[0]),
+                                 slots)
         sweep = {n: min(queued_ms(lambda: da.decode_attention_folded(
-            qd, kf, vf, valid, splits=n), 50)[0] for _ in range(3))
-            for n in range(1, da.MAX_SPLIT + 1)}
-        print(f"[time-attn] B4 {tag} ms by blocks per row (best of 3 rounds; "
-              f"chosen {da.decode_split(B * kv, valid)[0]}"
-              f"): {', '.join(f'{n}: {t:.5f}' for n, t in sweep.items())}",
+            qd, kf, vf, valid, blocks=n), 50)[0] for _ in range(3))
+            for n in sorted({sms // 2, sms, 3 * sms // 2, 2 * sms, 3 * sms,
+                             4 * sms, slots, chosen})}
+        print(f"[time-attn] B4 {tag} ms by grid (best of 3 rounds; chosen "
+              f"{chosen} of {slots} slots = {sms} SMs x {slots // sms}): "
+              f"{', '.join(f'{n}: {t:.5f}' for n, t in sweep.items())}",
               flush=True)
         lib_err = float((sdpa_d().reshape(qd.shape).float()
                          - ops.decode_attention(qd, kc, vc, valid).float()
@@ -3112,10 +3210,13 @@ def main() -> int:
                     bound_by="operations" if t_ops >= t_bytes else "bytes")
         print(f"[time-attn] B4 {tag} bf16 q {tuple(qd.shape)} cache "
               f"{tuple(kc.shape)} valid {valid}: kernel {ms:.4f} ms "
-              f"({nbytes / ms / 1e9:.3f} TB/s), plain {plain:.3f} ms, sdpa "
-              f"{lib:.4f} ms ({nbytes / lib / 1e9:.3f} TB/s; max |diff| "
-              f"{lib_err:.3g}), bound {rec_['bound_ms']:.4f} ms "
-              f"({rec_['bound_by']}: {nbytes:.4g} bytes)", flush=True)
+              f"({nbytes / ms / 1e9:.3f} TB/s; cold {cold:.4f} ms over "
+              f"{n_copies} copies, {nbytes / cold / 1e9:.3f} TB/s), plain "
+              f"{plain:.3f} ms, sdpa {lib:.4f} ms ({nbytes / lib / 1e9:.3f} "
+              f"TB/s; max |diff| {lib_err:.3g}), read ceiling "
+              f"{read_ms:.4f} ms ({nbytes / read_ms / 1e9:.3f} TB/s), bound "
+              f"{rec_['bound_ms']:.4f} ms ({rec_['bound_by']}: {nbytes:.4g} "
+              f"bytes)", flush=True)
         return rec_
 
     def time_attn():
@@ -3134,6 +3235,9 @@ def main() -> int:
             S=CROSS_FRAMES, causal=False)
         timing["decode gemma3 ring"] = time_decode("gemma3 ring", gkv, gg,
                                                    ghd, C=w, valid=w)
+        timing["decode slice"] = time_decode(
+            "qwen3 1 x 8,200 slice", KV, G, HD, C=SLICE_SLOTS,
+            valid=SLICE_SLOTS, B=1)
         time_lse("qwen3 serve", SERVE_BATCH, serve_cache, SERVE_PROMPT)
         half = (SEQ_PROMPT + SEQ_NEW) // 2
         time_lse("qwen3 seq-decode slice", 1, half, SEQ_PROMPT + 1 - half)

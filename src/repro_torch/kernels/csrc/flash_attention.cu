@@ -91,11 +91,11 @@
 // most kv tiles), so the tail of the grid is short. The C entry point
 // launches on the caller's stream, allocates nothing, and returns
 // cudaGetLastError().
-#include <cuda.h>            // CUtensorMap; the encoder is fetched at run time
-#include <cudaTypedefs.h>    // PFN_cuTensorMapEncodeTiled
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tma_common.cuh"    // tensor maps, mbarriers and TMA loads
 
 namespace {
 
@@ -741,61 +741,7 @@ struct Cfg {
       1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * (1 + 2 * STAGES);
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-// one arrival that also expects `bytes` of TMA transactions
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-// until the barrier's phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  }
-}
-
-// a box of the tensor map at the given element coordinates (innermost
-// first) into shared memory at `dst`, completing on `bar`
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* m,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(m)), "r"(bar), "r"(c0),
-         "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* m,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3, int c4) {
-  asm volatile(
-      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(m)), "r"(bar), "r"(c0),
-         "r"(c1), "r"(c2), "r"(c3), "r"(c4)
-      : "memory");
-}
+using namespace tma;
 
 // wgmma shared-memory descriptor of a 128-byte-swizzled operand at `addr`:
 // `lbo` and `sbo` are the leading and stride byte offsets. K-major (q and
@@ -1215,51 +1161,6 @@ flash_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// cuTensorMapEncodeTiled is a driver function: fetched once through the
-// runtime, so that the library links nothing but libcudart
-PFN_cuTensorMapEncodeTiled_v12000 encoder() {
-  static const PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// a bf16 tensor map of `rank` dims (innermost first: head_dim, seq, then
-// the head and batch axes) over element strides `st` (of dims 1..rank-1),
-// boxes of 64 columns x 128 rows, 128-byte swizzle, zero fill out of
-// bounds. A dim of extent 1 is never stepped: its stride is set to 16 bytes
-// so the map takes any view
-bool tensor_map(CUtensorMap* map, const void* ptr, int rank,
-                const long long* dims, const long long* st) {
-  cuuint64_t gdim[5], gst[4];
-  cuuint32_t box[5], es[5];
-  for (int i = 0; i < rank; ++i) {
-    gdim[i] = static_cast<cuuint64_t>(dims[i]);
-    box[i] = i == 0 ? 64 : i == 1 ? 128 : 1;
-    es[i] = 1;
-  }
-  for (int i = 1; i < rank; ++i)
-    gst[i - 1] = dims[i] == 1 ? 16 : static_cast<cuuint64_t>(st[i - 1]) * 2;
-  PFN_cuTensorMapEncodeTiled_v12000 encode = encoder();
-  return encode != nullptr &&
-         encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-                const_cast<void*>(ptr), gdim, gst, box, es,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int HD>
 cudaError_t launch(const FlashArgs& a, int B, int G, cudaStream_t st) {
   using C = Cfg<HD>;
@@ -1269,8 +1170,13 @@ cudaError_t launch(const FlashArgs& a, int B, int G, cudaStream_t st) {
   const long long kd[4] = {HD, a.S, a.K, B};
   const long long ks[3] = {a.k_ss, a.k_sk, a.k_sb};
   const long long vs[3] = {a.v_ss, a.v_sk, a.v_sb};
-  if (!tensor_map(&tq, a.q, 5, qd, qs) || !tensor_map(&tk, a.k, 4, kd, ks) ||
-      !tensor_map(&tv, a.v, 4, kd, vs))
+  // bf16 boxes of 64 columns x 128 rows with the 128-byte swizzle wgmma reads
+  const cuuint32_t box[5] = {64, 128, 1, 1, 1};
+  const CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  if (!tensor_map(&tq, bf16, 2, a.q, 5, qd, qs, box, sw) ||
+      !tensor_map(&tk, bf16, 2, a.k, 4, kd, ks, box, sw) ||
+      !tensor_map(&tv, bf16, 2, a.v, 4, kd, vs, box, sw))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       flash_bf16_wgmma_kernel<HD>,

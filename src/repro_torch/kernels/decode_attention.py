@@ -5,11 +5,15 @@ The hand-written Hopper kernel (``csrc/decode_attention.cu``) is the port
 of the Pallas kernel ``repro/kernels/decode_attention.py::_decode_kernel``:
 every query head of a kv head attends over the cache slots
 ``[0, valid_len)``, with fp32 running max, sum and accumulator; slots at or
-past ``valid_len`` are neither read nor counted. It splits each
-(batch, kv head) row's live slots over a cluster of up to 8 blocks
-(``decode_split`` picks how many, and how many slots each takes), stages
-each block's keys and values through a ring of shared-memory tiles, and
-combines the blocks' partial softmax states on chip, in the same launch.
+past ``valid_len`` are neither read nor counted. It cuts the live work,
+(batch, kv head, head group) rows of tiles of ``valid_len`` slots, into
+one contiguous range of tiles for each block of a grid of the device's SMs
+times the blocks that fit one (``work_split``, ``default_grid``;
+``blocks=`` overrides the grid), streams each block's tiles by TMA through a ring of shared memory
+into four consumer warps (tensor cores in bfloat16, CUDA cores in
+float32), and merges the shares of a row that several blocks hold in a
+second CUDA launch, through a float32 workspace that the wrapper keeps per
+device and stream (``_workspace``).
 ``decode_attention_plain`` is the same function in plain PyTorch, after
 ``repro/kernels/ref.py::decode_attention_ref``.
 
@@ -46,21 +50,75 @@ from .flash_attention import (DTYPE_CODES, HEAD_DIMS, NEG_INF,
                               check_operand, refuse_grad)
 
 __all__ = ["decode_attention_folded", "decode_attention_plain",
-           "decode_split", "cost"]
+           "geometry", "group_size", "work_split", "default_grid",
+           "library_geometry", "cost"]
 
-#: blocks per (batch, kv head) row at most: the portable cluster size
-MAX_SPLIT = 8
-#: blocks a launch aims at: one and a half for each of the H100's 132 SMs
-#: (blocks of 8 warps, two fit an SM). Measured on an H100 over 1 to 8
-#: splits (``chip_smoke.py``'s time-attn): fewer, longer blocks beat more
-#: waves of short ones, 3 splits at qwen3-0.6b's 64 rows and 1 at
-#: zamba2-7b's 256
-TARGET_BLOCKS = 3 * 132 // 2
-#: query heads a block serves at most (more go to further blocks)
-MAX_GROUP = 4
-#: slots a block's range is a multiple of: a multiple of every shared-memory
-#: tile the kernel stages (64, 32 or 16 slots, by head_dim and dtype)
-GRANULE = 64
+#: the kernel's consumer warps a block (``kConsumerWarps``)
+CONSUMER_WARPS = 4
+#: bytes of K (or of V) a float32 tile aims at (``kTileBytes``)
+TILE_BYTES = 8192
+#: blocks a launch at most (``kMaxGrid``)
+MAX_GRID = 1 << 15
+#: the share of the device's block slots a grid of whole rows may leave
+#: empty to save the merge launch (zamba2-7b's 256 rows on the H100's 264
+#: slots)
+WHOLE_ROWS_SLACK = 0.05
+
+
+def group_size(G: int) -> int:
+    """Query heads a block serves at once: 1, 2, 4 or 8; more than 8 heads
+    of a kv head go in groups of 8, each its own row of the work."""
+    return 1 if G <= 1 else 2 if G <= 2 else 4 if G <= 4 else 8
+
+
+def geometry(hd: int, dtype: torch.dtype):
+    """``(slots a tile, slots a warp step)`` of the kernel at head_dim ``hd``
+    and ``dtype`` (``Geo<T, HD>::TS``, ``SPW``); slot ``j`` of a tile is
+    consumer warp ``(j // step) % CONSUMER_WARPS``'s. bfloat16 runs on the
+    tensor cores: tiles of 16 slots a warp. float32 runs on the CUDA cores:
+    a slot's row is read by the power of two of lanes that covers its
+    16-byte chunks (32 at most), a warp reads ``32 / lanes`` rows a step,
+    and a tile is the power of two of rows nearest below ``TILE_BYTES`` of
+    K (256 at most)."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} is not one the kernel is built for "
+                         f"{HEAD_DIMS}")
+    if dtype not in DTYPE_CODES:
+        raise TypeError(f"dtype {dtype}; the kernel takes float32 or "
+                        f"bfloat16")
+    if dtype == torch.bfloat16:
+        return 16 * CONSUMER_WARPS, 16
+    row = 4 * hd
+    lanes = min(32, 1 << (row // 16 - 1).bit_length())
+    return min(256, 1 << (TILE_BYTES // row).bit_length() - 1), 32 // lanes
+
+
+def work_split(rows: int, tiles: int, blocks: int):
+    """Block i's tiles ``[i N // n, (i + 1) N // n)`` of the ``N = rows *
+    tiles`` tiles in row-major order (tile ``x`` is tile ``x % tiles`` of
+    row ``x // tiles``), for ``n = min(blocks, N)`` blocks: every block has
+    one tile or more, and two blocks' counts differ by one at most."""
+    if blocks < 1:
+        raise ValueError(f"blocks must be at least 1, got {blocks}")
+    n_all = rows * tiles
+    n = min(blocks, n_all)
+    return [(i * n_all // n, (i + 1) * n_all // n) for i in range(n)]
+
+
+def default_grid(rows: int, tiles: int, slots: int) -> int:
+    """The grid for ``rows`` rows of ``tiles`` tiles on a device with
+    ``slots`` resident blocks (its SMs times the blocks that fit one):
+    ``slots`` blocks of ``work_split``'s equal ranges, unless blocks of
+    whole rows (``rows / n`` rows each, for ``n`` dividing ``rows``) fill
+    all but ``WHOLE_ROWS_SLACK`` of the slots; then the largest such
+    ``n``, and no row is shared (no merge). Never more blocks than
+    tiles."""
+    k = -(-rows // slots)
+    while rows // k >= (1 - WHOLE_ROWS_SLACK) * slots:
+        if rows % k == 0:
+            return rows // k
+        k += 1
+    return min(slots, rows * tiles, MAX_GRID)
 
 
 def _split(q, k, v):
@@ -89,21 +147,6 @@ def _valid(valid_len, C: int) -> int:
     return n
 
 
-def decode_split(rows: int, valid: int, splits: Optional[int] = None):
-    """``(splits, chunk)`` for ``rows`` (batch, kv head, head group) rows of
-    ``valid`` live slots: block r of a row's ``splits`` takes slots
-    ``[r * chunk, min((r + 1) * chunk, valid))``, a whole number of
-    ``GRANULE``-slot granules. ``splits`` (unless given) keeps the grid
-    within ``TARGET_BLOCKS``, at most ``MAX_SPLIT`` and no more than the
-    row's granules; a block may still be empty (``r * chunk >= valid``)."""
-    n = -(-valid // GRANULE)
-    if splits is None:
-        splits = max(1, min(MAX_SPLIT, n, TARGET_BLOCKS // rows))
-    if not 1 <= splits <= MAX_SPLIT:
-        raise ValueError(f"splits must be in [1, {MAX_SPLIT}], got {splits}")
-    return splits, -(-n // splits) * GRANULE
-
-
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            valid_len, return_lse: bool = False):
     """The kernel's function in plain PyTorch: fp32 scores over every
@@ -126,7 +169,7 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid_len, *,
-         splits: Optional[int] = None, return_lse: bool = False
+         blocks: Optional[int] = None, return_lse: bool = False
          ) -> Dict[str, int]:
     """One call's work: ``flops``, the two products over the ``valid_len``
     live slots (2 FLOPs a multiply-add); ``bytes``, the live slots' keys
@@ -142,18 +185,20 @@ def cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid_len, *,
 
 def decode_attention_folded(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, valid_len, *,
-                            splits: Optional[int] = None,
+                            blocks: Optional[int] = None,
                             return_lse: bool = False):
     """Decode attention over the folded (or row-split) layout: the plain
     version on the CPU, the kernel on CUDA (or it raises), its outputs
-    unwritten on ``meta``. ``splits`` overrides the kernel's blocks per
-    row (``decode_split``); ``return_lse`` returns ``(out, lse)``."""
+    unwritten on ``meta``. ``blocks`` overrides the kernel's grid
+    (``default_grid`` of the device's SMs times the blocks that fit one;
+    at most one block a tile, and ``MAX_GRID``);
+    ``return_lse`` returns ``(out, lse)``."""
     refuse_grad("decode_attention_folded", q, k, v)
     return kernel_call("decode_attention", _route, cost, q, k, v,
-                       valid_len, splits=splits, return_lse=return_lse)
+                       valid_len, blocks=blocks, return_lse=return_lse)
 
 
-def _route(q, k, v, valid_len, *, splits, return_lse):
+def _route(q, k, v, valid_len, *, blocks, return_lse):
     if q.device.type == "cpu":           # in the kernel's layout: q's
         out = decode_attention_plain(q, k, v, valid_len, return_lse)
         if not return_lse:
@@ -161,23 +206,20 @@ def _route(q, k, v, valid_len, *, splits, return_lse):
         return torch.empty_like(q).copy_(out[0]), out[1]
     if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"no decode attention for tensors on {q.device}")
-    return _launch(q, k, v, valid_len, splits, return_lse)
+    return _launch(q, k, v, valid_len, blocks, return_lse)
 
 
 decode_attention_folded.launches = 0
 
 
-def _launch(q, k, v, valid_len, splits, return_lse=False):
+def _launch(q, k, v, valid_len, blocks, return_lse=False):
     q4, k4, v4 = _split(q, k, v)
     B, K, G, hd = q4.shape
     n = _valid(valid_len, k4.shape[2])
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} is not one the kernel is built for "
-                         f"{HEAD_DIMS}")
-    if B * K > 65535:
-        raise ValueError(f"grid too large: B*K {B * K}")
-    groups = -(-G // (G if G <= 2 else MAX_GROUP))  # the kernel's head groups
-    splits, chunk = decode_split(B * K * groups, n, splits)
+    ts = geometry(hd, q.dtype)[0]
+    if blocks is not None and blocks < 1:
+        raise ValueError(f"blocks must be at least 1, got {blocks}")
+    # every stride of k and v is a multiple of 16 bytes, as TMA needs
     for name, t in (("q", q4), ("k", k4), ("v", v4)):
         check_operand(name, t, q4)
     o = torch.empty_like(q4)
@@ -186,15 +228,24 @@ def _launch(q, k, v, valid_len, splits, return_lse=False):
         if return_lse else None
     if q.device.type == "meta":          # the dry run: shapes, no launch
         return _outputs(q, o, lse)
+    gc = group_size(G)
+    rows, per_row = B * K * -(-G // gc), -(-n // ts)
+    if blocks is None:
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        grid = default_grid(rows, per_row,
+                            sms * _blocks_per_sm(hd, q.dtype, G))
+    else:
+        grid = min(blocks, rows * per_row, MAX_GRID)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ws = _workspace(q.device, stream, 2 * grid * gc * (hd + 2))
     st = (ctypes.c_longlong * 12)(*q4.stride()[:3], *k4.stride()[:3],
                                   *v4.stride()[:3], *o.stride()[:3])
     lib = _lib()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     decode_attention_folded.launches += 1
     err = lib.decode_attention_launch(
         q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o.data_ptr(),
-        None if lse is None else lse.data_ptr(), st, B, K, G, hd, n, splits,
-        chunk, hd ** -0.5, DTYPE_CODES[q.dtype], stream)
+        None if lse is None else lse.data_ptr(), ws.data_ptr(), st, B, K,
+        G, hd, n, grid, hd ** -0.5, DTYPE_CODES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(
             "decode_attention kernel launch failed: "
@@ -210,6 +261,43 @@ def _outputs(q, o, lse):
     return out, (lse if q.dim() == 4 else lse[:, 0])
 
 
+_PER_SM: Dict[tuple, int] = {}
+_WS: Dict[tuple, torch.Tensor] = {}
+
+
+def _blocks_per_sm(hd: int, dtype: torch.dtype, G: int) -> int:
+    """Blocks of the kernel's instance for (hd, dtype, G) that fit one SM,
+    from the library's occupancy query."""
+    key = (hd, dtype, group_size(G))
+    if key not in _PER_SM:
+        n = _lib().decode_attention_blocks_per_sm(hd, DTYPE_CODES[dtype], G)
+        if n < 1:
+            raise RuntimeError(f"decode_attention occupancy query failed "
+                               f"({n}) at head_dim {hd}, {dtype}, G {G}")
+        _PER_SM[key] = n
+    return _PER_SM[key]
+
+
+def _workspace(device, stream: int, floats: int) -> torch.Tensor:
+    """The float32 workspace of a launch on ``stream`` of ``device`` (the
+    shares of rows that several blocks hold), allocated once and grown as
+    needed: launches on one stream run in order."""
+    key = (device.index, stream)
+    ws = _WS.get(key)
+    if ws is None or ws.numel() < floats:
+        ws = _WS[key] = torch.empty(floats, dtype=torch.float32,
+                                    device=device)
+    return ws
+
+
+def library_geometry(hd: int, dtype: torch.dtype):
+    """``geometry`` as the built library gives it (card only)."""
+    out = (ctypes.c_int * 3)()
+    if not _lib().decode_attention_geometry(hd, DTYPE_CODES[dtype], out):
+        return None
+    return out[0], out[1], out[2]
+
+
 _LIB = None
 
 
@@ -220,10 +308,15 @@ def _lib():
         lib = load("decode_attention")
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.decode_attention_launch.argtypes = (
-            [vp] * 5 + [ctypes.POINTER(ctypes.c_longlong)] + [ci] * 7
+            [vp] * 6 + [ctypes.POINTER(ctypes.c_longlong)] + [ci] * 6
             + [ctypes.c_float, ci, vp])
         lib.decode_attention_launch.restype = ci
         lib.decode_attention_error_string.argtypes = [ci]
         lib.decode_attention_error_string.restype = ctypes.c_char_p
+        lib.decode_attention_geometry.argtypes = [ci, ci,
+                                                  ctypes.POINTER(ci)]
+        lib.decode_attention_geometry.restype = ci
+        lib.decode_attention_blocks_per_sm.argtypes = [ci, ci, ci]
+        lib.decode_attention_blocks_per_sm.restype = ci
         _LIB = lib
     return _LIB

@@ -13,9 +13,10 @@ Two test-only emulations follow the CUDA kernels' own numerics, which the
 CPU cannot run: the tensor-core bfloat16 B3 (fp32 scores of bf16 inputs,
 the scale folded into exp2, P·V over the bf16 hi and lo parts of each
 weight, over the kernel's kv tiles) against the reference's Pallas
-kernel, and B4's split-and-combine (partial softmax states per block of
-``decode_split``, merged as the cluster merges them) against
-``decode_attention_plain``.
+kernel, and B4's split and merge (``work_split``'s tile ranges, an
+online softmax per consumer warp over its slots of each tile, the warps'
+and then the blocks' partial states merged as the kernel merges them)
+against ``decode_attention_plain``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -347,92 +348,195 @@ def test_decode_attention_refuses_bad_valid_len(valid):
         ops.decode_attention(q, k, k, valid)
 
 
-def _b4_split_emulation(q, k, v, valid, splits, chunk, tile):
-    """B4's split-and-combine in float32: block r of ``splits`` walks slots
-    [r * chunk, min((r + 1) * chunk, valid)) in ``tile``-slot tiles with an
-    online softmax (q scaled first, as the kernel stages it); the blocks'
-    (m, l, acc) merge with weights exp(m_r - max m), an empty block holding
-    (NEG_INF, 0, 0). q (BK, G, hd), k, v (BK, C, hd)."""
-    hd = q.shape[-1]
-    qs = q * np.float32(hd ** -0.5)
-    parts = []
-    for r in range(splits):
-        c0 = min(r * chunk, valid)
-        c1 = min(c0 + chunk, valid)
-        m = torch.full(q.shape[:2], fa.NEG_INF)
-        l = torch.zeros(q.shape[:2])
-        acc = torch.zeros(q.shape)
-        for base in range(c0, c1, tile):
-            kt, vt = k[:, base:min(base + tile, c1)], v[:, base:min(base + tile,
-                                                                    c1)]
-            sc = torch.einsum("bgd,bcd->bgc", qs, kt)
-            m_new = torch.maximum(m, sc.amax(-1))
-            corr = torch.exp(m - m_new)
-            p = torch.exp(sc - m_new[..., None])
-            l = l * corr + p.sum(-1)
-            acc = acc * corr[..., None] + torch.einsum("bgc,bcd->bgd", p, vt)
-            m = m_new
-        parts.append((m, l, acc))
+def _b4_merge(parts):
+    """(m, l, acc) states merged with weights exp2(m_r - max m), as the
+    kernel merges its warps' and its blocks' shares (log2 units)."""
     mx = torch.stack([m for m, _, _ in parts]).amax(0)
-    f = [torch.exp(m - mx) for m, _, _ in parts]
-    num = sum(fi[..., None] * acc for fi, (_, _, acc) in zip(f, parts))
-    den = sum(fi * l for fi, (_, l, _) in zip(f, parts))
-    return num / den.clamp_min(1e-30)[..., None]
+    f = [torch.exp2(m - mx) for m, _, _ in parts]
+    acc = sum(fi[..., None] * a for fi, (_, _, a) in zip(f, parts))
+    return mx, sum(fi * l for fi, (_, l, _) in zip(f, parts)), acc
 
 
-@pytest.mark.parametrize("bk,c,g,hd,valid,splits,tile", [
-    (2, 2080, 2, 128, 2048, None, 32),   # qwen3's rows at the serving length
-    (2, 2080, 1, 112, 2048, None, 32),   # zamba2's head_dim
-    (1, 600, 1, 128, 520, None, 32),     # 8 blocks, the last ones empty
-    (2, 100, 3, 64, 1, 8, 64),           # valid 1 over 8 blocks: 7 empty
-    (1, 300, 2, 16, 77, 3, 64),
-    (1, 64, 4, 256, 64, None, 16),
+def _b4_emulation(q, k, v, valid, blocks, dtype):
+    """B4's split and merge in float32 (q (BK, G, hd), k, v (BK, C, hd)) at
+    the kernel's geometry for ``dtype``: the (row, head group) rows' tiles
+    cut by ``work_split`` into ``blocks`` ranges; in a block each consumer
+    warp runs an online softmax over its slots of each tile of a row
+    segment (scores in log2 units, one max per tile, dead slots weigh 0),
+    the warps merge at the segment's end, a whole row is written out and a
+    row's shares over blocks merge last. Returns the output and the number
+    of rows that were split over blocks."""
+    bk_n, G, hd = q.shape
+    ts, spw = da.geometry(hd, dtype)
+    gc = da.group_size(G)
+    ng, tiles = -(-G // gc), -(-valid // ts)
+    qs = q * np.float32(hd ** -0.5 * np.log2(np.e))
+    owner = (torch.arange(ts) // spw) % da.CONSUMER_WARPS
+    out = torch.zeros_like(q)
+    shares = {}
+    for x0, x1 in da.work_split(bk_n * ng, tiles, blocks):
+        for row in range(x0 // tiles, (x1 - 1) // tiles + 1):
+            t0 = max(x0, row * tiles) - row * tiles
+            t1 = min(x1, (row + 1) * tiles) - row * tiles
+            bk, hg = divmod(row, ng)
+            heads = slice(hg * gc, min(G, (hg + 1) * gc))
+            qh = qs[bk, heads]
+            warps = []
+            for w in range(da.CONSUMER_WARPS):
+                m = torch.full((qh.shape[0],), fa.NEG_INF)
+                l = torch.zeros(qh.shape[0])
+                acc = torch.zeros(qh.shape)
+                for t in range(t0, t1):
+                    slots = t * ts + torch.nonzero(owner == w)[:, 0]
+                    live = slots < valid
+                    idx = slots.clamp(max=valid - 1)
+                    sc = torch.where(live, qh @ k[bk, idx].T, fa.NEG_INF)
+                    mn = torch.maximum(m, sc.amax(-1))
+                    corr = torch.exp2(m - mn)
+                    pw = torch.where(live, torch.exp2(sc - mn[:, None]), 0.)
+                    l = l * corr + pw.sum(-1)
+                    acc = acc * corr[:, None] + pw @ v[bk, idx]
+                    m = mn
+                warps.append((m, l, acc))
+            state = _b4_merge(warps)
+            if t0 == 0 and t1 == tiles:
+                out[bk, heads] = state[2] / state[1].clamp_min(1e-30)[:, None]
+            else:
+                shares.setdefault(row, []).append(state)
+    for row, parts in shares.items():
+        bk, hg = divmod(row, ng)
+        _, l, acc = _b4_merge(parts)
+        out[bk, hg * gc:min(G, (hg + 1) * gc)] = \
+            acc / l.clamp_min(1e-30)[:, None]
+    return out, len(shares)
+
+
+@pytest.mark.parametrize("bk,c,g,hd,valid,blocks,dtype,split", [
+    # qwen3's rows at the serving length, 264 blocks: 15-16 tiles each,
+    # ranges crossing rows
+    (64, 2080, 2, 128, 2048, 264, "bfloat16", True),
+    (8, 2080, 1, 112, 2048, 264, "bfloat16", True),   # zamba2's head_dim
+    (1, 600, 1, 128, 520, 50, "float32", True),       # one row, 33 blocks
+    (3, 300, 2, 64, 200, 5, "float32", True),         # a range across rows
+    (2, 100, 3, 64, 1, 8, "bfloat16", False),   # valid 1: 3 warps empty
+    (2, 300, 8, 16, 7, 4, "bfloat16", False),   # valid inside the first tile
+    (2, 300, 12, 16, 257, 7, "float32", True),  # G 12: two head groups
+    (1, 64, 4, 256, 64, 3, "float32", True),    # hd 256: 8-slot tiles
+    (4, 1000, 2, 128, 999, 1, "bfloat16", False),   # one block, every row
+    (1, 8200, 2, 128, 8200, 264, "bfloat16", True),  # a batch-1 rank slice
 ])
-def test_decode_split_and_combine_equals_plain(bk, c, g, hd, valid, splits,
-                                               tile):
-    """B4's partial states per block, merged as the cluster merges them,
-    equal the plain version in float32, empty blocks included (``tile``:
-    the kernel's float32 slot tile at that head_dim)."""
-    rng = np.random.default_rng(bk + c + valid)
+def test_decode_split_and_merge_equals_plain(bk, c, g, hd, valid, blocks,
+                                             dtype, split):
+    """B4's per-warp online softmax, the warps' merge and the blocks'
+    merge, over ``work_split``'s ranges at the kernel's tiles for
+    ``dtype``, equal the plain version in float32 (rtol = atol = 1e-6),
+    with empty warp shares, ranges that cross rows and rows shared by
+    several blocks (``split``)."""
+    rng = np.random.default_rng(bk + c + valid + blocks)
     q, k, v = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
                for sh in ((bk, g, hd), (bk, c, hd), (bk, c, hd)))
-    n, chunk = da.decode_split(bk, valid, splits)
-    got = _b4_split_emulation(q, k, v, valid, n, chunk, tile)
+    got, n_split = _b4_emulation(q, k, v, valid, blocks,
+                                 DTYPES[dtype][1])
+    assert (n_split > 0) == split
     want = da.decode_attention_plain(q, k, v, valid)
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("rows,valid", [
-    (64, 2048),                      # qwen3-0.6b serving
-    (256, 2048),                     # zamba2-7b serving
-    (64, 2080),                      # a full cache
-    (1, 520),
-    *[(r, v) for r in (1, 8, 64) for v in (1, 2, 7, 63, 64, 65, 300, 511,
-                                           513)],
+@pytest.mark.parametrize("hd", [16, 64, 112, 128, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_geometry_at_every_head_dim(hd, dtype):
+    """bfloat16 (tensor cores): tiles of 16 slots a consumer warp, one k16
+    step of P.V each. float32 (CUDA cores): a tile is a power of two of
+    slots near 8 KB of K (at most 256, TMA's box), every warp owns the same
+    number of slot steps of it, and a step's rows are read by a power of
+    two of lanes that covers a row's 16-byte chunks: a warp step reads one
+    contiguous run of shared memory."""
+    tdt = DTYPES[dtype][1]
+    ts, spw = da.geometry(hd, tdt)
+    if dtype == "bfloat16":
+        assert (ts, spw) == (16 * da.CONSUMER_WARPS, 16)
+        return
+    row = 4 * hd
+    lanes = 32 // spw
+    assert lanes * spw == 32 and lanes >= min(32, row // 16) > lanes // 2
+    assert ts <= 256 and ts * row <= da.TILE_BYTES < 2 * ts * row or ts == 256
+    assert ts % (da.CONSUMER_WARPS * spw) == 0
+
+
+def test_decode_group_size_and_refusals():
+    assert [da.group_size(g) for g in (1, 2, 3, 4, 5, 7, 8, 12)] == \
+        [1, 2, 4, 4, 8, 8, 8, 8]
+    with pytest.raises(ValueError):
+        da.work_split(64, 64, 0)
+    with pytest.raises(ValueError):
+        da.geometry(32, torch.bfloat16)
+    with pytest.raises(TypeError):
+        da.geometry(128, torch.float16)
+
+
+@pytest.mark.parametrize("rows,valid,hd,dtype,blocks", [
+    (64, 2048, 128, "bfloat16", 264),      # qwen3-0.6b serving
+    (256, 2048, 112, "bfloat16", 264),     # zamba2-7b serving
+    (128, 1024, 128, "bfloat16", 264),     # gemma3-27b's rings
+    (8, 8200, 128, "bfloat16", 264),       # qwen3's 1 x 8,200 rank slice
+    (64, 2080, 128, "float32", 132),       # a full cache
+    (1, 520, 128, "float32", 50),
+    *[(r, v, 128, "bfloat16", n) for r in (1, 8, 64)
+      for v in (1, 2, 31, 32, 33, 300, 513) for n in (1, 7, 264)
+      if (r * v) % 3 == 0 or n == 264],
+    (2, 100, 16, "bfloat16", 3),           # 256-slot tiles: one a row
+    (3, 77, 256, "float32", 10),           # 8-slot tiles
 ])
-def test_decode_split_covers_every_live_slot_once(rows, valid):
-    """Every live slot lands in exactly one block, every block starts on a
-    granule (so on a kernel tile), at most 8 blocks per row (one cluster),
-    and block 0 is never empty."""
-    splits, chunk = da.decode_split(rows, valid)
-    assert 1 <= splits <= da.MAX_SPLIT and chunk % da.GRANULE == 0
-    seen = np.zeros(valid, int)
-    for r in range(splits):
-        c0 = min(r * chunk, valid)
-        seen[c0:min(c0 + chunk, valid)] += 1
-    assert (seen == 1).all() and min(chunk, valid) >= 1
+def test_decode_work_split_covers_every_live_slot_once(rows, valid, hd,
+                                                       dtype, blocks):
+    """Every live (row, slot) lands in exactly one block's range, every
+    block has a tile or more, no block holds two tiles more than another
+    (so the bytes it waits for, whole tiles, differ by one tile at most),
+    and the grid is ``blocks`` unless there are fewer tiles."""
+    ts, _ = da.geometry(hd, DTYPES[dtype][1])
+    tiles = -(-valid // ts)
+    ranges = da.work_split(rows, tiles, blocks)
+    assert len(ranges) == min(blocks, rows * tiles)
+    seen = np.zeros((rows, valid), int)
+    for x0, x1 in ranges:
+        assert x1 > x0
+        for x in range(x0, x1):
+            r, t = divmod(x, tiles)
+            seen[r, t * ts:min((t + 1) * ts, valid)] += 1
+    assert (seen == 1).all()
+    counts = [x1 - x0 for x0, x1 in ranges]
+    assert max(counts) - min(counts) <= 1
+    assert ranges[0][0] == 0 and ranges[-1][1] == rows * tiles
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
 
 
-def test_decode_split_takes_a_forced_count_and_refuses_a_bad_one():
-    assert da.decode_split(64, 2048, 8) == (8, 256)
-    assert da.decode_split(1, 1, 8) == (8, 64)    # 7 empty blocks
-    for bad in (0, 9):
-        with pytest.raises(ValueError):
-            da.decode_split(64, 2048, bad)
+@pytest.mark.parametrize("rows,valid,hd,grid,want", [
+    (64, 2048, 128, 264, (7, 8)),    # qwen3-0.6b: 8 x 8 kv heads, 32 a row
+    (256, 2048, 112, 256, (32,)),    # zamba2-7b: 8 x 32, a whole row a block
+    (128, 1024, 128, 264, (7, 8)),   # gemma3-27b's rings: 8 x 16, 16 a row
+    (8, 8200, 128, 264, (3, 4)),     # a 1 x 8,200 rank slice: 129 a row
+])
+def test_decode_work_split_at_the_serving_shapes(rows, valid, hd, grid,
+                                                 want):
+    """At 132 SMs and two blocks an SM, bf16: the default grid fills all
+    264 slots, the batch-1 slice's 8 rows included, with ``want`` tiles a
+    block; zamba2-7b's 256 rows take 256 blocks of one whole row each (no
+    row shared, no merge)."""
+    ts, _ = da.geometry(hd, torch.bfloat16)
+    tiles = -(-valid // ts)
+    assert da.default_grid(rows, tiles, 2 * 132) == grid
+    ranges = da.work_split(rows, tiles, grid)
+    assert len(ranges) == grid
+    assert sorted({x1 - x0 for x0, x1 in ranges}) == list(want)
 
 
-def test_decode_split_at_the_serving_shapes():
-    """qwen3-0.6b's 64 rows take 3 blocks of 11 granules; zamba2-7b's 256
-    rows one block each (2048 live slots)."""
-    assert da.decode_split(64, 2048) == (3, 704)
-    assert da.decode_split(256, 2048) == (1, 2048)
+@pytest.mark.parametrize("rows,tiles,slots,grid", [
+    (512, 32, 264, 256),    # two whole rows a block
+    (250, 10, 264, 264),    # whole rows would leave 14 of 264 slots empty
+    (530, 4, 264, 264),     # 265 a block pair is one too many
+    (7, 3, 264, 21),        # fewer tiles than slots: a block a tile
+    (1, 1, 264, 1),
+])
+def test_decode_default_grid_takes_whole_rows_only_when_they_fill_the_card(
+        rows, tiles, slots, grid):
+    assert da.default_grid(rows, tiles, slots) == grid

@@ -38,6 +38,22 @@ def test_the_replay_kernels_share_their_header():
     assert (_build.CSRC / "replay_common.cuh").is_file()
 
 
+def test_the_attention_kernels_share_the_tensor_map_header():
+    """B3 and B4 include ``tma_common.cuh`` (tensor maps, mbarriers, TMA
+    loads) and define no tensor-map encoder or mbarrier helper of their
+    own."""
+    import re
+
+    for name in ("flash_attention", "decode_attention"):
+        text = (_build.CSRC / f"{name}.cu").read_text()
+        assert '#include "tma_common.cuh"' in text
+        assert "cuTensorMapEncodeTiled" not in text, name
+        assert not re.search(r"\b(encoder|tensor_map|mbar_\w+|tma_load_\w+)"
+                             r"\s*\([^;{]*\)\s*\{", text), name
+    header = (_build.CSRC / "tma_common.cuh").read_text()
+    assert "cuTensorMapEncodeTiled" in header and "mbar_wait" in header
+
+
 def test_every_kernel_is_found_by_the_profiler():
     """``launch/breakdown.py`` reads each kernel's device time by its symbol:
     every ``__global__`` function under ``csrc/`` matches exactly one of its

@@ -480,19 +480,20 @@ def test_decode_kernel_matches_plain_on_card(cuda_device, dtype, b, c, kh,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("valid,splits", [(1, 8), (7, 8), (200, 8),
-                                          (200, 1), (300, 5)])
+@pytest.mark.parametrize("valid,blocks", [(1, 8), (7, 8), (200, 8),
+                                          (200, 1), (300, 5), (300, 1000)])
 def test_decode_kernel_forced_splits_match_plain(cuda_device, dtype, valid,
-                                                 splits):
-    """B4 forced to ``splits`` blocks per row: blocks past valid_len are
-    empty and add nothing to the cluster's combine."""
+                                                 blocks):
+    """B4 forced onto a grid of ``blocks`` (at most one a tile): rows
+    shared by several blocks merge through the workspace, a block's range
+    may cross rows."""
     q = _randn((2, 2, 3, 128), dtype, cuda_device, 7)
     k = _randn((2, 300, 2, 128), dtype, cuda_device, 8)
     v = _randn((2, 300, 2, 128), dtype, cuda_device, 9)
     k[:, valid:] = 1e9
     v[:, valid:] = -1e9
     ks, vs = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
-    got = da.decode_attention_folded(q, ks, vs, valid, splits=splits)
+    got = da.decode_attention_folded(q, ks, vs, valid, blocks=blocks)
     torch.cuda.synchronize()
     want = da.decode_attention_plain(q, ks, vs, valid)
     tol = ATTN_TOL[dtype]
@@ -501,16 +502,17 @@ def test_decode_kernel_forced_splits_match_plain(cuda_device, dtype, valid,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,c,kh,g,hd,valid,splits", [
+@pytest.mark.parametrize("b,c,kh,g,hd,valid,blocks", [
     (1, 1040, 8, 2, 128, 1, None),     # qwen3-0.6b's slice of 2,080 slots
-    (1, 1040, 8, 2, 128, 1000, None),  # ends inside a chunk
+    (1, 1040, 8, 2, 128, 1000, None),  # ends inside a tile
     (1, 1040, 8, 2, 128, 1040, None),
     (1, 1040, 32, 1, 112, 777, None),  # zamba2-7b's head_dim
     (1, 512, 16, 2, 128, 512, None),   # a half of gemma3's ring of 1,024
-    (2, 300, 2, 6, 64, 199, 5),        # two head groups, forced splits
+    (2, 300, 2, 6, 64, 199, 5),        # G 6 in a group of 8, forced grid
+    (1, 8200, 8, 2, 128, 8200, None),  # qwen3's 1 x 8,200 rank slice
 ])
 def test_decode_kernel_lse_matches_plain(cuda_device, dtype, b, c, kh, g,
-                                         hd, valid, splits):
+                                         hd, valid, blocks):
     """B4 with ``return_lse``: one launch, the output as without it, and
     each head's log-sum-exp of its live scores against the plain
     version's ``torch.logsumexp`` (float32 throughout: 2e-5 absolute at
@@ -522,9 +524,9 @@ def test_decode_kernel_lse_matches_plain(cuda_device, dtype, b, c, kh, g,
     v[:, valid:] = -1e9
     ks, vs = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
     before = da.decode_attention_folded.launches
-    got, lse = da.decode_attention_folded(q, ks, vs, valid, splits=splits,
+    got, lse = da.decode_attention_folded(q, ks, vs, valid, blocks=blocks,
                                           return_lse=True)
-    alone = da.decode_attention_folded(q, ks, vs, valid, splits=splits)
+    alone = da.decode_attention_folded(q, ks, vs, valid, blocks=blocks)
     torch.cuda.synchronize()
     assert da.decode_attention_folded.launches == before + 2
     assert lse.dtype == torch.float32 and lse.shape == (b, kh, g)
@@ -534,6 +536,70 @@ def test_decode_kernel_lse_matches_plain(cuda_device, dtype, b, c, kh, g,
     tol = ATTN_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
     torch.testing.assert_close(lse, want_lse, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c,kh,g,hd,valid,blocks", [
+    (1, 4000, 1, 2, 128, 4000, None),  # one row over many blocks
+    (3, 300, 2, 2, 64, 200, 5),        # ranges that cross rows
+    (2, 600, 2, 2, 128, 1, None),      # valid 1: three warps' shares empty
+    (2, 600, 2, 2, 128, 20, 3),        # valid inside the first tile
+    (2, 300, 2, 3, 128, 250, None),    # G 3
+    (2, 300, 1, 8, 64, 299, 7),        # G 8
+    (2, 300, 1, 12, 64, 299, None),    # G 12: two head groups of 8
+    (2, 1000, 2, 2, 16, 777, None),    # hd 16: 256-slot tiles
+    (2, 300, 2, 2, 256, 250, None),    # hd 256
+])
+@pytest.mark.parametrize("return_lse", [False, True])
+def test_decode_kernel_edges_match_plain(cuda_device, dtype, b, c, kh, g, hd,
+                                         valid, blocks, return_lse):
+    """B4 at the edges of its split and tiles, one launch, against the
+    plain version; dead slots hold +-1e9."""
+    q = _randn((b, kh, g, hd), dtype, cuda_device, 14)
+    k = _randn((b, c, kh, hd), dtype, cuda_device, 15)
+    v = _randn((b, c, kh, hd), dtype, cuda_device, 16)
+    k[:, valid:] = 1e9
+    v[:, valid:] = -1e9
+    ks, vs = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+    before = da.decode_attention_folded.launches
+    got = da.decode_attention_folded(q, ks, vs, valid, blocks=blocks,
+                                     return_lse=return_lse)
+    torch.cuda.synchronize()
+    assert da.decode_attention_folded.launches == before + 1
+    want = da.decode_attention_plain(q, ks, vs, valid, return_lse=return_lse)
+    tol = ATTN_TOL[dtype]
+    if return_lse:
+        (got, lse), (want, want_lse) = got, want
+        torch.testing.assert_close(lse, want_lse, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_refuses_strides_tma_cannot_take(cuda_device, dtype):
+    """A cache whose slot stride is not a multiple of 16 bytes (rows of 2
+    kv heads of 64 and 2 elements of padding): TMA cannot address it, the
+    wrapper raises before any launch."""
+    q = _randn((1, 2, 2, 64), dtype, cuda_device, 17)
+    k = torch.zeros((1, 40, 2 * 64 + 2), dtype=dtype,
+                    device=cuda_device)[..., :128].unflatten(-1, (2, 64))
+    before = da.decode_attention_folded.launches
+    with pytest.raises(ValueError, match="aligned"):
+        ops.decode_attention(q, k, k, 9)
+    assert da.decode_attention_folded.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", fa.HEAD_DIMS)
+def test_decode_host_geometry_matches_the_library(cuda_device, dtype, hd):
+    """The host's tiles (the CPU emulation's and ``work_split``'s) are the
+    built kernel's, and every instance fits an SM at least once."""
+    assert da.library_geometry(hd, dtype) == (*da.geometry(hd, dtype),
+                                              da.CONSUMER_WARPS)
+    for g in (1, 2, 3, 8):
+        assert da._blocks_per_sm(hd, dtype, g) >= 1
 
 
 @pytest.mark.cuda
