@@ -15,7 +15,11 @@ result line):
                ``decode_tma_kernel`` (2 dtypes x 5 head_dims x 4 head-group
                sizes) and of its ``decode_merge_kernel``: registers and
                spills (none allowed), and B4's host tiles against the
-               library's;
+               library's; every instance of B5 (``ssd_wgmma_kernel``,
+               ``ssd_mma_kernel`` at column tiles 16, 32, 64): registers
+               and spills (none allowed), no wgmma serialized by ptxas, the
+               wgmma kernel's dynamic shared memory, and B5's host routes
+               against the library's;
   2. check   — each kernel against its plain PyTorch version on CUDA
                tensors, for seeded random swarms. B1 (zero-load replay):
                resnet101 on the paper fleet (both fidelity modes), the
@@ -175,7 +179,12 @@ result line):
                state 128) and zamba2-7b's (112 heads, state 64), B and C as
                column slices, the inputs of a real full-width ``mamba_seq``
                prefill, a log-decay steep enough that exp overflows above the
-               diagonal, and causality (future inputs leave past rows equal);
+               diagonal (both routes), the wgmma route's edges (ragged
+               chunks of 232, 17, 37 and 199 rows, 17 heads in groups of 9
+               and 8, one head, B and C sliced 20 columns in), three other
+               schedules (the static walk among them) bit for bit the
+               default's, and causality (future
+               inputs leave past rows equal); each line names its route;
  16. serve-ssm — ``Server`` with mamba2-2.7b at full width and depth (64
                layers, bfloat16, seeded weights on the card), batch 8,
                prompt 2048, 32 new tokens, no EOS; the counted call must
@@ -191,8 +200,14 @@ result line):
                against the prefill of the longer prompt (2e-3);
  19. time-ssd — B5 per launch at mamba2-2.7b's and zamba2-7b's serving
                shapes, timed as in 14 (no single PyTorch call computes it, so
-               no library yardstick), beside its plain version, the bound of
-               its 3xTF32 tensor-core route and the float32 CUDA-core bound;
+               no library yardstick), in turns with the mma.sync route (the
+               earlier kernel) and with the wgmma route's static walk of
+               its work list (no counter) at the same shape, beside its
+               plain version,
+               the bound of its 3xTF32 tensor-core route and the float32
+               CUDA-core bound; its route and TFLOP/s of issued 3xTF32 work
+               (whole tiles); the wgmma route's schedule swept (heads a work
+               item x chunks a window) with the default's place in it;
  20. serve-families — ``Server`` with every other family at full width,
                bfloat16, seeded weights, batch 8, 32 new tokens, no EOS, a
                first call then a counted one (same tokens, launches exact),
@@ -1597,6 +1612,27 @@ def main() -> int:
                 want = (*da.geometry(hd, dt), da.CONSUMER_WARPS)
                 assert got == want, f"B4 {dt} hd {hd}: library {got}, host {want}"
         print("[build] B4 host tiles match the library")
+        # B5: every instance (the wgmma kernel, the mma.sync one at column
+        # tiles 16, 32, 64) without spills, no serialized wgmma; the host's
+        # route (the CPU tests') the library's
+        from repro_torch.kernels import ssd_scan
+        log = _build.build_log("ssd_scan")
+        found = ptxas_report(log, r"ssd_(wgmma_kernel|mma_kernelILi\d+E)")
+        if log is None:
+            print("[build] B5: library cached, ptxas not rerun")
+        else:
+            assert len(found) == 4, f"ptxas lines for B5: {found}"
+            assert "serialized" not in log, "B5: ptxas serialized wgmma"
+        for (k,), line in found:
+            print(f"[build] B5 {k}: {line}", flush=True)
+            assert " 0 bytes spill stores" in line and \
+                " 0 bytes spill loads" in line, f"B5 {k} spills"
+        print(f"[build] B5 wgmma: {ssd_scan._lib().ssd_scan_wgmma_smem()} "
+              f"bytes of dynamic shared memory")
+        for p_, n_ in ((64, 128), (64, 64), (64, 32), (32, 128), (16, 8),
+                       (128, 64)):
+            assert ssd_scan.library_route(p_, n_) == ssd_scan.route(p_, n_)
+        print("[build] B5 host routes match the library")
     _phase("build", build, failures)
 
     # 2. check ------------------------------------------------------------
@@ -3291,7 +3327,8 @@ def main() -> int:
         n_bad = int((err > SSD_TOL + SSD_TOL * want.abs()).sum())
         mx = float(err.max())
         rec["ssd_max_abs_err"] = max(rec["ssd_max_abs_err"], mx)
-        print(f"[check-ssd] {tag} {tuple(x.shape)} N {B.shape[-1]}: "
+        route = ssd_scan.route(x.shape[-1], B.shape[-1])
+        print(f"[check-ssd] {tag} {tuple(x.shape)} N {B.shape[-1]} ({route}): "
               f"max_abs_err {mx:.3g} (|plain| <= {float(want.abs().max()):.3g}"
               f", tol {SSD_TOL:g}) outside {n_bad}", flush=True)
         assert bool(torch.isfinite(got).all()), tag
@@ -3337,10 +3374,31 @@ def main() -> int:
         x, cum, B, C = captured_prefill_inputs()
         assert B.stride(-2) != B.shape[-1], "expected a column slice"
         ssd_check("mamba2 prefill inputs", x, cum, B, C)
-        x, _, B, C = ssd_inputs((2, 100, 3, 16, 8), 213)
-        cum = torch.linspace(0.0, -500.0, 100, device=dev)[None, :, None] \
-            .expand(2, 100, 3).contiguous()             # exp(+500) above
-        ssd_check("steep decay", x, cum, B, C)
+        for i, shape in enumerate([(2, 100, 3, 16, 8), (2, 100, 3, 64, 128),
+                                   (2, 256, 5, 64, 64)]):
+            x, _, B, C = ssd_inputs(shape, 213 + 10 * i)
+            q, h = shape[1:3]
+            cum = torch.linspace(0.0, -500.0, q, device=dev)[None, :, None] \
+                .expand(shape[0], q, h).contiguous()     # exp(+500) above
+            ssd_check("steep decay", x, cum, B, C)
+        # the wgmma route's edges: ragged chunks, a head count its groups
+        # do not divide, one head, B and C sliced at another offset
+        for i, shape in enumerate([(6, 232, 80, 64, 128), (5, 17, 112, 64, 64),
+                                   (7, 37, 80, 64, 128), (3, 256, 17, 64, 64),
+                                   (8, 256, 1, 64, 128), (4, 199, 1, 64, 64)]):
+            ssd_check("wgmma edge", *ssd_inputs(shape, 230 + i))
+        x, cum, B, C = ssd_inputs((4, 232, 12, 64, 64), 240)
+        wide = torch.cat([C[..., :20], B, C, B[..., :4]], -1)
+        ssd_check("B, C column slices at 20", x, cum, wide[..., 20:84],
+                  wide[..., 84:148])
+        for schedule in (dict(heads=5), dict(window=1, blocks=9),
+                         dict(draw=False)):
+            x, cum, B, C = ssd_inputs((6, 232, 10, 64, 128), 241)
+            got = ssd_scan._launch(x, cum, B, C, schedule)
+            same = bool(torch.equal(got, b5(x, cum, B, C)))
+            print(f"[check-ssd] schedule {schedule}: bit for bit the "
+                  f"default's: {same}", flush=True)
+            assert same, schedule
         x, cum, B, C = ssd_inputs((2, 256, 8, 64, 128), 214)
         before = ssd_check("causality", x, cum, B, C)
         x2, B2 = x.clone(), B.clone()
@@ -3389,22 +3447,58 @@ def main() -> int:
         for cfg in (mamba2, zamba2):
             shape = ssd_shape(cfg)
             args = ssd_inputs(shape, 220)
-            k = [queued_ms(lambda: b5(*args), 20) for _ in range(5)]
+            route = ssd_scan.route(*shape[3:])
+            # the shape's route in turns with the mma.sync route (the
+            # earlier kernel, which every shape can take) and with the
+            # wgmma route's blocks walking the work list statically
+            # instead of drawing from a counter
+            k, old, walk = [], [], []
+            for _ in range(5):
+                k.append(queued_ms(lambda: b5(*args), 20))
+                old.append(queued_ms(lambda: ssd_scan._launch(
+                    *args, dict(route="mma")), 20))
+                walk.append(queued_ms(lambda: ssd_scan._launch(
+                    *args, dict(draw=False)), 20))
             p = queued_ms(lambda: ssd_scan.ssd_intra_plain(*args), 3)
             ms = float(np.median([r[0] for r in k]))
+            old_ms = float(np.median([r[0] for r in old]))
+            walk_ms = float(np.median([r[0] for r in walk]))
             bounds, ops_, mma, nbytes = ssd_bound(args)
             (f_ms, f_by), (r_ms, r_by) = bounds["fp32"], bounds["route"]
-            print(f"[time-ssd] B5 {cfg.name} {shape}: kernel ms per round "
-                  f"{[round(r[0], 5) for r in k]} (host ms per call "
-                  f"{float(np.median([r[1] for r in k])):.4f}), median "
-                  f"{ms:.4f} ms ({ops_ / ms / 1e9:.2f} TFLOP/s of the band's "
-                  f"fp32 operations, {mma / ms / 1e9:.2f} TFLOP/s of 3xTF32 "
-                  f"products), plain {p[0]:.3f} ms, library none; bound of "
-                  f"the 3xTF32 route {r_ms:.4f} ms ({r_by}: {mma:.4g} TF32 "
-                  f"operations, {nbytes:.4g} bytes), fp32 CUDA-core bound "
-                  f"{f_ms:.4f} ms ({f_by}: {ops_:.4g} operations); every "
-                  f"call queued ahead of the device: "
-                  f"{all(r[2] for r in k) and p[2]}", flush=True)
+            issued = ssd_scan.cost(*args)["issued_flops"]
+            print(f"[time-ssd] B5 {cfg.name} {shape} route {route}: kernel "
+                  f"ms per round {[round(r[0], 5) for r in k]} (host ms per "
+                  f"call {float(np.median([r[1] for r in k])):.4f}), median "
+                  f"{ms:.4f} ms ({issued / ms / 1e9:.2f} TFLOP/s of issued "
+                  f"3xTF32 work, {issued:.4g} operations over whole tiles; "
+                  f"{ops_ / ms / 1e9:.2f} TFLOP/s of the band's fp32 "
+                  f"operations, {mma / ms / 1e9:.2f} of its 3xTF32 products); "
+                  f"the mma.sync route in turns {old_ms:.4f} ms (rounds "
+                  f"{[round(r[0], 5) for r in old]}); the static walk in "
+                  f"turns {walk_ms:.4f} ms (rounds "
+                  f"{[round(r[0], 5) for r in walk]}); plain {p[0]:.3f} ms, "
+                  f"library none; bound of the 3xTF32 route {r_ms:.4f} ms "
+                  f"({r_by}: {mma:.4g} TF32 operations, {nbytes:.4g} bytes), "
+                  f"fp32 CUDA-core bound {f_ms:.4f} ms ({f_by}: {ops_:.4g} "
+                  f"operations); every call queued ahead of the device: "
+                  f"{all(r[2] for r in k + old + walk) and p[2]}",
+                  flush=True)
+            # the wgmma route's schedule: heads a work item by chunks a
+            # window of the work list (the persistent grid is one block an
+            # SM: its shared memory admits no second)
+            sweep = {}
+            for heads in (8, 16):
+                for window in (1, 2, 4, 8, 64):
+                    sweep[heads, window] = float(np.median([queued_ms(
+                        lambda: ssd_scan._launch(*args, dict(
+                            heads=heads, window=window)), 10)[0]
+                        for _ in range(3)]))
+            best = min(sweep, key=sweep.get)
+            chosen = (ssd_scan.head_group(shape[2]), ssd_scan.WINDOW)
+            print(f"[time-ssd] B5 {cfg.name} sweep (heads, window): "
+                  + ", ".join(f"{hw} {t:.4f}" for hw, t in sweep.items())
+                  + f" ms; best {best} {sweep[best]:.4f} ms, the default "
+                  f"{chosen} {sweep[chosen]:.4f} ms", flush=True)
             timing[f"ssd {cfg.name}"] = dict(ms=ms, plain_ms=p[0],
                                              library_ms=None, bound_ms=r_ms,
                                              bound_by=r_by)

@@ -743,61 +743,7 @@ struct Cfg {
 
 using namespace tma;
 
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand at `addr`:
-// `lbo` and `sbo` are the leading and stride byte offsets. K-major (q and
-// K): lbo unused, sbo = 1024 between 8-row groups. MN-major (V): lbo = the
-// 64-column blocks' stride, sbo = 1024 between groups of 8 k rows
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// until at most N of this warpgroup's committed wgmma groups are pending
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-// named barrier `id` over `n` threads: wait for it, or arrive without
-// waiting
-__device__ __forceinline__ void bar_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(int id, int n) {
-  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(n) : "memory");
-}
-
-// registers an asynchronous wgmma reads or writes: kept in place (and
-// alive) until its wait_group has passed
-template <int R>
-__device__ __forceinline__ void hold(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-template <int R>
-__device__ __forceinline__ void hold(unsigned (&d)[R][4]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(d[i][e]) :: "memory");
-}
-
-// the accumulator operands of a wgmma: d[i .. i + 7], d[i .. i + 31]
-#define WG_ACC8(i)                                                   \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),        \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+// the accumulator operands of a wgmma: d[i .. i + 31] (WG_ACC8 gives eight)
 #define WG_ACC32(i) \
   WG_ACC8(i), WG_ACC8(i + 8), WG_ACC8(i + 16), WG_ACC8(i + 24)
 
@@ -880,7 +826,6 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
 }
 
 #undef WG_ACC32
-#undef WG_ACC8
 
 // shared-memory layout of a block: q, then the ring's K and V stages (all
 // 1024-aligned: the swizzle is a function of the address), then the q

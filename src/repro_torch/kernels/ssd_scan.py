@@ -12,7 +12,10 @@ the diagonal, where the TPU grid recomputes the whole square for every head,
 and runs both products on the tensor cores in 3xTF32 (each float32 operand
 split into TF32 hi and lo parts, three products per pair), which keeps the
 float32 tolerance; ``tests/test_torch_ssd.py`` emulates its rounding on the
-CPU.
+CPU. Two routes, picked on the host from the shape by ``route``: ``wgmma``
+(``P`` 64, ``N`` 64 or 128, every served model: a persistent grid over
+``work_list``'s items, TMA loads, split tiles, ``wgmma`` with the decay
+weights from registers) and ``mma`` (every other width: ``mma.sync``).
 ``ssd_intra_plain`` is the same function in plain PyTorch, after
 ``repro/kernels/ref.py::ssd_intra_ref``: a lower-triangular ``where`` (never
 a multiplication by a mask: above the diagonal ``exp`` may be inf), then
@@ -30,9 +33,12 @@ multiples of 4 up to 128.
 kernel on CUDA, where it raises on anything the kernel does not take, and
 on ``meta`` the kernel's checks and its output without a launch. Its
 ``launches`` attribute counts kernel launches. ``cost`` is the kernel's
-analytic work: the causal band's float32 operations, the 3xTF32 route's
-tensor-core operations and the bytes moved. Like the attention kernels
-it refuses inputs that require grad while grad mode is on
+analytic work: the causal band's float32 operations, its 3xTF32
+tensor-core operations, the ``wgmma`` route's issued tensor work over
+whole tiles, and the bytes moved. The wgmma route's schedule is fixed
+(``head_group``, ``WINDOW``, one block an SM); only measurements and
+checks set another, through ``_launch``'s ``schedule``. Like the attention
+kernels it refuses inputs that require grad while grad mode is on
 (``flash_attention.refuse_grad``): ``models.ssm`` trains on the plain
 form.
 """
@@ -46,10 +52,53 @@ import torch
 from ._trace import kernel_call
 from .flash_attention import refuse_grad
 
-__all__ = ["ssd_intra_folded", "ssd_intra_plain", "check_aligned", "cost"]
+__all__ = ["ssd_intra_folded", "ssd_intra_plain", "check_aligned", "cost",
+           "route", "head_group", "work_list"]
 
 #: the longest chunk and the widest head_dim / state the kernel takes
 MAX_Q, MAX_PN = 256, 128
+#: the kernel's routes, as its C entry numbers them
+ROUTES = {"mma": 0, "wgmma": 1}
+#: the head_dims and states the wgmma route takes
+WGMMA_HEAD_DIMS, WGMMA_STATES = (64,), (64, 128)
+#: the wgmma route's rows a work item (one wgmma m64) and most heads a group
+ROWS, MAX_HEADS = 64, 16
+#: chunks a window of the work list: an item's x tiles are met again by the
+#: chunk's other row tiles within the window, while they are in the L2
+WINDOW = 8
+
+
+def route(p: int, n: int) -> str:
+    """The kernel's route at head_dim ``p`` and state ``n``."""
+    return "wgmma" if p in WGMMA_HEAD_DIMS and n in WGMMA_STATES else "mma"
+
+
+
+def head_group(h: int, heads=None) -> int:
+    """Heads a work item of the wgmma route takes: ``heads`` if given, else
+    the fewest groups of at most ``MAX_HEADS``, as even as they come."""
+    if heads is None:
+        groups = -(-h // MAX_HEADS)
+        heads = -(-h // groups)
+    if not 1 <= heads <= MAX_HEADS:
+        raise ValueError(f"heads {heads} outside 1..{MAX_HEADS}")
+    return heads
+
+
+def work_list(bc: int, q: int, h: int, heads=None, window=None):
+    """The wgmma route's work items ``(chunk, row tile, head group)`` in the
+    order its blocks draw them: windows of ``window`` chunks in turn; in
+    each, the row tiles from the last (the heaviest: it runs to the
+    diagonal over every earlier tile) to the first, each over the window's
+    chunks and their head groups."""
+    window = WINDOW if window is None else window
+    if window < 1:
+        raise ValueError(f"window {window} < 1")
+    groups = -(-h // head_group(h, heads))
+    tiles = -(-q // ROWS)
+    return [(c, t, g) for c0 in range(0, bc, window)
+            for t in reversed(range(tiles))
+            for c in range(c0, min(bc, c0 + window)) for g in range(groups)]
 
 
 def _check(xc, cum, Bc, Cc):
@@ -110,14 +159,22 @@ def cost(xc: torch.Tensor, cum: torch.Tensor, Bc: torch.Tensor,
     """One call's work over the causal band's ``Q(Q+1)/2`` pairs of each
     chunk: ``flops``, its float32 operations (the scores ``C_i . B_j``
     once a chunk, 2N each; per head a weight, 3 operations, and P
-    multiply-adds); ``tf32_flops``, the kernel's route (three TF32
-    products, 3xTF32, for each multiply-add of both products); ``bytes``,
+    multiply-adds); ``tf32_flops``, three TF32 products (3xTF32) for each
+    multiply-add of both products; ``issued_flops``, what the wgmma route
+    issues over whole 64 x 64 tiles up to the diagonal, three products
+    each: per work item (chunk, row tile t, head group) the scores of its
+    t + 1 j tiles over N, once, and each head's t + 1 x tiles; ``bytes``,
     x, cum, B and C read once and the output written once."""
     bc, q, h, p = xc.shape
     n = Bc.shape[-1]
     pairs = q * (q + 1) // 2
+    groups = -(-h // head_group(h))
+    tiles = -(-q // ROWS)
+    tile_pairs = tiles * (tiles + 1) // 2        # j tiles over the row tiles
     return {"flops": bc * pairs * (2 * n + h * (2 * p + 3)),
             "tf32_flops": 3 * bc * pairs * (2 * n + 2 * h * p),
+            "issued_flops": 3 * 2 * ROWS * ROWS * bc * tile_pairs
+            * (groups * n + h * p),
             "bytes": 4 * bc * q * (2 * h * p + h + 2 * n)}
 
 
@@ -143,7 +200,20 @@ def _route(xc, cum, Bc, Cc):
 ssd_intra_folded.launches = 0
 
 
-def _launch(xc, cum, Bc, Cc):
+def _launch(xc, cum, Bc, Cc, schedule=None):
+    """One launch on ``xc``'s device (on ``meta``, the checks and the
+    output alone). ``schedule``, for measurements and checks, overrides
+    the kernel's: ``route`` (``"mma"`` takes every shape, ``"wgmma"`` only
+    its own), and the wgmma route's ``heads`` a work item, ``window``
+    (chunks a window of ``work_list``), ``blocks`` (the persistent grid,
+    default the SM count) and ``draw`` (False: block b walks items b, b +
+    blocks, .. instead of drawing them from a counter)."""
+    schedule = dict(schedule or {})
+    use, heads = schedule.pop("route", None), schedule.pop("heads", None)
+    window = schedule.pop("window", WINDOW)
+    blocks, draw = schedule.pop("blocks", None), schedule.pop("draw", True)
+    if schedule:
+        raise ValueError(f"unknown schedule keys {sorted(schedule)}")
     bc, q, h, p = xc.shape
     n = Bc.shape[-1]
     if not 1 <= q <= MAX_Q:
@@ -156,21 +226,45 @@ def _launch(xc, cum, Bc, Cc):
         raise ValueError(f"grid too large: {bc} chunks")
     for name, t in (("xc", xc), ("Bc", Bc), ("Cc", Cc)):
         check_aligned(name, t)
+    own = route(p, n)
+    r = own if use is None else use
+    if r not in ROUTES or (r == "wgmma" and own != "wgmma"):
+        raise ValueError(f"route {r!r} does not take P {p}, N {n} (its "
+                         f"route is {own!r})")
+    heads = head_group(h, heads)
+    if window < 1 or (blocks is not None and blocks < 1):
+        raise ValueError(f"window {window} and blocks {blocks} must be >= 1")
     out = torch.empty((bc, q, h, p), dtype=torch.float32, device=xc.device)
     if xc.device.type == "meta":         # the dry run: shapes, no launch
         return out
     st = (ctypes.c_longlong * 10)(*xc.stride()[:3], *cum.stride(),
                                   *Bc.stride()[:2], *Cc.stride()[:2])
     lib = _lib()
-    stream = torch.cuda.current_stream(xc.device).cuda_stream
+    cuda_stream = torch.cuda.current_stream(xc.device)
+    counter = None                       # the items' counter, 0 at the start
+    if r == "wgmma":
+        if draw:
+            counter = torch.zeros(1, dtype=torch.int32, device=xc.device)
+        if blocks is None:
+            blocks = torch.cuda.get_device_properties(
+                xc.device).multi_processor_count
     ssd_intra_folded.launches += 1
     err = lib.ssd_scan_launch(xc.data_ptr(), cum.data_ptr(), Bc.data_ptr(),
                               Cc.data_ptr(), out.data_ptr(), st, bc, q, h, p,
-                              n, stream)
+                              n, ROUTES[r], heads, window, blocks or 0,
+                              None if counter is None else counter.data_ptr(),
+                              cuda_stream.cuda_stream)
     if err != 0:
         raise RuntimeError("ssd_scan kernel launch failed: "
                            f"{lib.ssd_scan_error_string(err).decode()}")
     return out
+
+
+def library_route(p: int, n: int) -> str:
+    """The route the built library runs at ``(p, n)`` (``route`` must give
+    the same)."""
+    code = _lib().ssd_scan_route(p, n)
+    return {v: k for k, v in ROUTES.items()}[code]
 
 
 _LIB = None
@@ -183,9 +277,14 @@ def _lib():
         lib = load("ssd_scan")
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.ssd_scan_launch.argtypes = (
-            [vp] * 5 + [ctypes.POINTER(ctypes.c_longlong)] + [ci] * 5 + [vp])
+            [vp] * 5 + [ctypes.POINTER(ctypes.c_longlong)] + [ci] * 9
+            + [vp, vp])
         lib.ssd_scan_launch.restype = ci
         lib.ssd_scan_error_string.argtypes = [ci]
         lib.ssd_scan_error_string.restype = ctypes.c_char_p
+        lib.ssd_scan_route.argtypes = [ci, ci]
+        lib.ssd_scan_route.restype = ci
+        lib.ssd_scan_wgmma_smem.argtypes = []
+        lib.ssd_scan_wgmma_smem.restype = ci
         _LIB = lib
     return _LIB

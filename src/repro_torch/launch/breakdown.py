@@ -53,7 +53,8 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 2048, 32
 #: counts its launches; a B1 or B2 call is two kernels (the carry-free pass
 #: and the walk), B3 has two bf16 tensor-core kernels (wgmma at head_dim 64,
 #: 112 and 128, mma.sync at 16 and 256) and a float32 kernel, a B4 call is
-#: the streaming kernel and, where blocks share a row, the merge kernel
+#: the streaming kernel and, where blocks share a row, the merge kernel, B5
+#: has a wgmma kernel (P 64, N 64 or 128) and an mma.sync one
 KERNELS = {
     "replay": (r"schedule_(step|walk)_kernel", schedule_sim.schedule_replay),
     "traffic": (r"traffic_(step|walk)_kernel", traffic_sim.traffic_replay),
@@ -61,7 +62,7 @@ KERNELS = {
               flash_attention.flash_attention_folded),
     "decode": (r"decode_(tma|merge)_kernel",
                decode_attention.decode_attention_folded),
-    "ssd": ("ssd_kernel", ssd_scan.ssd_intra_folded),
+    "ssd": (r"ssd_(wg)?mma_kernel", ssd_scan.ssd_intra_folded),
 }
 
 

@@ -1,6 +1,10 @@
 """``kernels/_build.py`` names each kernel library by a hash of its source,
 every shared header under ``csrc/`` and the nvcc flags, so an edited source
-or header never loads a stale library. Runs without a toolkit."""
+or header never loads a stale library. Runs without a toolkit, but for the
+``cuda`` test, which compiles B5 with ``nvcc``."""
+import re
+import subprocess
+
 import pytest
 
 from repro_torch.kernels import _build
@@ -39,12 +43,12 @@ def test_the_replay_kernels_share_their_header():
 
 
 def test_the_attention_kernels_share_the_tensor_map_header():
-    """B3 and B4 include ``tma_common.cuh`` (tensor maps, mbarriers, TMA
-    loads) and define no tensor-map encoder or mbarrier helper of their
+    """B3, B4 and B5 include ``tma_common.cuh`` (tensor maps, mbarriers,
+    TMA loads) and define no tensor-map encoder or mbarrier helper of their
     own."""
     import re
 
-    for name in ("flash_attention", "decode_attention"):
+    for name in ("flash_attention", "decode_attention", "ssd_scan"):
         text = (_build.CSRC / f"{name}.cu").read_text()
         assert '#include "tma_common.cuh"' in text
         assert "cuTensorMapEncodeTiled" not in text, name
@@ -71,3 +75,29 @@ def test_every_kernel_is_found_by_the_profiler():
         hits = [key for key, (symbol, _) in KERNELS.items()
                 if re.search(symbol, f"void {name}<128>(FlashArgs)")]
         assert len(hits) == 1, (name, hits)
+
+
+@pytest.mark.cuda
+def test_b5_builds_without_spills_or_serialized_products(tmp_path):
+    """Every B5 instance (the wgmma kernel, the mma.sync kernel at each
+    column tile) compiles with 0 spill bytes, and ptxas serializes none of
+    the wgmma kernel's products (a division, a lambda left as a call, an
+    accumulator written between products or a wait in a divergent branch
+    each made it do so)."""
+    try:
+        nvcc = _build.find_nvcc()
+    except RuntimeError as e:
+        pytest.skip(f"needs nvcc: {e}")
+    proc = subprocess.run(
+        [nvcc, *_build.NVCC_FLAGS, "-o", str(tmp_path / "ssd_scan.so"),
+         str(_build.CSRC / "ssd_scan.cu")], capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    assert proc.returncode == 0, log
+    props = re.findall(r"Function properties for (\S+)\n\s*(.*)", log)
+    kernels = {name: line for name, line in props if "ssd_" in name}
+    assert sum("ssd_wgmma_kernel" in n for n in kernels) == 1
+    assert sum("ssd_mma_kernel" in n for n in kernels) == 3
+    for name, line in kernels.items():
+        assert " 0 bytes spill stores, 0 bytes spill loads" in line, (name,
+                                                                     line)
+    assert "serialized" not in log, log

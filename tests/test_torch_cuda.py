@@ -760,6 +760,13 @@ def _ssd_inputs(shape, device, seed):
     (1, 128, 4, 64, 128),              # the reference's sweep
     (3, 17, 5, 128, 64),               # a short chunk, the widest head
     (64, 256, 80, 64, 128),            # mamba2-2.7b's serving shape
+    # the wgmma route (P 64, N 64 or 128)
+    (64, 256, 112, 64, 64),            # zamba2-7b's serving shape
+    (3, 232, 5, 64, 128),              # ragged chunks
+    (5, 17, 3, 64, 64), (6, 37, 4, 64, 128),
+    (2, 256, 17, 64, 64),              # groups of 9 and 8 heads
+    (4, 256, 1, 64, 128),              # one head
+    (2, 200, 3, 64, 32),               # N 32 keeps the mma route
 ])
 def test_ssd_kernel_matches_plain_on_card(cuda_device, shape):
     """B5, one launch, against ``ssd_intra_plain`` on the same CUDA
@@ -798,19 +805,41 @@ def test_ssd_kernel_at_the_model_widths_with_column_slices(cuda_device,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 100, 3, 16, 8), (2, 100, 3, 64, 128),
+                                   (2, 256, 4, 64, 64)])
 def test_ssd_kernel_reads_column_slices_and_skips_the_upper_triangle(
-        cuda_device):
+        cuda_device, shape):
     """B and C as column slices of one wider tensor; a log-decay so steep
-    that exp(cum_i - cum_j) overflows above the diagonal: nothing is NaN."""
-    x, _, B, C = _ssd_inputs((2, 100, 3, 16, 8), cuda_device, 1)
-    cum = torch.linspace(0.0, -500.0, 100, device=cuda_device)[
-        None, :, None].expand(2, 100, 3).contiguous()
+    that exp(cum_i - cum_j) overflows above the diagonal: nothing is NaN
+    (both routes)."""
+    bc, q, h, _, n = shape
+    x, _, B, C = _ssd_inputs(shape, cuda_device, 1)
+    cum = torch.linspace(0.0, -500.0, q, device=cuda_device)[
+        None, :, None].expand(bc, q, h).contiguous()
     wide = torch.cat([B[..., :4], B, C], -1)
-    got = ssd_scan.ssd_intra_folded(x, cum, wide[..., 4:12], wide[..., 12:])
+    got = ssd_scan.ssd_intra_folded(x, cum, wide[..., 4:4 + n],
+                                    wide[..., 4 + n:])
     torch.cuda.synchronize()
     assert bool(torch.isfinite(got).all())
     torch.testing.assert_close(got, ssd_scan.ssd_intra_plain(x, cum, B, C),
                                rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", [
+    dict(heads=4), dict(heads=1), dict(window=1), dict(window=64),
+    dict(blocks=1), dict(blocks=7, window=3, heads=5), dict(draw=False),
+    dict(draw=False, blocks=5, heads=3)])
+def test_ssd_wgmma_schedules_agree_bit_for_bit(cuda_device, schedule):
+    """The wgmma route's head groups, windows, grid and walk of the work
+    list change only who computes which item, in what order: the output is
+    bit for bit the default's, before and after."""
+    args = _ssd_inputs((6, 232, 10, 64, 128), cuda_device, 3)
+    want = ssd_scan.ssd_intra_folded(*args)
+    got = ssd_scan._launch(*args, schedule)
+    again = ssd_scan.ssd_intra_folded(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(again, want)
 
 
 @pytest.mark.cuda
@@ -828,6 +857,8 @@ def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         ssd_scan.ssd_intra_folded(*big)
     with pytest.raises(ValueError):
         ssd_scan.ssd_intra_folded(x, cum.cpu(), B, C)
+    with pytest.raises(ValueError, match="heads"):
+        ssd_scan._launch(x, cum, B, C, dict(heads=17))
 
 
 @pytest.mark.cuda

@@ -2,9 +2,11 @@
 port's layout wrapper on CPU tensors, against the reference's Pallas kernel
 (interpret mode, as ``tests/test_kernels.py`` runs it) and its
 ``ref.ssd_intra_ref`` oracle, over the reference's own sweep; causality, the
-masked entries above the diagonal, and the wrapper's refusals; and an
+masked entries above the diagonal, and the wrapper's refusals; an
 emulation of the CUDA kernel's 3xTF32 tensor-core rounding (the CPU cannot
-run the kernel) against the Pallas kernel.
+run the kernel) against the Pallas kernel; and the host's side of the
+kernel's two routes: the route by shape, the wgmma route's work list and
+its issued tensor work in ``cost``.
 
 Inputs are drawn with numpy as the reference test draws them and handed to
 both packages. Tolerance 1e-4 (rtol and atol), float32: the reference
@@ -108,6 +110,15 @@ def test_ssd_intra_refuses_bad_operands():
         ssd_scan.ssd_intra_folded(fold[0], fold[1][:, :8], *fold[2:])
     with pytest.raises(ValueError, match="Bc and Cc"):
         ssd_scan.ssd_intra_folded(*fold[:3], fold[3][..., :2])
+    meta = [a.to("meta") for a in fold]    # a schedule (measurements')
+    with pytest.raises(ValueError, match="heads"):
+        ssd_scan._launch(*meta, dict(heads=17))
+    with pytest.raises(ValueError, match="window"):
+        ssd_scan._launch(*meta, dict(window=0))
+    with pytest.raises(ValueError, match="route"):     # P 8: mma only
+        ssd_scan._launch(*meta, dict(route="wgmma"))
+    with pytest.raises(ValueError, match="schedule"):
+        ssd_scan._launch(*meta, dict(walk=1))
     out = ssd_scan.ssd_intra_folded(*(a.to("meta") for a in fold))
     assert out.device.type == "meta" and out.shape == fold[0].shape
     with pytest.raises(ValueError):        # no route off the CPU, card, meta
@@ -154,32 +165,47 @@ def _tf32(a: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
-def _split(a):
+def _split(a, route="mma"):
+    """A float32 operand as the route's TF32 parts: hi rounded; lo rounded
+    too on the mma route, and on the wgmma route passed as it is, which the
+    tensor core reads with its low 13 bits dropped (a tensor core that
+    rounded them instead would only come closer)."""
     hi = _tf32(a)
-    return hi, _tf32(a - hi)
+    lo = a - hi
+    if route == "mma":
+        return hi, _tf32(lo)
+    return hi, (lo.contiguous().view(torch.int32) & ~0x1FFF).view(
+        torch.float32)
 
 
-def _mm3(a, b):
-    """a @ b as the kernel's mma3: the small terms lo·hi + hi·lo and the
-    large one hi·hi summed apart, then added; every product of two TF32
-    values is exact in float32, the sums are float32."""
-    (ah, al), (bh, bl) = _split(a), _split(b)
+def _mm3(a, b, route="mma"):
+    """a @ b as the kernel's three products: the small terms lo·hi + hi·lo
+    and the large one hi·hi summed apart, then added; every product of two
+    TF32 values is exact in float32, the sums are float32."""
+    (ah, al), (bh, bl) = _split(a, route), _split(b, route)
     return (al @ bh + ah @ bl) + ah @ bh
 
 
-def _b5_tensor_core_emulation(xc, cum, Bc, Cc):
-    """What the kernel computes, on the folded layout in float32: scores
-    C·Bᵀ in 3xTF32; W = scores · 2^((cum_i − cum_j) · log2 e) in float32
-    with j > i set to 0 before the exp is taken (the kernel's ex2.approx
-    differs from this exact exp2 by ~2^-22 relative); W·x in 3xTF32."""
+def _b5_tensor_core_emulation(xc, cum, Bc, Cc, route="mma"):
+    """What the kernel's ``route`` computes, on the folded layout in
+    float32: scores C·Bᵀ in 3xTF32; W = scores · 2^((cum_i − cum_j) ·
+    log2 e) in float32 with j > i set to 0 before the exp is taken (the
+    kernel's ex2.approx differs from this exact exp2 by ~2^-22 relative);
+    W·x in 3xTF32. The ``mma.sync`` route (the earlier kernel) rounds at
+    these points; the ``wgmma`` route at the same ones, but for its lo parts
+    (``_split``). It
+    splits C and W in registers and B and x once an item in shared memory
+    (its integer rounding is ``_tf32``'s) and keeps the small products in
+    their own accumulator; its k order within each 8 columns (0 2 4 6 1 3
+    5 7) only reorders float32 sums."""
     q = xc.shape[1]
-    scores = _mm3(Cc, Bc.transpose(1, 2))                  # (bc, i, j)
+    scores = _mm3(Cc, Bc.transpose(1, 2), route)           # (bc, i, j)
     tril = torch.ones((q, q), dtype=torch.bool).tril()[None, :, :, None]
     li, lj = cum[:, :, None, :], cum[:, None, :, :]        # (bc, i/j, h)
     gap = torch.where(tril, li - lj, 0.0) * np.float32(1.4426950408889634)
     w = torch.where(tril, scores[..., None] * torch.exp2(gap), 0.0)
     w = w.permute(0, 3, 1, 2)                              # (bc, h, i, j)
-    return _mm3(w, xc.permute(0, 2, 1, 3)).permute(0, 2, 1, 3)
+    return _mm3(w, xc.permute(0, 2, 1, 3), route).permute(0, 2, 1, 3)
 
 
 def test_tf32_rounding_keeps_ten_bits_ties_away():
@@ -198,21 +224,24 @@ def test_tf32_rounding_keeps_ten_bits_ties_away():
     (2, 256, 3, 64, 64, False),      # zamba2-7b's state
     (3, 232, 2, 64, 128, False),     # a ragged last chunk (1000 = 3·256 + 232)
     (1, 100, 3, 16, 8, True),        # cum_i − cum_j reaches +500 above
+    (2, 256, 4, 64, 128, True),      # the same on the wgmma route
 ])
 def test_tensor_core_ssd_numerics_match_reference(bc, q, h, p, n, steep):
-    """The kernel's 3xTF32 rounding points stay within 1e-4 + 1e-4 |ref|
-    of the reference's Pallas kernel (interpret mode) on the same inputs,
-    with nothing inf or NaN where exp overflows above the diagonal."""
+    """The rounding points of the kernel's route at this shape stay within
+    1e-4 + 1e-4 |ref| of the reference's Pallas kernel (interpret mode) on
+    the same inputs, with nothing inf or NaN where exp overflows above the
+    diagonal."""
+    route = ssd_scan.route(p, n)
     xc, cum, B, C = (a[:, 0] for a in _inputs(bc, 1, q, h, p, n, q + n))
     if steep:
         cum = np.broadcast_to(np.linspace(0.0, -500.0, q, dtype=np.float32)
                               [None, :, None], (bc, q, h)).copy()
-    got = _b5_tensor_core_emulation(*_t(xc, cum, B, C)).numpy()
+    got = _b5_tensor_core_emulation(*_t(xc, cum, B, C), route=route).numpy()
     want = np.asarray(ref_ops.ssd_intra(
         *(a[:, None] for a in (xc, cum, B, C))))[:, 0]
     err = np.abs(got - want)
     margin = float((err / (TOL + TOL * np.abs(want))).max())
-    print(f"B5 3xTF32 emulation {(bc, q, h, p, n)} steep={steep}: "
+    print(f"B5 3xTF32 emulation ({route}) {(bc, q, h, p, n)} steep={steep}: "
           f"max_abs_err {err.max():.3g}, worst error / (tol + tol |ref|) "
           f"{margin:.4f}")
     assert np.isfinite(got).all() and margin <= 1.0
@@ -223,3 +252,64 @@ def test_tensor_core_ssd_numerics_match_reference(bc, q, h, p, n, steep):
         full = np.einsum("bin,bjn->bij", C.astype(np.float64),
                          B.astype(np.float64))
         assert np.abs(one - full).max() > TOL * (1 + np.abs(full).max())
+
+
+# ---------------------------------------------------------------------------
+# the host's side of the two routes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("p,n,want", [
+    (64, 128, "wgmma"),             # mamba2-2.7b
+    (64, 64, "wgmma"),              # zamba2-7b
+    (64, 32, "mma"), (64, 16, "mma"), (32, 128, "mma"), (128, 64, "mma"),
+    (16, 8, "mma"), (8, 4, "mma"),  # the reference sweep's widths
+])
+def test_route_is_chosen_by_shape(p, n, want):
+    """The wgmma route takes P 64 and N 64 or 128; every other width keeps
+    the mma.sync route. The choice depends on the shape alone."""
+    assert ssd_scan.route(p, n) == want
+
+
+@pytest.mark.parametrize("bc,q,h,heads,window", [
+    (64, 256, 80, None, None),      # mamba2-2.7b's serving call
+    (64, 256, 112, None, None),     # zamba2-7b's
+    (3, 232, 17, None, 2),          # a ragged chunk, groups of 9 and 8
+    (5, 37, 1, None, 4),            # one row tile, one head
+    (4, 256, 6, 4, 1),              # groups of 4 and 2, windows of 1
+    (7, 200, 3, 2, 64),             # one window over every chunk
+])
+def test_work_list_takes_each_item_once_heaviest_first(bc, q, h, heads,
+                                                      window):
+    """Every (chunk, row tile, head group) once; windows of chunks in
+    order, each a contiguous run; in each, row tiles from the last (the
+    most j tiles) down; groups of at most 16 heads covering every head."""
+    items = ssd_scan.work_list(bc, q, h, heads, window)
+    per = ssd_scan.head_group(h, heads)
+    groups, tiles = -(-h // per), -(-q // 64)
+    assert per <= 16 and (groups - 1) * per < h <= groups * per
+    assert len(items) == len(set(items)) == bc * tiles * groups
+    assert set(items) == {(c, t, g) for c in range(bc) for t in range(tiles)
+                          for g in range(groups)}
+    window = ssd_scan.WINDOW if window is None else window
+    starts = [c // window for c, _, _ in items]
+    assert starts == sorted(starts)
+    for w in set(starts):
+        run = [t for (c, t, _), s in zip(items, starts) if s == w]
+        assert run == sorted(run, reverse=True)
+
+
+@pytest.mark.parametrize("bc,q,h,p,n", [
+    (64, 256, 80, 64, 128), (64, 256, 112, 64, 64),
+    (3, 232, 17, 64, 128), (2, 100, 6, 64, 64)])
+def test_cost_counts_the_wgmma_routes_issued_work(bc, q, h, p, n):
+    """``issued_flops``: over the work list, each item's t + 1 j tiles of
+    scores (64 x 64 over N) and of each of its heads (64 x 64 over 64),
+    three TF32 products each; never less than the band's 3xTF32 work."""
+    xc, cum = torch.zeros(bc, q, h, p), torch.zeros(bc, q, h)
+    B = torch.zeros(bc, q, n)
+    work = ssd_scan.cost(xc, cum, B, B)
+    per = ssd_scan.head_group(h)
+    want = sum(3 * 2 * 64 * 64 * (t + 1) * (n + min(per, h - g * per) * p)
+               for _, t, g in ssd_scan.work_list(bc, q, h))
+    assert work["issued_flops"] == want
+    assert work["tf32_flops"] <= want
