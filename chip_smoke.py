@@ -10,8 +10,8 @@ result line):
   1. build   — compile every CUDA kernel of ``_build.SOURCES`` (every
                ``src/repro_torch/kernels/csrc/*.cu``) with nvcc, one process
                per source, all started together; B3's wgmma kernel at head_dim
-               64, 112 and 128: ptxas's registers and spills (none allowed)
-               and its dynamic shared memory; every instance of B4's
+               64, 112, 128 and 256: ptxas's registers and spills (none
+               allowed) and its dynamic shared memory; every instance of B4's
                ``decode_tma_kernel`` (2 dtypes x 5 head_dims x 4 head-group
                sizes) and of its ``decode_merge_kernel``: registers and
                spills (none allowed), and B4's host tiles against the
@@ -123,7 +123,11 @@ result line):
                tile, G 8 and 12, head_dim 16 and 256; the edges
                of B3's 128-row tiles: seq 1 and 17, 256 (whole tiles), 129
                (hd 64 bidirectional, hd 112 causal), a window of 7 and G 3
-               and 4 at hd 128;
+               and 4 at hd 128; new with the last two dense models: B3 and B4
+               at gemma-7b's serving shapes (16 heads of 256; cache 2080,
+               valid 2048) and starcoder2-3b's (2 kv heads of 12 query heads
+               of 128), B3's head_dim-256 edges (one token, seq 129, a window
+               of 100);
  12. serve   — the LM main path: ``repro_torch.launch.serve.Server`` with
                qwen3-0.6b at full width and depth (28 layers, bfloat16,
                seeded weights on the card), batch 8, prompt 2048, 32 new
@@ -171,7 +175,8 @@ result line):
                rotating over copies of the cache that exceed 4 x the 50 MB
                L2) and B4's time by grid size (``blocks=``, the chosen
                default printed); B4 with and without ``return_lse`` in turns
-               at qwen3's serving cache and at a rank's batch-1 slice;
+               at qwen3's serving cache and at a rank's batch-1 slice; B3
+               and B4 at gemma-7b's and starcoder2-3b's serving shapes;
  15. check-ssd — B5 (the SSD intra-chunk form) against its plain version
                on CUDA tensors, every element within 1e-4 + 1e-4 |plain|:
                the reference's sweep shapes, chunks of 17 and 37 rows,
@@ -218,7 +223,10 @@ result line):
                vision embeddings + 1024 tokens; 24 B3, 744 B4),
                whisper-medium (24 + 24 layers, 1500 frames, 187 decoder
                tokens; 48 B3, 744 B4, cross attention plain), qwen3-0.6b
-               with the int8 KV cache (28 B3, 868 B4) and, last, kept for
+               with the int8 KV cache (28 B3, 868 B4), gemma-7b (28
+               layers, 16 heads of 256, geglu, vocab 256,000: 28 B3, 868
+               B4), starcoder2-3b (30 layers, 24 q / 2 kv heads of 128: 30
+               B3, 930 B4) and, last, kept for
                moe-a2a, mixtral-8x7b cut to 16 of 32 layers (prompt 2048,
                16,384 tokens: capacity 5120 an expert; 16 B3, 496 B4);
  20b. moe-a2a — mixtral with ``moe_impl="a2a"`` (experts dispatched by
@@ -237,8 +245,10 @@ result line):
                the window), mixtral with 2 layers, internvl2 with 2 layers
                (1024 vision + 276 tokens), whisper with 2 + 2 layers (1500
                frames), qwen3 with 2 layers and the int8 cache (no
-               teacher-forced check: the prefill attends unquantized keys);
-               bfloat16 arctic with 1 layer;
+               teacher-forced check: the prefill attends unquantized keys),
+               gemma-7b and starcoder2-3b with 2 layers (batch 2, prompt
+               1000); bfloat16 arctic with 1 layer and gemma-7b with 2 (the
+               head_dim-256 wgmma B3);
  22. train-check — the training route (``loss_fn`` and its backward) on
                the card against the same route on the CPU, float32 at full
                width from the same seeded weights and data-stream batch:
@@ -1571,10 +1581,12 @@ def main() -> int:
             assert {hd for hd, _ in found} == set(fa.WGMMA_HEAD_DIMS), \
                 f"ptxas lines for B3 wgmma at {[hd for hd, _ in found]}"
         for hd, line in found:
-            print(f"[build] B3 wgmma hd {hd}: {line}; "
+            print(f"[build] B3 wgmma hd {hd} kv tile "
+                  f"{fa.tile_geometry(hd, torch.bfloat16)['bkv']}: {line}; "
                   f"{lib.flash_attention_wgmma_smem(hd)} bytes of dynamic "
                   f"shared memory", flush=True)
-            assert " 0 bytes spill stores" in line, f"B3 wgmma hd {hd} spills"
+            assert " 0 bytes spill stores" in line and \
+                " 0 bytes spill loads" in line, f"B3 wgmma hd {hd} spills"
         # the host's bf16 route and tiles (the CPU emulation's) are the
         # library's
         for hd in fa.HEAD_DIMS:
@@ -2681,6 +2693,7 @@ def main() -> int:
     gemma3, mixtral, arctic, internvl2, whisper = (get(a) for a in (
         "gemma3-27b", "mixtral-8x7b", "arctic-480b", "internvl2-2b",
         "whisper-medium"))
+    gemma7, starcoder2 = get("gemma-7b"), get("starcoder2-3b")
     H, KV, HD = qwen.n_heads, qwen.n_kv_heads, qwen.head_dim
     G = H // KV
     serve_cache = SERVE_PROMPT + SERVE_NEW
@@ -2706,6 +2719,10 @@ def main() -> int:
         assert n_bad == 0, f"{kind} {tag}: {n_bad} elements beyond tol {tol}"
 
     def check_attn():
+        g7kv, g7hd = gemma7.n_kv_heads, gemma7.head_dim
+        g7g = gemma7.n_heads // g7kv
+        s2kv, s2hd = starcoder2.n_kv_heads, starcoder2.head_dim
+        s2g = starcoder2.n_heads // s2kv
         gkv, ghd = gemma3.n_kv_heads, gemma3.head_dim
         gg, wkv = gemma3.n_heads // gkv, whisper.n_kv_heads
         flash_cases = [(shape, True, w, tag) for shape, w, tag in [
@@ -2732,7 +2749,16 @@ def main() -> int:
             ((1, 300, 2, 3, 128), True, 0, "G 3"),
             ((1, 300, 1, 4, 128), True, 0, "G 4"),
             ((2, 129, 2, 1, 64), False, 0, "a row past a tile"),
-            ((1, 129, 2, 2, 112), True, 0, "hd 112 a row past a tile")]
+            ((1, 129, 2, 2, 112), True, 0, "hd 112 a row past a tile"),
+            # gemma-7b's and starcoder2-3b's prefills, and the edges of the
+            # head_dim-256 wgmma route's 80-row kv tiles
+            ((SERVE_BATCH, SERVE_PROMPT, g7kv, g7g, g7hd), True, 0,
+             "gemma-7b serve"),
+            ((SERVE_BATCH, SERVE_PROMPT, s2kv, s2g, s2hd), True, 0,
+             "starcoder2-3b serve"),
+            ((1, 1, 2, 2, 256), True, 0, "hd 256 one token"),
+            ((1, 129, 2, 2, 256), True, 0, "hd 256 a row past a q tile"),
+            ((1, 700, 1, 2, 256), True, 100, "hd 256 window 100")]
         # (shape, valid, tag, B4's grid: None for the default)
         decode_cases = [
             ((SERVE_BATCH, serve_cache, KV, G, HD), v, f"qwen3 valid {v}",
@@ -2758,7 +2784,11 @@ def main() -> int:
             ((2, 300, 2, 3, 128), 250, "G 3"),
             ((2, 300, 1, 12, 64), 299, "G 12, two head groups"),
             ((2, 1000, 2, 2, 16), 777, "hd 16, 256-slot tiles"),
-            ((2, 300, 2, 2, 256), 250, "hd 256, G 2")]] + [
+            ((2, 300, 2, 2, 256), 250, "hd 256, G 2"),
+            ((SERVE_BATCH, serve_cache, g7kv, g7g, g7hd), SERVE_PROMPT,
+             "gemma-7b serve"),
+            ((SERVE_BATCH, serve_cache, s2kv, s2g, s2hd), SERVE_PROMPT,
+             "starcoder2-3b serve (G 12)")]] + [
             ((3, 300, 2, 2, 64), 200, "ranges across rows", 5),
             ((2, 600, 2, 2, 128), 20, "valid inside the first tile", 3),
             ((2, 300, 1, 8, 64), 299, "G 8, a forced grid", 7)]
@@ -3169,7 +3199,7 @@ def main() -> int:
                     bound_ms=1e3 * max(t_ops, t_bytes),
                     bound_by="operations" if t_ops >= t_bytes else "bytes")
         print(f"[time-attn] B3 {tag} bf16 q {tuple(q.shape)} causal "
-              f"{causal} window {window}: kernel "
+              f"{causal} window {window}, route {fa.route(hd, dt)}: kernel "
               f"{ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s of the band, "
               f"{issued / ms / 1e9:.2f} TFLOP/s issued: {issued:.4g} "
               f"tensor-core FLOPs), plain "
@@ -3274,6 +3304,12 @@ def main() -> int:
         timing["decode slice"] = time_decode(
             "qwen3 1 x 8,200 slice", KV, G, HD, C=SLICE_SLOTS,
             valid=SLICE_SLOTS, B=1)
+        for cfg in (gemma7, starcoder2):
+            kv, hd = cfg.n_kv_heads, cfg.head_dim
+            timing[f"flash {cfg.name}"] = time_flash(
+                cfg.name, kv, cfg.n_heads // kv, hd)
+            timing[f"decode {cfg.name}"] = time_decode(
+                cfg.name, kv, cfg.n_heads // kv, hd)
         time_lse("qwen3 serve", SERVE_BATCH, serve_cache, SERVE_PROMPT)
         half = (SEQ_PROMPT + SEQ_NEW) // 2
         time_lse("qwen3 seq-decode slice", 1, half, SEQ_PROMPT + 1 - half)
@@ -3509,7 +3545,7 @@ def main() -> int:
     #: each run: (config, its depth cut); the card's 80 GB force the cuts
     #: mixtral runs last, its server kept on the card for moe-a2a
     family_runs = [
-        (gemma3, ""),
+        (gemma3, ""), (gemma7, ""), (starcoder2, ""),
         (dataclasses.replace(arctic, n_layers=2),
          " (of 35: a layer of 128 experts holds 13.6 B parameters)"),
         (internvl2, ""), (whisper, " (24 encoder + 24 decoder)"),
@@ -3671,6 +3707,9 @@ def main() -> int:
                                          dec_layers=2)])
         serve_check([dataclasses.replace(qwen, n_layers=2, kv_dtype="int8")])
         serve_check([dataclasses.replace(arctic, n_layers=1)], "bfloat16")
+        serve_check([dataclasses.replace(gemma7, n_layers=2),
+                     dataclasses.replace(starcoder2, n_layers=2)])
+        serve_check([dataclasses.replace(gemma7, n_layers=2)], "bfloat16")
     _phase("serve-check-families", serve_check_families, failures)
 
     # 22. train-check: the training route's gradients, card against CPU ---

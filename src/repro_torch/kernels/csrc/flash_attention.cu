@@ -15,37 +15,47 @@
 // What bounds it on the H100: at qwen3-0.6b's serving shape (B*K = 64,
 // G = 2, S = 2048, hd = 128) the causal band is 1.375e11 FLOPs against
 // ~0.2 GB of q/k/v/o, far above the card's ridge point, so it is bound by
-// operations: 0.139 ms at the 989 TFLOP/s bf16 tensor-core peak. There are
+// operations: 0.139 ms at the 989 TFLOP/s bf16 tensor-core peak (gemma-7b's,
+// B*K = 128, G = 1, hd = 256: 2.75e11 FLOPs, 0.278 ms). There are
 // three routes behind one entry point, chosen by the wrapper
 // (flash_attention.py::route) from the dtype and head_dim:
 //
-// bfloat16 at head_dim 64, 112 and 128 (every served prefill):
+// bfloat16 at head_dim 64, 112, 128 and 256 (every served prefill):
 //   flash_bf16_wgmma_kernel, on the tensor cores through wgmma.
 //   * what bounds it: operations. The tensor cores issue 1.5x the band's
 //     products (P.V runs twice, once for each bf16 part of the weights,
-//     below) over whole 128 x 128 tiles, so the floor is 1.5x the band's
-//     FLOPs at the peak; the softmax's exp2f, max and conversions run on
-//     the other pipes and must hide behind the products. The design keeps
-//     the tensor cores fed: the only instruction that reaches the peak
-//     (wgmma), loads that cost the consumers no instructions (TMA), and
-//     two consumer warpgroups that take turns at the tensor cores, each
-//     running a tile's softmax while the products of its last tile and of
-//     the other warpgroup run.
+//     below) over whole tiles, so the floor is 1.5x the band's FLOPs at
+//     the peak; the softmax's exp2f, max and conversions run on the other
+//     pipes and must hide behind the products. The design keeps the tensor
+//     cores fed: the only instruction that reaches the peak (wgmma), loads
+//     that cost the consumers no instructions (TMA), and two consumer
+//     warpgroups that take turns at the tensor cores, each running a
+//     tile's softmax while the products of its last tile and of the other
+//     warpgroup run.
 //   * one block of 384 threads owns a (128-row q tile, kv-head row, group
 //     head): warpgroup 0 is the producer, warpgroups 1 and 2 the consumers,
 //     each owning 64 query rows. setmaxnreg moves registers from the
 //     producer (24 a thread) to the consumers (240).
-//   * the producer's one thread loads q once and then every 128-row K and
-//     V tile of the block's band by TMA (cp.async.bulk.tensor) straight
-//     from the model's (B, S, K, G, hd) / (B, S, K, hd) layout: the host
-//     builds one 5-D (q) or 4-D (k, v) tensor map over the element
-//     strides. A tile lands as 64-column blocks with the 128-byte swizzle
-//     that wgmma reads; rows past seq and columns past head_dim (112 in a
-//     128-column tile) are zero-filled by the TMA unit. K and V go through
-//     a ring of stages (3 at hd 112 and 128, 4 at hd 64) guarded by a full
-//     mbarrier (the TMA's bytes) and an empty one (one arrival per
-//     consumer warp once its products on the stage have completed);
-//   * S = Q.K^T is wgmma m64n128k16 with both operands in shared memory
+//   * kv tiles are 128 rows, but 80 at head_dim 256: there O alone takes
+//     hd / 2 = 128 registers a consumer thread, and S and P's two parts
+//     over 128 columns would take 128 more, past the 240; over 80 columns
+//     they take 80 (208 in all). The ring holds as many stages as fit
+//     beside q in the 227 KB a block may use: 4 at hd 64, 3 at 112 and
+//     128, 2 at 256 (q 64 KB, a K or V stage 40 KB). Of 80-, 64- and
+//     48-row tiles at 256, 80 ran fastest (PERF.md).
+//   * the producer's one thread loads q once and then every K and V tile of
+//     the block's band by TMA (cp.async.bulk.tensor) straight from the
+//     model's (B, S, K, G, hd) / (B, S, K, hd) layout: the host builds one
+//     5-D (q) or 4-D (k, v) tensor map over the element strides. A tile
+//     lands as 64-column blocks with the 128-byte swizzle that wgmma reads;
+//     rows past seq and columns past head_dim (112 in a 128-column tile)
+//     are zero-filled by the TMA unit. A stage has a full mbarrier (the
+//     TMA's bytes) and an empty one (one arrival per consumer warp), freed
+//     once its P.V has completed; in a ring of 2 stages (hd 256) K and V
+//     have a pair each, and K is freed once its scores have completed, so
+//     the next K loads while the last P.V runs (one pair for both costs
+//     hd 112 and 128 2-3 % in a deeper ring: PERF.md);
+//   * S = Q.K^T is wgmma m64n{bkv}k16 with both operands in shared memory
 //     (K-major descriptors; the k16 steps advance 32 bytes inside a
 //     swizzle atom; at hd 112 the seven steps stop short of the zero
 //     columns). The online softmax runs on the accumulator registers: a
@@ -53,30 +63,31 @@
 //     when some row of the warp raised its max, and masks are evaluated
 //     only on tiles that cross the diagonal, the window's edge or the
 //     ragged tail;
-//   * O += P.V is wgmma m64n{hd}k16 with A from registers: the weights are
-//     split straight from the S accumulators (the accumulator layout of
-//     wgmma is its register-A layout, row pairs of 8 columns) into two
-//     bf16 parts, hi = bf16(p) and lo = bf16(p - hi), each multiplied by
-//     V: hi + lo is p to 2^-18, where one bf16 rounding (2^-9) put the
-//     served 2-layer model's logits past the bf16 tolerance (PERF.md).
-//     V is the B operand read MN-major through the descriptor's
-//     transpose bit. l sums the fp32 weights;
+//   * O += P.V is wgmma m64n{hd}k16 with A from registers (m64n256k16 at
+//     hd 256, the widest n wgmma takes): the weights are split straight
+//     from the S accumulators (the accumulator layout of wgmma is its
+//     register-A layout, row pairs of 8 columns) into two bf16 parts, hi =
+//     bf16(p) and lo = bf16(p - hi), each multiplied by V: hi + lo is p to
+//     2^-18, where one bf16 rounding (2^-9) put the served 2-layer model's
+//     logits past the bf16 tolerance (PERF.md). V is the B operand read
+//     MN-major through the descriptor's transpose bit. l sums the fp32
+//     weights;
 //   * a consumer issues tile j's S and tile j - 1's P.V together in its
 //     turn (named barriers hand the turn between the two consumers), then
 //     waits for S only: tile j's softmax overlaps the P.V. O is rescaled
 //     and P rewritten once that P.V has completed. Registers: O (hd / 2),
-//     S (64) and P's two parts (64) a thread, 0 bytes of spill at 240.
+//     S (bkv / 2) and P's two parts (bkv / 2) a thread, 0 bytes of spill
+//     at 240.
 //
 // The scale is applied to the fp32 scores, folded with log2(e) into exp2f,
 // so a masked score (NEG_INF) still underflows to exactly 0 once a row has
 // a live key, and a wholly masked first tile (p = exp2(0) = 1) is wiped by
 // corr = 0 at the next, as in the reference.
 //
-// bfloat16 at head_dim 16 (the reduced test configs) and 256 (gemma-7b):
+// bfloat16 at head_dim 16 (the reduced test configs):
 //   flash_bf16_mma_kernel, the Ampere-style route: mma.sync m16n8k16,
-//   ldmatrix and cp.async, 128-row q tiles of 4 warps (8 at hd 256), kv
-//   tiles of 64 rows (32 at hd 256) in a ring, the same softmax and the
-//   same hi + lo weights.
+//   ldmatrix and cp.async, 128-row q tiles of 4 warps, kv tiles of 64 rows
+//   in a ring, the same softmax and the same hi + lo weights.
 //
 // float32 (the exact model checks): flash_f32_kernel, scalar fp32 FMAs on
 //   the CUDA cores, to stay within 2e-5 of the plain version (TF32 would
@@ -351,27 +362,25 @@ cudaError_t launch(const FlashArgs& a, int G, int BK, cudaStream_t st) {
 }  // namespace f32
 
 // ---------------------------------------------------------------------------
-// bfloat16 at head_dim 16 and 256: tensor cores (mma.sync, ldmatrix,
-// cp.async as inline PTX)
+// bfloat16 at head_dim 16: tensor cores (mma.sync, ldmatrix, cp.async as
+// inline PTX)
 // ---------------------------------------------------------------------------
 
 namespace tc {
 
 constexpr int kBQ = 128;                    // query rows per block
 
-// per head_dim: m16 tiles (16 q rows) per warp (2, so each K and V fragment
-// feeds two products; 1 at hd 256, for registers), warps, kv rows per tile,
-// ring stages, blocks per SM. O and S take MT * (HD + BKV) / 2 fp32
-// registers a thread: kv tiles are 64 rows while that stays within 176,
-// else 32 (hd 256)
+// m16 tiles (16 q rows) per warp (2, so each K and V fragment feeds two
+// products), warps, kv rows per tile, ring stages, blocks per SM
 template <int HD>
 struct Cfg {
-  static constexpr int MT = HD >= 256 ? 1 : 2;
+  static_assert(HD == 16, "the mma.sync route runs head_dim 16 only");
+  static constexpr int MT = 2;
   static constexpr int WARPS = kBQ / (16 * MT);
   static constexpr int THREADS = 32 * WARPS;
-  static constexpr int BKV = HD < 256 && MT * (HD + 64) / 2 <= 176 ? 64 : 32;
-  static constexpr int STAGES = MT == 2 && BKV == 64 ? 2 : 3;
-  static constexpr int MIN_BLOCKS = MT == 1 ? 1 : 2;
+  static constexpr int BKV = 64;
+  static constexpr int STAGES = 2;
+  static constexpr int MIN_BLOCKS = 2;
   // the q tile and STAGES K and V tiles, rows padded by 8 bf16
   static constexpr size_t SMEM =
       sizeof(__nv_bfloat16) * (HD + 8) * (kBQ + 2 * STAGES * BKV);
@@ -449,7 +458,6 @@ flash_bf16_mma_kernel(const FlashArgs a) {
   constexpr int NS = BKV / 8;           // n tiles of S
   constexpr int NO = HD / 8;            // n tiles of O
   constexpr int WR = 16 * MT;           // query rows per warp
-  constexpr bool kQInRegs = HD * MT <= 128;
   static_assert(HD % 16 == 0 && BKV % 16 == 0, "m16n8k16 tiling");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
@@ -520,7 +528,7 @@ flash_bf16_mma_kernel(const FlashArgs a) {
   const int r0 = lane >> 2, c0 = 2 * (lane & 3);
   const float sl2 = a.scale * 1.4426950408889634f;   // scale * log2(e)
 
-  unsigned qf[kQInRegs ? MT : 1][kQInRegs ? KS : 1][4];
+  unsigned qf[MT][KS][4];                // the warp's q rows, loaded once
   float o[MT][NO][4];
   float m[MT][2], l[MT][2];
 #pragma unroll
@@ -541,14 +549,12 @@ flash_bf16_mma_kernel(const FlashArgs a) {
     if (j + STAGES - 1 < j1)
       load_kv(j + STAGES - 1, (it + STAGES - 1) % STAGES);
     cp_async_commit();
-    if constexpr (kQInRegs) {
-      if (it == 0) {
+    if (it == 0) {
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
+      for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-          for (int kk = 0; kk < KS; ++kk)
-            ldmatrix_x4(qf[mt][kk], qa + 16 * mt * RB + 32 * kk);
-      }
+        for (int kk = 0; kk < KS; ++kk)
+          ldmatrix_x4(qf[mt][kk], qa + 16 * mt * RB + 32 * kk);
     }
     const int k0 = j * BKV;
     // a tile wholly outside this warp's rows' band adds nothing
@@ -567,24 +573,14 @@ flash_bf16_mma_kernel(const FlashArgs a) {
         for (int e = 0; e < 4; ++e) s[mt][n][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
-      unsigned af[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        if constexpr (kQInRegs) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) af[mt][e] = qf[mt][kk][e];
-        } else {
-          ldmatrix_x4(af[mt], qa + 16 * mt * RB + 32 * kk);
-        }
-      }
 #pragma unroll
       for (int np = 0; np < NS / 2; ++np) {
         unsigned bk[4];
         ldmatrix_x4(bk, ka + stage + 16 * np * RB + 32 * kk);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
-          mma(s[mt][2 * np], af[mt], bk[0], bk[1]);
-          mma(s[mt][2 * np + 1], af[mt], bk[2], bk[3]);
+          mma(s[mt][2 * np], qf[mt][kk], bk[0], bk[1]);
+          mma(s[mt][2 * np + 1], qf[mt][kk], bk[2], bk[3]);
         }
       }
     }
@@ -714,31 +710,43 @@ cudaError_t launch(const FlashArgs& a, int G, int BK, cudaStream_t st) {
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
-// bfloat16 at head_dim 64, 112, 128: wgmma, TMA and mbarriers, warp
+// bfloat16 at head_dim 64, 112, 128 and 256: wgmma, TMA and mbarriers, warp
 // specialised (inline PTX)
 // ---------------------------------------------------------------------------
 
 namespace wg {
 
 constexpr int kBQ = 128;      // query rows per block: two consumers of 64
-constexpr int kBKV = 128;     // kv rows per tile (the n of S = Q.K^T)
 constexpr int kThreads = 384; // the producer warpgroup and two consumers
 constexpr int kConsumerWarps = 8;
+constexpr int kSmemMax = 232448;  // dynamic shared memory a block may use
 
-// per head_dim: 64-column blocks of a tile (the 128-byte swizzle atom is 64
+// per head_dim: kv rows per tile (the n of S = Q.K^T: 128, but 80 at
+// head_dim 256, where O takes 128 registers a consumer thread; see the top
+// of the file), 64-column blocks of a tile (the 128-byte swizzle atom is 64
 // bf16 wide; hd 112 takes two, the second zero-filled past column 112), k16
-// steps of Q.K^T, ring stages, and shared-memory bytes of q, of one K (or V)
-// stage, and in all (the 1024-byte alignment the swizzle needs, the tiles,
-// then the q barrier and each stage's full and empty barriers)
+// steps of Q.K^T, shared-memory bytes of q and of one K (or V) stage, the
+// ring's stages (as many as fit beside q, at most 4: 4 at hd 64, 3 at 112
+// and 128, 2 at 256), whether K and V of a stage have barriers of their own
+// (`SPLIT`, in a ring of 2 stages) and the bytes in all (the 1024-byte
+// alignment the swizzle needs, the tiles, then the q barrier and each
+// stage's four: K and V landed, K and V freed; a ring of 3 or more uses
+// the K pair for both)
 template <int HD>
 struct Cfg {
+  static constexpr int BKV = HD > 128 ? 80 : 128;
   static constexpr int NB = (HD + 63) / 64;
   static constexpr int KS = HD / 16;
-  static constexpr int STAGES = HD <= 64 ? 4 : 3;
   static constexpr int Q_BYTES = NB * kBQ * 128;
-  static constexpr int KV_BYTES = NB * kBKV * 128;
+  static constexpr int KV_BYTES = NB * BKV * 128;
+  static constexpr int FIT = (kSmemMax - 1024 - Q_BYTES - 8) /
+                             (2 * KV_BYTES + 32);
+  static constexpr int STAGES = FIT < 4 ? FIT : 4;
+  static constexpr bool SPLIT = STAGES == 2;
   static constexpr int SMEM =
-      1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * (1 + 2 * STAGES);
+      1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * (1 + 4 * STAGES);
+  static_assert(BKV % 16 == 0 && STAGES >= 2 && SMEM <= kSmemMax,
+                "a kv tile of 16-row steps and a ring of two stages or more");
 };
 
 using namespace tma;
@@ -747,8 +755,24 @@ using namespace tma;
 #define WG_ACC32(i) \
   WG_ACC8(i), WG_ACC8(i + 8), WG_ACC8(i + 16), WG_ACC8(i + 24)
 
-// d (m64 x n128, fp32) = [d +] A . B^T, A and B bf16 K-major in shared
-// memory; `accumulate` 0 overwrites d
+// d (m64 x nN, fp32) = [d +] A . B^T for N = 80 and 128 (the kv tiles),
+// A and B bf16 K-major in shared memory; `accumulate` 0 overwrites d
+__device__ __forceinline__ void wgmma_ss(float (&d)[40], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, %40, %41, p, 1, 1, 0, 0;\n}\n"
+      : WG_ACC32(0), WG_ACC8(32)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
                                          uint64_t db, int accumulate) {
   asm volatile(
@@ -768,8 +792,9 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// d (m64 x nN, fp32) += A . B for N = 64, 112 and 128 (the head_dims), A
-// bf16 from registers, B bf16 MN-major in shared memory (the transpose bit)
+// d (m64 x nN, fp32) += A . B for N = 64, 112, 128 and 256 (the
+// head_dims), A bf16 from registers, B bf16 MN-major in shared memory (the
+// transpose bit)
 __device__ __forceinline__ void wgmma_rs(float (&d)[32],
                                          const unsigned (&a)[4],
                                          uint64_t db) {
@@ -825,75 +850,119 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_rs(float (&d)[128],
+                                         const unsigned (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : WG_ACC32(0), WG_ACC32(32), WG_ACC32(64), WG_ACC32(96)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 #undef WG_ACC32
 
 // shared-memory layout of a block: q, then the ring's K and V stages (all
 // 1024-aligned: the swizzle is a function of the address), then the q
-// barrier and each stage's full and empty barriers
-template <int HD>
+// barrier and each stage's barriers
+template <class C>
 struct Smem {
   uint32_t q, k, v, qbar;
   __device__ explicit Smem(uint32_t base)
-      : q(base), k(base + Cfg<HD>::Q_BYTES),
-        v(k + Cfg<HD>::STAGES * Cfg<HD>::KV_BYTES),
-        qbar(v + Cfg<HD>::STAGES * Cfg<HD>::KV_BYTES) {}
-  __device__ uint32_t full(int s) const { return qbar + 8u * (1 + s); }
-  __device__ uint32_t empty(int s) const {
-    return qbar + 8u * (1 + Cfg<HD>::STAGES + s);
+      : q(base), k(base + C::Q_BYTES), v(k + C::STAGES * C::KV_BYTES),
+        qbar(v + C::STAGES * C::KV_BYTES) {}
+  // stage s's K (V) tile has landed: the TMA's bytes
+  __device__ uint32_t full_k(int s) const { return qbar + 8u * (1 + s); }
+  __device__ uint32_t full_v(int s) const {
+    return C::SPLIT ? qbar + 8u * (1 + C::STAGES + s) : full_k(s);
+  }
+  // every consumer warp is done with stage s's K (V) tile
+  __device__ uint32_t empty_k(int s) const {
+    return qbar + 8u * (1 + 2 * C::STAGES + s);
+  }
+  __device__ uint32_t empty_v(int s) const {
+    return C::SPLIT ? qbar + 8u * (1 + 3 * C::STAGES + s) : empty_k(s);
   }
 };
 
 // the producer's one thread: q, then K and V tile j of the band into stage
-// (j - j0) % STAGES once every consumer warp has freed it
-template <int HD>
+// (j - j0) % STAGES once every consumer warp has freed that stage: with
+// `SPLIT`, K once the scores of the tile there are done and V once its
+// P.V is, so in a ring of 2 the next K loads while the last P.V runs; else
+// both once its P.V is
+template <class C>
 __device__ __forceinline__ void produce(const CUtensorMap* tq,
                                         const CUtensorMap* tk,
                                         const CUtensorMap* tv,
-                                        const Smem<HD>& sm, int q0, int g,
+                                        const Smem<C>& sm, int q0, int g,
                                         int kh, int b, int j0, int j1) {
-  using C = Cfg<HD>;
   mbar_expect_tx(sm.qbar, C::Q_BYTES);
   for (int c = 0; c < C::NB; ++c)
     tma_load_5d(sm.q + c * kBQ * 128, tq, sm.qbar, 64 * c, q0, g, kh, b);
   for (int j = j0; j < j1; ++j) {
     const int it = j - j0, s = it % C::STAGES;
-    if (it >= C::STAGES) mbar_wait(sm.empty(s), (it / C::STAGES - 1) & 1);
-    mbar_expect_tx(sm.full(s), 2 * C::KV_BYTES);
-    for (int c = 0; c < C::NB; ++c) {
-      const uint32_t off = s * C::KV_BYTES + c * kBKV * 128;
-      tma_load_4d(sm.k + off, tk, sm.full(s), 64 * c, j * kBKV, kh, b);
-      tma_load_4d(sm.v + off, tv, sm.full(s), 64 * c, j * kBKV, kh, b);
+    const uint32_t parity = (it / C::STAGES - 1) & 1;
+    const uint32_t off = s * C::KV_BYTES;
+    if (it >= C::STAGES) mbar_wait(sm.empty_k(s), parity);
+    mbar_expect_tx(sm.full_k(s), C::SPLIT ? C::KV_BYTES : 2 * C::KV_BYTES);
+    for (int c = 0; c < C::NB; ++c)
+      tma_load_4d(sm.k + off + c * C::BKV * 128, tk, sm.full_k(s), 64 * c,
+                  j * C::BKV, kh, b);
+    if constexpr (C::SPLIT) {
+      if (it >= C::STAGES) mbar_wait(sm.empty_v(s), parity);
+      mbar_expect_tx(sm.full_v(s), C::KV_BYTES);
     }
+    for (int c = 0; c < C::NB; ++c)
+      tma_load_4d(sm.v + off + c * C::BKV * 128, tv, sm.full_v(s), 64 * c,
+                  j * C::BKV, kh, b);
   }
 }
 
 // S = Q . K^T for one kv tile into `sc` (fp32), issued and committed as one
 // wgmma group: KS k16 steps, each advancing 32 bytes inside the swizzle
 // atom of q and of K
-template <int HD>
-__device__ __forceinline__ void issue_s(float (&sc)[kBKV / 2], uint32_t qa,
+template <class C>
+__device__ __forceinline__ void issue_s(float (&sc)[C::BKV / 2], uint32_t qa,
                                         uint32_t ks) {
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < Cfg<HD>::KS; ++kk) {
+  for (int kk = 0; kk < C::KS; ++kk) {
     const uint32_t col = (kk % 4) * 32;
     wgmma_ss(sc, desc(qa + (kk / 4) * kBQ * 128 + col, 16, 1024),
-             desc(ks + (kk / 4) * kBKV * 128 + col, 16, 1024), kk > 0);
+             desc(ks + (kk / 4) * C::BKV * 128 + col, 16, 1024), kk > 0);
   }
   wgmma_commit();
 }
 
 // O += P . V for one kv tile, as one wgmma group: V's k16 step kk is its
 // rows 16 kk .. 16 kk + 15, multiplied by the hi and then the lo part of P
-template <int R>
+template <class C, int R>
 __device__ __forceinline__ void issue_pv(float (&o)[R],
-                                         const unsigned (&ph)[kBKV / 16][4],
-                                         const unsigned (&pl)[kBKV / 16][4],
+                                         const unsigned (&ph)[C::BKV / 16][4],
+                                         const unsigned (&pl)[C::BKV / 16][4],
                                          uint32_t vs) {
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kBKV / 16; ++kk) {
-    const uint64_t dv = desc(vs + kk * 16 * 128, kBKV * 128, 1024);
+  for (int kk = 0; kk < C::BKV / 16; ++kk) {
+    const uint64_t dv = desc(vs + kk * 16 * 128, C::BKV * 128, 1024);
     wgmma_rs(o, ph[kk], dv);
     wgmma_rs(o, pl[kk], dv);
   }
@@ -911,18 +980,17 @@ __device__ __forceinline__ void issue_pv(float (&o)[R],
 // warpgroup's products. Both consumers visit every tile of the block's
 // band, so their turns pair up; a tile wholly outside a warpgroup's rows'
 // band is all NEG_INF, and its weights are wiped by corr = 0 at the row's
-// first live tile.
-template <int HD>
+// first live tile (or weigh exactly 0 after its last).
+template <class C, int HD>
 __device__ __forceinline__ void consume(const FlashArgs& a,
-                                        const Smem<HD>& sm, int cw, int t,
+                                        const Smem<C>& sm, int cw, int t,
                                         int q0, int g, int kh, int b, int j0,
                                         int j1) {
   using bf16 = __nv_bfloat16;
-  using C = Cfg<HD>;
-  constexpr int STAGES = C::STAGES;
-  constexpr int NS = kBKV / 8;          // 8-column n tiles of S
+  constexpr int STAGES = C::STAGES, BKV = C::BKV;
+  constexpr int NS = BKV / 8;           // 8-column n tiles of S
   constexpr int NO = HD / 8;            // 8-column n tiles of O
-  constexpr int PK = kBKV / 16;         // k16 steps of P.V
+  constexpr int PK = BKV / 16;          // k16 steps of P.V
   const int lane = t % 32;
   const int wq0 = q0 + 64 * cw;
   const int r0 = 16 * (t / 32) + (lane >> 2), c0 = 2 * (lane & 3);
@@ -930,11 +998,20 @@ __device__ __forceinline__ void consume(const FlashArgs& a,
   const float sl2 = a.scale * 1.4426950408889634f;   // scale * log2(e)
   const uint32_t qa = sm.q + cw * 64 * 128;
   auto stage = [&](int j) { return (j - j0) % STAGES; };
-  auto arrived = [&](int j) {           // tile j is in its stage
-    mbar_wait(sm.full(stage(j)), ((j - j0) / STAGES) & 1);
+  auto parity = [&](int j) { return ((j - j0) / STAGES) & 1; };
+  // tile j's K (V) is in its stage; this warp is done with it (without
+  // `SPLIT` one barrier pair covers both: V has landed with K, and K is
+  // freed with V)
+  auto arrived_k = [&](int j) { mbar_wait(sm.full_k(stage(j)), parity(j)); };
+  auto arrived_v = [&](int j) {
+    if constexpr (C::SPLIT) mbar_wait(sm.full_v(stage(j)), parity(j));
   };
-  auto release = [&](int j) {           // this warp is done with tile j
-    if (lane == 0) mbar_arrive(sm.empty(stage(j)));
+  auto release_k = [&](int j) {
+    if constexpr (C::SPLIT)
+      if (lane == 0) mbar_arrive(sm.empty_k(stage(j)));
+  };
+  auto release_v = [&](int j) {
+    if (lane == 0) mbar_arrive(sm.empty_v(stage(j)));
   };
   // this warpgroup's turn at the tensor cores, and the hand-over (the last
   // of warpgroup 1 has no turn to pair with)
@@ -943,13 +1020,13 @@ __device__ __forceinline__ void consume(const FlashArgs& a,
     if (!(last && cw == 1)) bar_arrive(2 - cw, 256);
   };
 
-  float o[HD / 2], sc[kBKV / 2];
+  float o[HD / 2], sc[BKV / 2];
   unsigned ph[PK][4], pl[PK][4];
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 #pragma unroll
   for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < kBKV / 2; ++i) sc[i] = 0.f;
+  for (int i = 0; i < BKV / 2; ++i) sc[i] = 0.f;
 
   // tile j's scores (complete in sc) -> its weights in ph, pl, with O
   // rescaled by the change of each row's max; first, where `wait_pv`,
@@ -959,8 +1036,8 @@ __device__ __forceinline__ void consume(const FlashArgs& a,
   // rescaled only when some row of the warp raised its max (corr is exactly
   // 1 otherwise)
   auto softmax = [&](int j, bool wait_pv) {
-    const int k0 = j * kBKV;
-    if (k0 + kBKV > S || (a.causal && k0 + kBKV - 1 > wq0) ||
+    const int k0 = j * BKV;
+    if (k0 + BKV > S || (a.causal && k0 + BKV - 1 > wq0) ||
         (a.window && k0 <= wq0 + 63 - a.window)) {
 #pragma unroll
       for (int n = 0; n < NS; ++n)
@@ -1002,7 +1079,7 @@ __device__ __forceinline__ void consume(const FlashArgs& a,
       hold(o);
       hold(ph);
       hold(pl);
-      release(j - 1);
+      release_v(j - 1);
     }
     if (__any_sync(0xffffffffu, moved)) {
 #pragma unroll
@@ -1025,31 +1102,35 @@ __device__ __forceinline__ void consume(const FlashArgs& a,
 
   if (cw == 1) bar_arrive(1, 256);     // warpgroup 0 takes the first turn
   mbar_wait(sm.qbar, 0);
-  arrived(j0);
+  arrived_k(j0);
   my_turn();
-  issue_s<HD>(sc, qa, sm.k + stage(j0) * C::KV_BYTES);
+  issue_s<C>(sc, qa, sm.k + stage(j0) * C::KV_BYTES);
   hand_over(false);
   wgmma_wait<0>();
   hold(sc);
+  release_k(j0);
   softmax(j0, false);
   for (int j = j0 + 1; j < j1; ++j) {
-    arrived(j);
+    arrived_k(j);
+    arrived_v(j - 1);
     my_turn();
-    issue_s<HD>(sc, qa, sm.k + stage(j) * C::KV_BYTES);
-    issue_pv(o, ph, pl, sm.v + stage(j - 1) * C::KV_BYTES);
+    issue_s<C>(sc, qa, sm.k + stage(j) * C::KV_BYTES);
+    issue_pv<C>(o, ph, pl, sm.v + stage(j - 1) * C::KV_BYTES);
     hand_over(false);
     wgmma_wait<1>();                    // S of tile j (P.V of j - 1 runs on)
     hold(sc);
+    release_k(j);
     softmax(j, true);
   }
+  arrived_v(j1 - 1);
   my_turn();
-  issue_pv(o, ph, pl, sm.v + stage(j1 - 1) * C::KV_BYTES);
+  issue_pv<C>(o, ph, pl, sm.v + stage(j1 - 1) * C::KV_BYTES);
   hand_over(true);
   wgmma_wait<0>();
   hold(o);
   hold(ph);
   hold(pl);
-  release(j1 - 1);
+  release_v(j1 - 1);
 
   // epilogue: the row sums over the 4 lanes of a row, divide, round, store
 #pragma unroll
@@ -1076,21 +1157,26 @@ flash_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
                         const __grid_constant__ CUtensorMap tv,
                         const FlashArgs a) {
+  using C = Cfg<HD>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  const Smem<HD> sm((smem_addr(smem_raw) + 1023u) & ~1023u);
+  const Smem<C> sm((smem_addr(smem_raw) + 1023u) & ~1023u);
   const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
   const int g = blockIdx.y;
   const int b = blockIdx.z / a.K, kh = blockIdx.z % a.K;
   const int q0 = qt * kBQ;
   const int tid = threadIdx.x;
   int j0, j1;
-  kv_range(a, q0, kBQ, kBKV, j0, j1);
+  kv_range(a, q0, kBQ, C::BKV, j0, j1);
 
   if (tid == 0) {
     mbar_init(sm.qbar, 1);
-    for (int s = 0; s < Cfg<HD>::STAGES; ++s) {
-      mbar_init(sm.full(s), 1);
-      mbar_init(sm.empty(s), kConsumerWarps);
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(sm.full_k(s), 1);
+      mbar_init(sm.empty_k(s), kConsumerWarps);
+      if (C::SPLIT) {
+        mbar_init(sm.full_v(s), 1);
+        mbar_init(sm.empty_v(s), kConsumerWarps);
+      }
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -1099,10 +1185,10 @@ flash_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   // the two roles never reconverge (setmaxnreg holds for each to its end)
   if (tid < 128) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
-    if (tid == 0) produce<HD>(&tq, &tk, &tv, sm, q0, g, kh, b, j0, j1);
+    if (tid == 0) produce<C>(&tq, &tk, &tv, sm, q0, g, kh, b, j0, j1);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
-    consume<HD>(a, sm, tid / 128 - 1, tid % 128, q0, g, kh, b, j0, j1);
+    consume<C, HD>(a, sm, tid / 128 - 1, tid % 128, q0, g, kh, b, j0, j1);
   }
 }
 
@@ -1115,13 +1201,15 @@ cudaError_t launch(const FlashArgs& a, int B, int G, cudaStream_t st) {
   const long long kd[4] = {HD, a.S, a.K, B};
   const long long ks[3] = {a.k_ss, a.k_sk, a.k_sb};
   const long long vs[3] = {a.v_ss, a.v_sk, a.v_sb};
-  // bf16 boxes of 64 columns x 128 rows with the 128-byte swizzle wgmma reads
-  const cuuint32_t box[5] = {64, 128, 1, 1, 1};
+  // bf16 boxes of 64 columns x 128 q rows (C::BKV kv rows) with the
+  // 128-byte swizzle wgmma reads
+  const cuuint32_t qbox[5] = {64, kBQ, 1, 1, 1};
+  const cuuint32_t kvbox[4] = {64, C::BKV, 1, 1};
   const CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
-  if (!tensor_map(&tq, bf16, 2, a.q, 5, qd, qs, box, sw) ||
-      !tensor_map(&tk, bf16, 2, a.k, 4, kd, ks, box, sw) ||
-      !tensor_map(&tv, bf16, 2, a.v, 4, kd, vs, box, sw))
+  if (!tensor_map(&tq, bf16, 2, a.q, 5, qd, qs, qbox, sw) ||
+      !tensor_map(&tk, bf16, 2, a.k, 4, kd, ks, kvbox, sw) ||
+      !tensor_map(&tv, bf16, 2, a.v, 4, kd, vs, kvbox, sw))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       flash_bf16_wgmma_kernel<HD>,
@@ -1136,9 +1224,9 @@ cudaError_t launch(const FlashArgs& a, int B, int G, cudaStream_t st) {
 }  // namespace wg
 
 // routes (flash_attention.py::ROUTES): 0 float32 on the CUDA cores, 1 bf16
-// mma.sync (head_dim 16 and 256), 2 bf16 wgmma (head_dim 64, 112, 128)
+// mma.sync (head_dim 16), 2 bf16 wgmma (head_dim 64, 112, 128, 256)
 template <int HD>
-constexpr int bf16_route() { return HD == 16 || HD == 256 ? 1 : 2; }
+constexpr int bf16_route() { return HD == 16 ? 1 : 2; }
 
 template <int HD>
 cudaError_t launch_hd(const FlashArgs& a, int route, int B, int G,
@@ -1159,7 +1247,7 @@ int tiles_hd(int route, int* t) {
     t[1] = tc::Cfg<HD>::BKV;
   } else {
     t[0] = wg::kBQ;
-    t[1] = wg::kBKV;
+    t[1] = wg::Cfg<HD>::BKV;
   }
   return 1;
 }
@@ -1179,6 +1267,7 @@ int flash_attention_wgmma_smem(int hd) {
     case 64: return wg::Cfg<64>::SMEM;
     case 112: return wg::Cfg<112>::SMEM;
     case 128: return wg::Cfg<128>::SMEM;
+    case 256: return wg::Cfg<256>::SMEM;
     default: return 0;
   }
 }

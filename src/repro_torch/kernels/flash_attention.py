@@ -6,12 +6,13 @@ of the Pallas kernel ``repro/kernels/flash_attention.py::_flash_kernel``:
 an online softmax with fp32 running max, sum and accumulator over the kv
 tiles that meet each query tile's causal / window band. It has three
 routes behind one entry point, which ``route`` picks from the dtype and
-head_dim: bfloat16 at head_dim 64, 112 and 128 (every served prefill) on
-the tensor cores through ``wgmma``, with TMA loads and warp-specialised
-warpgroups; bfloat16 at head_dim 16 and 256 through ``mma.sync``; both
-with fp32 accumulators and the weights entering P·V as two bf16 parts so
-they keep fp32 precision, checked at 2e-2; float32 on the CUDA cores
-(scalar fp32 FMAs, no TF32), checked at 2e-5. ``tile_geometry`` gives
+head_dim: bfloat16 at head_dim 64, 112, 128 and 256 (every served
+prefill) on the tensor cores through ``wgmma``, with TMA loads and
+warp-specialised warpgroups; bfloat16 at head_dim 16 (the reduced test
+configs) through ``mma.sync``; both with fp32 accumulators and the
+weights entering P·V as two bf16 parts so they keep fp32 precision,
+checked at 2e-2; float32 on the CUDA cores (scalar fp32 FMAs, no TF32),
+checked at 2e-5. ``tile_geometry`` gives
 each bf16 route's query and kv tile; ``library_tiles`` reads them from the
 built library, and ``chip_smoke.py``'s build phase holds the two equal.
 ``flash_attention_plain`` is the same function in plain PyTorch, with the
@@ -59,11 +60,11 @@ HEAD_DIMS = (16, 64, 112, 128, 256)
 #: the dtypes the kernels take, with the code their C entry points use
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: B3's routes, with the code its C entry point takes: float32 on the CUDA
-#: cores, bfloat16 through ``mma.sync`` (head_dim 16 and 256) or through
-#: ``wgmma`` with TMA loads (head_dim 64, 112 and 128)
+#: cores, bfloat16 through ``mma.sync`` (head_dim 16) or through ``wgmma``
+#: with TMA loads (head_dim 64, 112, 128 and 256)
 ROUTES = {"f32": 0, "mma": 1, "wgmma": 2}
 #: the head_dims of the ``wgmma`` route
-WGMMA_HEAD_DIMS = (64, 112, 128)
+WGMMA_HEAD_DIMS = (64, 112, 128, 256)
 
 
 def route(hd: int, dtype: torch.dtype) -> str:
@@ -85,10 +86,10 @@ def tile_geometry(hd: int, dtype: torch.dtype) -> Dict[str, int]:
     the kv tiles are where the online softmax rescales, so the CPU
     emulation of the bf16 routes and ``issued_flops`` follow them."""
     r = route(hd, dtype)
-    if r == "wgmma":
-        return {"bq": 128, "bkv": 128}
+    if r == "wgmma":     # at 256, S and P over 80 columns beside O's 128
+        return {"bq": 128, "bkv": 80 if hd == 256 else 128}
     if r == "mma":
-        return {"bq": 128, "bkv": 64 if hd < 256 else 32}
+        return {"bq": 128, "bkv": 64}
     raise ValueError("the float32 route has no tensor-core tiles")
 
 
@@ -184,9 +185,10 @@ def cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def issued_flops(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  causal: bool, window: int) -> int:
     """The tensor-core FLOPs the ``wgmma`` route issues for one call: every
-    kv tile that meets a 128-row q tile's band, whole (the masks zero what
-    lies outside the band), with the scores over head_dim and P·V twice,
-    for the hi and the lo part of the weights."""
+    kv tile (``tile_geometry``'s) that meets a 128-row q tile's band, whole
+    (the masks zero what lies outside the band, and both consumer
+    warpgroups run every tile), with the scores over head_dim and P·V
+    twice, for the hi and the lo part of the weights."""
     q5, k4, v4 = _split(q, k, v)
     B, K, G, S, hd = q5.shape
     if route(hd, q.dtype) != "wgmma":

@@ -156,19 +156,20 @@ def test_operand_check_takes_the_model_layout_views():
 
 def test_flash_route_and_tiles_follow_head_dim_and_dtype():
     """B3's route, chosen on the host: wgmma for bf16 at the served
-    head_dims, mma.sync at 16 and 256, the CUDA cores in float32; each
-    bf16 route's tiles as the kernel sets them (held to the built library
-    by ``chip_smoke.py`` and ``test_torch_cuda.py``)."""
+    head_dims (64, 112, 128 and gemma-7b's 256), mma.sync at 16, the CUDA
+    cores in float32; each bf16 route's tiles as the kernel sets them (held
+    to the built library by ``chip_smoke.py`` and ``test_torch_cuda.py``):
+    80-row kv tiles at 256, where O takes 128 registers a thread."""
     for hd in fa.HEAD_DIMS:
         assert fa.route(hd, torch.float32) == "f32"
         assert fa.route(hd, torch.bfloat16) == (
-            "wgmma" if hd in (64, 112, 128) else "mma")
+            "wgmma" if hd in (64, 112, 128, 256) else "mma")
         with pytest.raises(ValueError, match="float32"):
             fa.tile_geometry(hd, torch.float32)
     assert all(fa.tile_geometry(hd, torch.bfloat16) == {"bq": 128, "bkv": 128}
                for hd in (64, 112, 128))
     assert fa.tile_geometry(16, torch.bfloat16) == {"bq": 128, "bkv": 64}
-    assert fa.tile_geometry(256, torch.bfloat16) == {"bq": 128, "bkv": 32}
+    assert fa.tile_geometry(256, torch.bfloat16) == {"bq": 128, "bkv": 80}
     assert set(fa.ROUTES) == {"f32", "mma", "wgmma"}
     with pytest.raises(ValueError, match="head_dim"):
         fa.route(32, torch.bfloat16)
@@ -201,8 +202,14 @@ def test_flash_issued_flops_count_whole_tiles_and_the_lo_products():
     w7 = args(1, 300, 1, 1, 128)
     assert fa.issued_flops(*w7, causal=True, window=7) == \
         (1 + 2 + 2) * 128 * 128 * 6 * 128
+    # gemma-7b's prefill at head_dim 256, 80-row kv tiles: q tile t meets
+    # ceil(128 (t + 1) / 80) of them, 224 in all
+    gemma = args(8, 2048, 16, 1, 256)
+    assert sum(-(-128 * (t + 1) // 80) for t in range(16)) == 224
+    assert fa.issued_flops(*gemma, causal=True, window=0) == \
+        8 * 16 * 224 * 128 * 80 * 6 * 256
     with pytest.raises(ValueError, match="wgmma"):
-        fa.issued_flops(*args(1, 64, 1, 1, 256), causal=True, window=0)
+        fa.issued_flops(*args(1, 64, 1, 1, 16), causal=True, window=0)
 
 
 def _b3_tensor_core_emulation(q, k, v, *, causal, window):
@@ -252,7 +259,9 @@ def _b3_tensor_core_emulation(q, k, v, *, causal, window):
     (2, 257, 2, 1, 128),
     (1, 512, 4, 2, 64),
     (2, 200, 2, 1, 112),     # zamba2's head_dim: 7 k-steps, 14 n-tiles
-    (1, 100, 2, 3, 256),     # mma.sync: 32-row kv tiles, 16-row warps
+    (1, 100, 2, 3, 256),     # wgmma at gemma-7b's head_dim: 80-row kv
+    (2, 300, 1, 2, 256),     # tiles, G 3, a ragged second one; 3 q tiles
+    (2, 200, 2, 2, 16),      # mma.sync: 64-row kv tiles, 16-row warps
 ])
 @pytest.mark.parametrize("window,causal", [
     (0, True), (64, True), (0, False), (64, False)],

@@ -1,7 +1,7 @@
 """``kernels/_build.py`` names each kernel library by a hash of its source,
 every shared header under ``csrc/`` and the nvcc flags, so an edited source
 or header never loads a stale library. Runs without a toolkit, but for the
-``cuda`` test, which compiles B5 with ``nvcc``."""
+``cuda`` tests, which compile B3 and B5 with ``nvcc``."""
 import re
 import subprocess
 
@@ -77,6 +77,38 @@ def test_every_kernel_is_found_by_the_profiler():
         assert len(hits) == 1, (name, hits)
 
 
+def _ptxas(tmp_path, name):
+    """nvcc's ``-Xptxas=-v`` log of ``csrc/<name>.cu``, built apart from the
+    library cache; ``{kernel: its properties line}``."""
+    try:
+        nvcc = _build.find_nvcc()
+    except RuntimeError as e:
+        pytest.skip(f"needs nvcc: {e}")
+    proc = subprocess.run(
+        [nvcc, *_build.NVCC_FLAGS, "-o", str(tmp_path / f"{name}.so"),
+         str(_build.CSRC / f"{name}.cu")], capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    assert proc.returncode == 0, log
+    return log, dict(re.findall(r"Function properties for (\S+)\n\s*(.*)",
+                                log))
+
+
+@pytest.mark.cuda
+def test_b3_wgmma_instances_build_without_spills(tmp_path):
+    """Every instance of B3's wgmma kernel, head_dim 256 among them,
+    compiles with 0 spill bytes: the consumers' O, S and P's two parts fit
+    their 240 registers."""
+    from repro_torch.kernels import flash_attention as fa
+
+    _, props = _ptxas(tmp_path, "flash_attention")
+    found = {int(m.group(1)): line for name, line in props.items()
+             if (m := re.search(r"flash_bf16_wgmma_kernelILi(\d+)E", name))}
+    assert set(found) == set(fa.WGMMA_HEAD_DIMS)
+    for hd, line in found.items():
+        assert " 0 bytes spill stores, 0 bytes spill loads" in line, (hd,
+                                                                     line)
+
+
 @pytest.mark.cuda
 def test_b5_builds_without_spills_or_serialized_products(tmp_path):
     """Every B5 instance (the wgmma kernel, the mma.sync kernel at each
@@ -84,17 +116,8 @@ def test_b5_builds_without_spills_or_serialized_products(tmp_path):
     the wgmma kernel's products (a division, a lambda left as a call, an
     accumulator written between products or a wait in a divergent branch
     each made it do so)."""
-    try:
-        nvcc = _build.find_nvcc()
-    except RuntimeError as e:
-        pytest.skip(f"needs nvcc: {e}")
-    proc = subprocess.run(
-        [nvcc, *_build.NVCC_FLAGS, "-o", str(tmp_path / "ssd_scan.so"),
-         str(_build.CSRC / "ssd_scan.cu")], capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    assert proc.returncode == 0, log
-    props = re.findall(r"Function properties for (\S+)\n\s*(.*)", log)
-    kernels = {name: line for name, line in props if "ssd_" in name}
+    log, props = _ptxas(tmp_path, "ssd_scan")
+    kernels = {name: line for name, line in props.items() if "ssd_" in name}
     assert sum("ssd_wgmma_kernel" in n for n in kernels) == 1
     assert sum("ssd_mma_kernel" in n for n in kernels) == 3
     for name, line in kernels.items():

@@ -382,7 +382,7 @@ def _randn(shape, dtype, device, seed):
     (1, 300, 1, 4, 64, True, 0),       # ragged seq, GQA
     (2, 257, 2, 1, 128, True, 64),     # odd seq, sliding window
     (2, 200, 2, 2, 16, True, 0),       # the reduced configs' head_dim
-    (1, 100, 2, 3, 256, True, 7),      # gemma-7b's head_dim
+    (1, 100, 2, 3, 256, True, 7),      # gemma-7b's head_dim (wgmma)
     (1, 130, 1, 2, 128, False, 0),     # bidirectional
     (2, 300, 4, 1, 112, True, 0),      # zamba2's head_dim
     (1, 200, 2, 2, 112, True, 64),
@@ -403,6 +403,14 @@ def _randn(shape, dtype, device, seed):
     (1, 300, 1, 4, 128, True, 0),      # G 4
     (2, 129, 2, 1, 64, False, 0),      # one row past a tile, bidirectional
     (1, 129, 2, 2, 112, True, 0),      # one row past a tile at hd 112
+    # head_dim 256 on the wgmma route (80-row kv tiles) and G 12 at 128
+    (8, 2048, 16, 1, 256, True, 0),    # gemma-7b's serving prefill
+    (1, 1, 2, 2, 256, True, 0),        # one token
+    (1, 129, 2, 2, 256, True, 0),      # one row past a q tile
+    (1, 700, 1, 2, 256, True, 100),    # a window across kv tiles
+    (2, 300, 1, 3, 256, False, 0),     # bidirectional, G 3, ragged
+    (2, 333, 3, 3, 256, True, 100),    # K 3, G 3, a window, ragged
+    (8, 2048, 2, 12, 128, True, 0),    # starcoder2-3b's serving prefill
 ])
 def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, b, s, kh, g,
                                             hd, causal, window):
@@ -458,6 +466,8 @@ def test_flash_host_route_and_tiles_match_the_library(cuda_device, hd):
     (8, 1024, 16, 2, 128, 1024),       # gemma3-27b's full local ring
     (8, 1532, 16, 1, 64, 1501),        # whisper-medium's self cache
     (8, 1532, 16, 1, 64, 1532),
+    (8, 2080, 16, 1, 256, 2048),       # gemma-7b's serving cache
+    (8, 2080, 2, 12, 128, 2048),       # starcoder2-3b's: G 12, groups 8 + 4
 ])
 def test_decode_kernel_matches_plain_on_card(cuda_device, dtype, b, c, kh,
                                              g, hd, valid):

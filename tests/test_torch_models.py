@@ -5,8 +5,11 @@ logits and caches and four decode steps on the same parameters, and the
 port's own teacher-forced identity.
 
 Configs: reduced qwen3-0.6b (qk-norm, swiglu, tied embeddings), reduced
-starcoder2-3b (gelu, untied) and reduced qwen3 with a uniform sliding
-window of 8 (ring caches), all float32. Tolerance 1e-4 (rtol and atol) on
+starcoder2-3b (gelu, untied), reduced qwen3 with a uniform sliding
+window of 8 (ring caches), and two that keep what ``reduced()`` drops:
+reduced gemma-7b (geglu, tied) at its served head_dim of 256 with 2
+layers, and reduced starcoder2-3b at its served 12 query heads a kv head
+(24 q / 2 kv heads of 16); all float32. Tolerance 1e-4 (rtol and atol) on
 activations, caches and logits: XLA and torch sum the matmuls in another
 order, and the reduced models have logits of order 1.
 """
@@ -35,16 +38,23 @@ from repro_torch.models import (TransformerLM, attn_decode, attn_prefill,
                                 supports_shape)
 
 TOL = 1e-4
-ARCHS = ["qwen3-0.6b", "starcoder2-3b", "qwen3-0.6b-window8"]
+#: reduced configs with what each suffix puts back
+VARIANTS = {"-window8": dict(window=8),
+            "-hd256": dict(head_dim=256, n_layers=2),
+            "-g12": dict(n_heads=24, n_kv_heads=2)}
+ARCHS = ["qwen3-0.6b", "starcoder2-3b", "qwen3-0.6b-window8",
+         "gemma-7b-hd256", "starcoder2-3b-g12"]
 
 
 def _cfgs(arch):
-    """(reference cfg, port cfg), reduced and float32."""
-    base = arch.removesuffix("-window8")
-    pair = [ref_get(base).reduced(), get(base).reduced()]
-    if arch.endswith("-window8"):
-        pair = [dataclasses.replace(c, window=8) for c in pair]
-    return pair
+    """(reference cfg, port cfg), reduced and float32, with the variant's
+    fields put back."""
+    for suffix, kw in VARIANTS.items():
+        if arch.endswith(suffix):
+            base = arch.removesuffix(suffix)
+            return [dataclasses.replace(c, **kw) for c in (
+                ref_get(base).reduced(), get(base).reduced())]
+    return [ref_get(arch).reduced(), get(arch).reduced()]
 
 
 def _ref_model(arch, seed=0):
@@ -265,16 +275,18 @@ def test_init_caches_match_reference_layout():
 # model_zoo
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", list(names()))
+@pytest.mark.parametrize("arch", list(names()) + ARCHS[3:])
 def test_counts_match_reference(arch):
+    """Every registered config at its published widths, and the reduced
+    variants that keep gemma-7b's head_dim and starcoder2-3b's 12 query
+    heads a kv head."""
+    rcfg, cfg = (ref_get(arch), get(arch)) if arch in names() \
+        else _cfgs(arch)
     for shape, rshape in zip(SHAPES, REF_SHAPES):
-        assert supports_shape(get(arch), shape) == ref_supports(
-            ref_get(arch), rshape)
-        assert model_flops(get(arch), shape) == ref_flops(ref_get(arch),
-                                                          rshape)
+        assert supports_shape(cfg, shape) == ref_supports(rcfg, rshape)
+        assert model_flops(cfg, shape) == ref_flops(rcfg, rshape)
     for active in (False, True):
-        assert param_count(get(arch), active) == ref_params(ref_get(arch),
-                                                            active)
+        assert param_count(cfg, active) == ref_params(rcfg, active)
 
 
 def test_qwen3_full_width_counts():
