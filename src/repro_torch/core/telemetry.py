@@ -1,7 +1,7 @@
 """Unified telemetry layer: metrics registry + span tracer (DESIGN.md §13),
-a copy of ``repro.core.telemetry`` (numpy and threading only), so the
-same operations under the same clock export byte-equal JSONL, Prometheus
-text and Chrome traces in both packages.
+a copy of ``repro.core.telemetry`` (numpy, threading and a profiler
+range), so the same operations under the same clock export byte-equal
+JSONL, Prometheus text and Chrome traces in both packages.
 
 The planning-service stack produces all the signal an operator needs —
 per-round time-to-plan, cache hit rates, ladder rung mix, solver
@@ -30,12 +30,21 @@ pipeline from event to export (``ServiceReport.counters``,
 
 A process-global default (``set_telemetry`` / ``get_telemetry`` /
 ``telemetry_scope``) lets deep layers that have no config path — the
-fleet solver's ``fleet_solve`` spans, ``run_pso_ga``'s history recorder
-— emit into the process's telemetry without threading an argument
-through every call site. The global is a convenience channel: explicit
-arguments always win, and ``run_service`` never mutates it. The
+fleet solver's ``fleet_solve`` spans, ``run_pso_ga``'s history recorder,
+the serving path's Mamba2 blocks and SSD phases — emit into the
+process's telemetry without threading an argument through every call
+site. The global is a convenience channel: explicit arguments always
+win, and ``run_service`` never mutates it. The
 reference's ``runner_cache.*`` metrics count JAX's compiled fleet
 runners; the port compiles nothing per shape and has none.
+
+One addition to the reference's: while ``torch.profiler`` runs, every
+span also opens a ``torch.profiler.record_function`` range of its name,
+so the program's spans sit in the kineto trace on the device operations'
+clock (a device operation belongs to the innermost span open when it was
+launched). Without a profiler no range is opened (it would record
+nothing and cost as much as the span); the B/E events, and so every
+export, are the reference's.
 """
 from __future__ import annotations
 
@@ -47,6 +56,8 @@ import time
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
+from torch.autograd import _profiler_enabled
+from torch.profiler import record_function
 
 __all__ = ["Counter", "Gauge", "Histogram", "Series", "MetricsRegistry",
            "SpanTracer", "Telemetry", "get_telemetry", "set_telemetry",
@@ -397,14 +408,19 @@ class SpanTracer:
     def span(self, name: str, tid: Optional[int] = None,
              **args: Any) -> Iterator[None]:
         """``with tracer.span("replan_round", round=k): ...`` — a B/E
-        duration pair on the current (or given) track; nested spans
+        duration pair on the current (or given) track, and while a
+        profiler runs a range of the same name inside it; nested spans
         nest on the timeline exactly like the with-statements do."""
         t = self._tid(tid)
         self._emit({"ph": "B", "ts": self._ts(), "pid": self.pid,
                     "tid": t, "name": name,
                     "args": {k: _arg(v) for k, v in args.items()}})
         try:
-            yield
+            if _profiler_enabled():
+                with record_function(name):
+                    yield
+            else:
+                yield
         finally:
             self._emit({"ph": "E", "ts": self._ts(), "pid": self.pid,
                         "tid": t, "name": name})
@@ -491,8 +507,12 @@ def maybe_span(tel: Optional[Telemetry], name: str, **args: Any):
     telemetry is on, a free ``nullcontext`` when it is off (the
     off-path stays untouched)."""
     if tel is None:
-        return contextlib.nullcontext()
+        return _OFF
     return tel.span(name, **args)
+
+
+#: the off path's context: one shared, reusable ``nullcontext``
+_OFF = contextlib.nullcontext()
 
 
 # ---------------------------------------------------------------------------

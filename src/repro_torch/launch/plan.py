@@ -239,16 +239,22 @@ def plan_from_args(cfg, args, *, device, prefix: str = "plan"):
                 plan_cache=args.plan_cache, async_ingest=args.async_ingest,
                 telemetry=tel, prefix=prefix, mesh=mesh)
     if tel is not None:
-        if args.trace_out:
-            tel.export_trace(args.trace_out)
-            n_ev = len(tel.tracer.to_chrome_trace()["traceEvents"])
-            print(f"[{prefix}] telemetry: wrote {n_ev} trace events to "
-                  f"{args.trace_out} (open in Perfetto / chrome://tracing)")
-        if args.metrics_out:
-            tel.export_metrics(args.metrics_out)
-            print(f"[{prefix}] telemetry: wrote metrics snapshot to "
-                  f"{args.metrics_out}/metrics.{{jsonl,prom}}")
+        export_telemetry(tel, args, prefix)
     return rep
+
+
+def export_telemetry(tel: Telemetry, args, prefix: str) -> None:
+    """Write ``tel``'s trace to ``--trace-out`` and its registry to
+    ``--metrics-out``, where given."""
+    if args.trace_out:
+        tel.export_trace(args.trace_out)
+        n_ev = len(tel.tracer.to_chrome_trace()["traceEvents"])
+        print(f"[{prefix}] telemetry: wrote {n_ev} trace events to "
+              f"{args.trace_out} (open in Perfetto / chrome://tracing)")
+    if args.metrics_out:
+        tel.export_metrics(args.metrics_out)
+        print(f"[{prefix}] telemetry: wrote metrics snapshot to "
+              f"{args.metrics_out}/metrics.{{jsonl,prom}}")
 
 
 def add_plan_args(ap: argparse.ArgumentParser) -> None:
@@ -302,7 +308,8 @@ def add_plan_args(ap: argparse.ArgumentParser) -> None:
                          "mode, N > 0 = N producer threads")
     ap.add_argument("--trace-out", default=None, metavar="FILE",
                     help="write a Chrome trace-event JSON of the planning "
-                         "spans (Perfetto / chrome://tracing)")
+                         "spans (Perfetto / chrome://tracing); serve "
+                         "without --plan: of the serving spans")
     ap.add_argument("--mesh", default="none",
                     choices=("none", "host", "prod"),
                     help="device mesh for the fleet solver: shard every "

@@ -39,8 +39,10 @@ plans instead (``core/service.py``: watchdog, ladder, breaker, triage,
 rate estimation, plan cache; ``--chaos`` injects faults) and, like the
 reference, returns without serving the LM: it is the serving loop.
 ``--trace-out`` / ``--metrics-out`` export the planning path's
-telemetry; ``--plan --mesh host`` shards every solve over a device mesh
-(``launch/plan.py``).
+telemetry; without ``--plan``, ``--trace-out`` exports the serving calls'
+spans instead (``Server.generate``'s, and the Mamba2 blocks' and SSD
+phases'), all through the process-global channel. ``--plan --mesh host``
+shards every solve over a device mesh (``launch/plan.py``).
 
 The LM server runs on one device, or on a device mesh: ``Server(mesh=)``,
 or, without one, the reference's ``elastic_mesh(model=model_axis)`` over
@@ -72,9 +74,12 @@ import torch.distributed as dist
 from ..configs import get
 from ..configs.base import ModelConfig
 from ..core.device import resolve_device
+from ..core.telemetry import (Telemetry, get_telemetry, maybe_span,
+                              telemetry_scope)
 from ..models import build_model
 from .mesh import data_axes_of
-from .plan import add_plan_args, check_plan_args, plan_from_args
+from .plan import (add_plan_args, check_plan_args, export_telemetry,
+                   plan_from_args)
 
 __all__ = ["Server", "main", "request_batch", "kernel_launches"]
 
@@ -129,6 +134,7 @@ class Server:
         self.prompt_len = prompt_len
         self.cache_len = prompt_len + max_new
         self.device = resolve_device(device)
+        self.calls = 0                  # generate calls so far
         if mesh is None and (model_axis > 1 or int(
                 os.environ.get("WORLD_SIZE", "1")) > 1):
             from ..runtime import elastic_mesh
@@ -149,29 +155,44 @@ class Server:
     def generate(self, batch: Dict[str, np.ndarray]) -> Dict[str, Any]:
         """batch: ``request_batch``'s dict, handed to the model's prefill
         whole. Returns the generated tokens (B, n) and the prefill / decode
-        wall clocks."""
+        wall clocks. The process-global telemetry (``telemetry_scope``), if
+        one is installed, gets the call's spans: ``serve.generate``
+        (``call``, this server's sequence number), ``serve.prefill``, a
+        ``serve.decode_step`` a step and a ``serve.readback`` around each
+        read of the tokens, and from the model's layers theirs."""
+        tel = get_telemetry()
+        self.calls += 1
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        t0 = time.perf_counter()
-        logits, caches = self.model.prefill(batch, cache_len=self.cache_len)
-        tok = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
-        out_tokens = [tok.cpu().numpy()]          # waits for the prefill
-        t_prefill = time.perf_counter() - t0
+        with maybe_span(tel, "serve.generate", call=self.calls,
+                        rows=self.batch, prompt_len=self.prompt_len,
+                        max_new=self.max_new):
+            t0 = time.perf_counter()
+            with maybe_span(tel, "serve.prefill"):
+                logits, caches = self.model.prefill(
+                    batch, cache_len=self.cache_len)
+                tok = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
+            with maybe_span(tel, "serve.readback"):
+                out_tokens = [tok.cpu().numpy()]  # waits for the prefill
+            t_prefill = time.perf_counter() - t0
 
-        done = np.zeros((self.batch,), bool)
-        t0 = time.perf_counter()
-        n_gen = 1
-        for i in range(self.max_new - 1):
-            logits, caches = self.model.decode_step(
-                caches, {"token": tok, "pos": self.prompt_len + i})
-            tok = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
-            t_np = tok.cpu().numpy()
-            out_tokens.append(t_np)
-            n_gen += 1
-            done |= t_np[:, 0] == self.eos
-            if done.all():
-                break
-        t_decode = time.perf_counter() - t0
+            done = np.zeros((self.batch,), bool)
+            t0 = time.perf_counter()
+            n_gen = 1
+            for i in range(self.max_new - 1):
+                with maybe_span(tel, "serve.decode_step", step=i):
+                    logits, caches = self.model.decode_step(
+                        caches, {"token": tok, "pos": self.prompt_len + i})
+                    tok = logits[:, -1].argmax(dim=-1).to(
+                        torch.int32)[:, None]
+                    with maybe_span(tel, "serve.readback"):
+                        t_np = tok.cpu().numpy()
+                out_tokens.append(t_np)
+                n_gen += 1
+                done |= t_np[:, 0] == self.eos
+                if done.all():
+                    break
+            t_decode = time.perf_counter() - t0
         return {
             "tokens": np.concatenate(out_tokens, axis=1),
             "prefill_s": t_prefill,
@@ -214,9 +235,9 @@ def main(argv=None) -> None:
         ap.error("--replan requires --plan")
     if args.serve_scenario and not args.plan:
         ap.error("--serve requires --plan")
-    if (args.trace_out or args.metrics_out) and not args.plan:
-        ap.error("--trace-out / --metrics-out instrument the planning "
-                 "path: they require --plan")
+    if args.metrics_out and not args.plan:
+        ap.error("--metrics-out exports the planning path's metrics: they "
+                 "require --plan")
     check_plan_args(ap, args)
     device = resolve_device(args.device)
 
@@ -237,11 +258,14 @@ def main(argv=None) -> None:
     where = f"{device}" if mesh is None else (
         f"a mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} of "
         f"{dist.get_world_size()} ranks ({dist.get_backend()})")
+    # without --plan, --trace-out records the serving calls' spans
+    tel = Telemetry() if args.trace_out and not args.plan else None
     for call in range(args.repeat):
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
         before = kernel_launches()
-        out = srv.generate(batch)
+        with telemetry_scope(tel):
+            out = srv.generate(batch)
         launches = [a - b for a, b in zip(kernel_launches(), before)]
         if rank0:
             print(f"[serve] {cfg.name} on {where}, call {call + 1}: prefill "
@@ -259,6 +283,8 @@ def main(argv=None) -> None:
                       f"{n[2]}, peak device memory {peak / 1e9:.3f} GB")
     if rank0:
         print("[serve] first row:", out["tokens"][0][:16])
+        if tel is not None:
+            export_telemetry(tel, args, "serve")
     if mesh is not None:
         dist.destroy_process_group()
 

@@ -55,6 +55,7 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
+from ..core.telemetry import get_telemetry, maybe_span
 from . import attention as attn
 from .layers import (NO_MESH, P, Sharding, cross_entropy, divisible,
                      mlp_pspec, remat, rms_norm)
@@ -105,8 +106,9 @@ class MambaBlock(nn.Module):
         y, (c_new, s_new) = mamba_decode(
             self.mamba, rms_norm(x, self.ln, cfg.norm_eps), cfg, conv, ssm,
             self.msh)
-        conv.copy_(c_new)
-        ssm.copy_(s_new)
+        with maybe_span(get_telemetry(), "mamba.store"):
+            conv.copy_(c_new)
+            ssm.copy_(s_new)
         return x + y
 
 

@@ -15,6 +15,13 @@ the (heads, head_dim, state) recurrent state, in place of the reference's
 ``lax.scan``. ``ssd_sequential`` is the O(S)-step recurrence, the oracle of
 the tests.
 
+With a process-global telemetry (``core.telemetry.telemetry_scope``) the
+block opens spans, read by the benchmark's attribution of device time by
+launch: ``mamba.seq`` (the sequence block), ``ssd.chunked`` (``chunks``,
+``q``) and inside it ``ssd.intra`` (B5), ``ssd.outflow``,
+``ssd.chunk_loop`` and ``ssd.inflow``; ``mamba.state`` (the decode step's
+state update and read-out). Without one each is a shared ``nullcontext``.
+
 On a device mesh (``layers.Sharding``) a block holds its slices of
 ``mamba_pspec``'s layout when the heads and ``d_inner`` divide the model
 axis (else every rank runs the whole block): the rank's ``d_inner / tp``
@@ -43,6 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..core.telemetry import get_telemetry, maybe_span
 from ..kernels import ops as kops
 from ..kernels.ssd_scan import ssd_intra_plain
 from .layers import NO_MESH, P, Sharding, divisible, draw_into, rms_norm
@@ -180,38 +188,45 @@ def ssd_chunked(xdt: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
         C = F.pad(C, (0, 0, 0, pad))
         s += pad
     c = s // q
-    hst = torch.zeros((b, h, p, n), dtype=torch.float32, device=xdt.device) \
-        if h0 is None else h0.float()
+    tel = get_telemetry()
+    with maybe_span(tel, "ssd.chunked", chunks=c, q=q):
+        hst = torch.zeros((b, h, p, n), dtype=torch.float32,
+                          device=xdt.device) if h0 is None else h0.float()
 
-    xc = xdt.reshape(b, c, q, h, p).float()
-    ac = a.reshape(b, c, q, h).float()
-    Bc = B.reshape(b, c, q, n).float()
-    Cc = C.reshape(b, c, q, n).float()
+        xc = xdt.reshape(b, c, q, h, p).float()
+        ac = a.reshape(b, c, q, h).float()
+        Bc = B.reshape(b, c, q, n).float()
+        Cc = C.reshape(b, c, q, n).float()
 
-    la = torch.log(torch.clamp_min(ac, 1e-30))
-    cum = torch.cumsum(la, dim=2)                       # (b,c,q,h) inclusive
-    total = cum[:, :, -1]                               # (b,c,h)
+        la = torch.log(torch.clamp_min(ac, 1e-30))
+        cum = torch.cumsum(la, dim=2)                   # (b,c,q,h) inclusive
+        total = cum[:, :, -1]                           # (b,c,h)
 
-    intra = (_intra_einsum if train else kops.ssd_intra)(xc, cum, Bc, Cc)
+        with maybe_span(tel, "ssd.intra"):
+            intra = (_intra_einsum if train else kops.ssd_intra)(
+                xc, cum, Bc, Cc)
 
-    # chunk outflow states, as two two-operand products: x is scaled by the
-    # decay first (a three-operand torch.einsum contracts left to right and
-    # would build a (b,c,q,n,h,p) intermediate)
-    decay_out = torch.exp(total[:, :, None, :] - cum)   # (b,c,q,h)
-    state_c = torch.einsum("bcqn,bcqhp->bchpn", Bc,
-                           xc * decay_out[..., None])
+        # chunk outflow states, as two two-operand products: x is scaled by
+        # the decay first (a three-operand torch.einsum contracts left to
+        # right and would build a (b,c,q,n,h,p) intermediate)
+        with maybe_span(tel, "ssd.outflow"):
+            decay_out = torch.exp(total[:, :, None, :] - cum)   # (b,c,q,h)
+            state_c = torch.einsum("bcqn,bcqhp->bchpn", Bc,
+                                   xc * decay_out[..., None])
 
-    # cross-chunk recurrence: the state entering each chunk
-    hprevs = xc.new_empty((b, c, h, p, n))
-    chunk_decay = torch.exp(total)                      # (b,c,h)
-    for k in range(c):
-        hprevs[:, k] = hst
-        hst = hst * chunk_decay[:, k, :, None, None] + state_c[:, k]
+        # cross-chunk recurrence: the state entering each chunk
+        with maybe_span(tel, "ssd.chunk_loop"):
+            hprevs = xc.new_empty((b, c, h, p, n))
+            chunk_decay = torch.exp(total)              # (b,c,h)
+            for k in range(c):
+                hprevs[:, k] = hst
+                hst = hst * chunk_decay[:, k, :, None, None] + state_c[:, k]
 
-    # inflow from earlier chunks, again as two steps
-    inter = torch.einsum("bcqn,bchpn->bcqhp", Cc, hprevs) \
-        * torch.exp(cum)[..., None]
-    y = (intra + inter).reshape(b, s, h, p)[:, :s_orig]
+        # inflow from earlier chunks, again as two steps
+        with maybe_span(tel, "ssd.inflow"):
+            inter = torch.einsum("bcqn,bchpn->bcqhp", Cc, hprevs) \
+                * torch.exp(cum)[..., None]
+            y = (intra + inter).reshape(b, s, h, p)[:, :s_orig]
     return y, hst
 
 
@@ -284,22 +299,23 @@ def mamba_seq(p: Params, x: torch.Tensor, cfg: ModelConfig,
     """Full-sequence mamba2 block. x: (B,S,D) -> (y (B,S,D),
     (conv_state, ssm_state)); ``train`` takes the differentiable intra-chunk
     form in place of B5; ``sh`` (``mamba_sharding``'s) the rank's heads."""
-    b, s, _ = x.shape
-    pdim = cfg.ssm_head_dim
-    z, xs, B, C, dt = _split_proj(p, x, cfg, sh)
-    xs, B, C, conv_state = _conv_silu_split(p, xs, B, C, cfg, conv_state,
-                                            sh)
-    h = dt.shape[-1]
-    xh = xs.reshape(b, s, h, pdim)
-    A = -torch.exp(p["A_log"])                          # (h,)
-    a = torch.exp(dt * A)                               # (b,s,h)
-    xdt = xh * dt[..., None].to(xh.dtype)               # in the model dtype
-    y, ssm_state = ssd_chunked(xdt, a, B, C, cfg.ssm_chunk, h0=ssm_state,
-                               train=train)
-    y = y + xh.float() * p["D"][:, None]
-    y = y.reshape(b, s, h * pdim).to(x.dtype)
-    y = _gated_norm(y, z, p, cfg, sh)
-    return sh.reduce(y @ p["wo"]), (conv_state, ssm_state)
+    with maybe_span(get_telemetry(), "mamba.seq"):
+        b, s, _ = x.shape
+        pdim = cfg.ssm_head_dim
+        z, xs, B, C, dt = _split_proj(p, x, cfg, sh)
+        xs, B, C, conv_state = _conv_silu_split(p, xs, B, C, cfg,
+                                                conv_state, sh)
+        h = dt.shape[-1]
+        xh = xs.reshape(b, s, h, pdim)
+        A = -torch.exp(p["A_log"])                      # (h,)
+        a = torch.exp(dt * A)                           # (b,s,h)
+        xdt = xh * dt[..., None].to(xh.dtype)           # in the model dtype
+        y, ssm_state = ssd_chunked(xdt, a, B, C, cfg.ssm_chunk,
+                                   h0=ssm_state, train=train)
+        y = y + xh.float() * p["D"][:, None]
+        y = y.reshape(b, s, h * pdim).to(x.dtype)
+        y = _gated_norm(y, z, p, cfg, sh)
+        return sh.reduce(y @ p["wo"]), (conv_state, ssm_state)
 
 
 def mamba_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -317,9 +333,11 @@ def mamba_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
     dt1 = dt[:, 0]                                      # (b,h)
     A = -torch.exp(p["A_log"])
     a = torch.exp(dt1 * A)                              # (b,h)
-    ssm_state = ssm_state * a[..., None, None] \
-        + (xh * dt1[..., None])[..., None] * B[:, 0].float()[:, None, None, :]
-    y = torch.einsum("bhpn,bn->bhp", ssm_state, C[:, 0].float())
+    with maybe_span(get_telemetry(), "mamba.state"):
+        ssm_state = ssm_state * a[..., None, None] \
+            + (xh * dt1[..., None])[..., None] \
+            * B[:, 0].float()[:, None, None, :]
+        y = torch.einsum("bhpn,bn->bhp", ssm_state, C[:, 0].float())
     y = y + xh * p["D"][:, None]
     y = y.reshape(b, 1, h * pdim).to(x.dtype)
     y = _gated_norm(y, z, p, cfg, sh)

@@ -648,7 +648,7 @@ def test_serve_cli_runs_the_service_and_exports_a_valid_trace(tmp_path,
 
 @pytest.mark.parametrize("argv,match", [
     (["--serve", "congestion"], "--serve requires --plan"),
-    (["--trace-out", "x.json"], "require --plan"),
+    (["--metrics-out", "m"], "require --plan"),
     (["--plan", "--serve", "bursty", "--traffic", "poisson"], "conflicts"),
     (["--plan", "--serve", "load-surge"], "only exists with --traffic"),
     (["--plan", "--serve", "congestion", "--estimate-rates"],

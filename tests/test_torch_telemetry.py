@@ -228,6 +228,46 @@ def test_maybe_span_and_global_scope():
     assert port.get_telemetry() is None
 
 
+def test_maybe_span_off_is_one_shared_nullcontext():
+    """Telemetry off: every span is the same no-op context, no tracer, no
+    profiler range."""
+    a, b = port.maybe_span(None, "serve.decode_step", step=1), \
+        port.maybe_span(None, "ssd.intra")
+    assert a is b
+    with a:
+        with b:
+            pass
+
+
+def test_span_is_a_profiler_range_of_its_name():
+    """Each span also opens a ``record_function`` range of its name, so the
+    profiler puts the operations run inside it under it; the B/E events are
+    the tracer's as before."""
+    tel = port.Telemetry(clock=FakeClock())
+    x = torch.ones(8)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with tel.span("outer", n=1):
+            with tel.span("inner"):
+                y = x + 1
+            y = y * 2
+    ranges = {e.name(): (e.start_ns(), e.end_ns())
+              for e in prof.profiler.kineto_results.events()
+              if e.is_user_annotation()}
+    ops = [(e.name(), e.start_ns())
+           for e in prof.profiler.kineto_results.events()
+           if e.name() in ("aten::add", "aten::mul")]
+    assert set(ranges) == {"outer", "inner"}
+    (_, t_add), = [o for o in ops if o[0] == "aten::add"]
+    (_, t_mul), = [o for o in ops if o[0] == "aten::mul"]
+    assert ranges["inner"][0] <= t_add <= ranges["inner"][1]
+    assert not ranges["inner"][0] <= t_mul <= ranges["inner"][1]
+    assert ranges["outer"][0] <= t_mul <= ranges["outer"][1]
+    assert [(e["ph"], e["name"]) for e in tel.tracer.events()] == [
+        ("B", "outer"), ("B", "inner"), ("E", "inner"), ("E", "outer")]
+    assert float(y.sum()) == 32.0
+
+
 # ---------------------------------------------------------------------------
 # byte-equal exports against the reference
 # ---------------------------------------------------------------------------
